@@ -1,0 +1,158 @@
+"""CLI entry point of the port (mode 9 only so far).
+
+    python -m p_a_multigrids_tpu_torch --mode 9 --rows 24 --cols 24 \\
+        --n-split 3 --levels 4 --ntime 2 --device cuda
+
+Prints one JSON line with the JAX package's keys (mode, residual_history,
+elements, children, L1_error, residual, wall_s), plus krylov_iterations
+with --krylov.  Flags and modes the port does not run yet exit with a
+message naming the ROADMAP.md item that will port them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+# flag (argparse dest) -> ROADMAP.md queue-1 item that ports it
+UNPORTED_FLAGS = {
+    "mesh": "CLI, IO and validation (.msh/.geo readers)",
+    "vtu": "CLI, IO and validation",
+    "vtk_interval": "CLI, IO and validation",
+    "curves": "non-stencil paths and the other modes (mode 1)",
+    "checkpoint": "CLI, IO and validation",
+    "ic": "CLI, IO and validation (expressions)",
+    "bc": "CLI, IO and validation (expressions)",
+    "source": "CLI, IO and validation (expressions)",
+    "analytical": "CLI, IO and validation (expressions)",
+    "debug": "CLI, IO and validation (sanitizer mode)",
+    "profile": "port bench (profiling)",
+    "devices": "distributed solver",
+}
+
+
+def _parser():
+    ap = argparse.ArgumentParser(prog="p_a_multigrids_tpu_torch")
+    ap.add_argument("--mode", type=int, default=9)
+    ap.add_argument("--rows", type=int, default=20)
+    ap.add_argument("--cols", type=int, default=20)
+    ap.add_argument("--n-split", type=int, default=2)
+    ap.add_argument("--levels", type=int, default=2)
+    ap.add_argument("--ntime", type=int, default=2)
+    ap.add_argument("--dt", type=float, default=None)
+    ap.add_argument("--theta", type=float, default=1.0)
+    ap.add_argument("--k", type=float, default=1.0)
+    ap.add_argument("--u", type=float, nargs=2, default=(0.0, 0.0))
+    ap.add_argument("--solver", type=str, default=None,
+                    choices=["jacobi", "richardson", "gauss_seidel",
+                             "block_jacobi", "chebyshev", "direct"])
+    ap.add_argument("--krylov", action="store_true",
+                    help="V-cycle-preconditioned PCG per step")
+    ap.add_argument("--krylov-tol", type=float, default=1e-8)
+    ap.add_argument("--amg", action="store_true")
+    ap.add_argument("--cheb-degree", type=int, default=6)
+    ap.add_argument("--cheb-lower", type=float, default=0.1)
+    ap.add_argument("--coarse-cheb-degree", type=int, default=None)
+    ap.add_argument("--coarse-cheb-lower", type=float, default=None)
+    ap.add_argument("--coarse-pack", type=int, default=1,
+                    help="accepted for parity; coarse levels run unpacked "
+                         "(a pure relabeling)")
+    ap.add_argument("--cycle-type", type=str, default="v",
+                    choices=["v", "w"])
+    ap.add_argument("--restrictor", type=str, default="linear",
+                    choices=["linear", "corner_average"])
+    ap.add_argument("--no-surface-terms", action="store_true")
+    ap.add_argument("--omega", type=float, default=0.8)
+    ap.add_argument("--n-smooth", type=int, default=4)
+    ap.add_argument("--n-multigrid", type=int, default=2)
+    ap.add_argument("--f64", action="store_true",
+                    help="float64 (CPU only: kernel K1 is float32)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device: cuda runs kernel K1, cpu its plain "
+                         "PyTorch version")
+    # not ported yet: each exits with a message (UNPORTED_FLAGS)
+    for flag in ("--mesh", "--vtu", "--curves", "--checkpoint", "--ic",
+                 "--bc", "--source", "--analytical", "--profile"):
+        ap.add_argument(flag, type=str, default=None)
+    ap.add_argument("--vtk-interval", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--debug", action="store_true")
+    return ap
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; prints the JSON line and returns it as a dict."""
+    args = _parser().parse_args(argv)
+    for dest, item in UNPORTED_FLAGS.items():
+        if getattr(args, dest):
+            raise SystemExit(
+                f"--{dest.replace('_', '-')} is not ported to "
+                f"p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: {item})")
+    if args.mode != 9:
+        raise SystemExit(
+            f"mode {args.mode} is not ported to p_a_multigrids_tpu_torch yet"
+            " (ROADMAP.md, queue 1); only mode 9 runs")
+
+    import torch
+
+    from .config import Physics, SemiConfig, Solver
+    from .mesh import structured
+    from .models import semi
+    from .ops import fused
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(use --device cpu for the plain PyTorch path)")
+    if args.f64 and device.type != "cpu":
+        raise SystemExit("--f64 runs on --device cpu only: kernel K1 is "
+                         "float32")
+
+    t0 = time.time()
+    mesh = structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
+                               1.0 / args.cols)
+    cfg = SemiConfig(
+        n_split=args.n_split, multi_levels=args.levels,
+        ntime=args.ntime, dt=args.dt or 1.25e-5, theta=args.theta,
+        n_multigrid=args.n_multigrid, n_smooth=args.n_smooth,
+        omega=args.omega, cheb_degree=args.cheb_degree,
+        cheb_lower=args.cheb_lower, cycle_type=args.cycle_type,
+        restrictor=args.restrictor, krylov=args.krylov,
+        krylov_tol=args.krylov_tol, amg=args.amg,
+        coarse_cheb_degree=args.coarse_cheb_degree,
+        coarse_cheb_lower=args.coarse_cheb_lower,
+        coarse_pack=args.coarse_pack,
+        physics=Physics(k=args.k, u=tuple(args.u),
+                        advection=any(args.u),
+                        surface_terms=not args.no_surface_terms),
+        dtype="float64" if args.f64 else "float32")
+    if args.solver:
+        cfg = dataclasses.replace(cfg, solver=Solver(args.solver))
+    try:
+        solver = semi.SemiSolver(semi.build_problem(mesh, cfg), device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
+
+    out = {"mode": args.mode}
+    T_t = fused.to_t(solver.initial_condition())
+    hist = []
+    for _ in range(cfg.ntime):
+        T_t = solver._step_t(T_t)
+        hist.append(float(solver.convergence_t(T_t)))
+    out["residual_history"] = hist
+    T = fused.from_t(T_t)
+    err = solver.error(T)
+    out.update(elements=mesh.num_elements, children=4 ** args.n_split,
+               L1_error=float(err.mean()),
+               residual=float(solver.convergence(T)))
+    if cfg.krylov:
+        out["krylov_iterations"] = list(solver.krylov_iters)
+    out["wall_s"] = round(time.time() - t0, 3)
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

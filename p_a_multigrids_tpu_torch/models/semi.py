@@ -1,0 +1,644 @@
+"""Semi-structured geometric-multigrid transport solver (mode 9).
+
+Port of the stencil path of the JAX package's ``models/semi.py``:
+
+- the host half (``manufactured_*``, ``_face_geometry``, ``_penalty_*``,
+  ``build_problem``) is numpy copied from it and yields the same tables bit
+  for bit, cast to the run dtype before the stencil is assembled;
+- ``SemiSolver`` is an ``nn.Module`` running the transposed-layout (3, C, U)
+  V-cycle (or V-cycle-preconditioned PCG) on one device.  Every smoothing
+  phase, residual and operator apply is a call of the relaxation-phase
+  kernel K1 (``ops.phase.phase``); on a CPU tensor that call runs the plain
+  PyTorch version.
+
+What this port does not run raises ``NotImplementedError`` naming the
+ROADMAP.md item that will port it: the smoothed-aggregation hierarchy
+(``amg=True``, or ``coarse_agg`` below a geometric coarsest too large for
+the dense inverse), ``theta < 1``, ``coarse_operator="galerkin"``, smoothers
+other than Chebyshev and block-Jacobi, the non-stencil operator paths, the
+sanitizer mode and BiCGStab (``krylov`` with advection).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import warnings
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import SemiConfig, Solver
+from ..mesh import geometry, semi, splitting
+from ..mesh.topology import MacroMesh
+from ..ops import krylov, smoothers
+from ..ops import local_matrices as lm
+from ..ops.fused import from_t, to_t
+from ..ops.phase import phase
+from ..ops.stencil import (StencilOperator, build_stencil, lam_max_estimate,
+                           to_dense)
+from ..utils import shape_functions
+
+
+def manufactured_solution(x, y):
+    """boundary(x,y) = sin(x+y)."""
+    return np.sin(x + y)
+
+
+def manufactured_source(x, y, k):
+    """+2k sin(x+y) = -k*laplace(sin(x+y))."""
+    return 2.0 * k * manufactured_solution(x, y)
+
+
+# ---------------------------------------------------------------------------
+# setup (host numpy)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SemiProblem:
+    grid: semi.SemiGrid
+    cfg: SemiConfig
+    levels: list[dict]          # host tables per level (0 = finest)
+    coords_fine: np.ndarray     # (U, C, 2, 3) finest child node coords
+    analytical: np.ndarray      # (U, C, 3) in the run dtype
+
+    @property
+    def num_macro(self):
+        return self.grid.num_macro
+
+
+def _face_geometry(mesh: MacroMesh, ngi: int, sngi: int):
+    """Macro-element geometry in the child-face convention: detwei0 (U,
+    ngi), nx0 (U, ngi, 2, 3), sdet0 (U, 3, sngi) edge |J|*w and snorm0 (U,
+    3, sngi, 2) outward unit normals (for an up child)."""
+    n, nlx, w = shape_functions.tri_p1(ngi)
+    jac = np.einsum("gal,ubl->ugab", nlx, mesh.X)
+    detj = jac[..., 0, 0] * jac[..., 1, 1] - jac[..., 0, 1] * jac[..., 1, 0]
+    detwei0 = 0.5 * np.abs(detj) * w                     # (U, ngi)
+    inv = np.empty_like(jac)
+    inv[..., 0, 0] = jac[..., 1, 1]
+    inv[..., 0, 1] = -jac[..., 0, 1]
+    inv[..., 1, 0] = -jac[..., 1, 0]
+    inv[..., 1, 1] = jac[..., 0, 0]
+    inv /= detj[..., None, None]
+    nx0 = np.einsum("ugab,gbl->ugal", inv, nlx)          # (U, ngi, 2, 3)
+
+    sn, snlx, sw = shape_functions.edge_p1(sngi)
+    U = mesh.num_elements
+    centroid = mesh.X.mean(axis=2)                       # (U, 2)
+    sdet0 = np.zeros((U, 3, sngi))
+    snorm0 = np.zeros((U, 3, sngi, 2))
+    for f in range(3):
+        a, b = splitting.CHILD_FACE_NODES[f]
+        xsl = mesh.X[:, :, [a, b]]                       # (U, 2, 2)
+        t = np.einsum("gl,ubl->ugb", snlx[:, 0, :], xsl)
+        tnorm = np.linalg.norm(t, axis=-1)               # (U, sngi)
+        sdet0[:, f] = tnorm * sw
+        nrm = np.stack([t[..., 1], -t[..., 0]], axis=-1) / tnorm[..., None]
+        approx = xsl.mean(axis=2) - centroid             # (U, 2)
+        sign = np.sign(np.sum(nrm * approx[:, None, :], axis=-1))
+        sign[sign == 0] = 1.0
+        snorm0[:, f] = nrm * sign[..., None]
+    return detwei0, nx0, sdet0, snorm0
+
+
+def _penalty_dx(mesh: MacroMesh, lvl: semi.SemiLevel) -> np.ndarray:
+    """Center-to-center distances for the k/dx penalty, per (u, c, face):
+    child-centroid distance inside a macro, macro centroid distance / 2**s
+    across macros, (macro centroid to face midpoint) / 2**s on the domain
+    boundary."""
+    U = mesh.num_elements
+    n = lvl.n
+    C = 4 ** n
+    coords = splitting.child_coords(mesh.X, n)           # (U, C, 2, 3)
+    cent = coords.mean(axis=3)                           # (U, C, 2)
+    cent_flat = cent.reshape(U * C, 2)
+    neigh = lvl.neigh_elem                               # (U, C, 3)
+    safe = np.maximum(neigh, 0)
+    d_child = np.linalg.norm(
+        cent[:, :, None, :] - cent_flat[safe], axis=-1)  # (U, C, 3)
+
+    macro_cent = mesh.X.mean(axis=2)                     # (U, 2)
+    cf2mf = splitting.CHILD2MACRO_FACE
+    d_macro = np.zeros((U, 3))
+    for mf in range(3):
+        v = mesh.neig[:, mf]
+        safe_v = np.maximum(v, 0)
+        dd = np.linalg.norm(macro_cent - macro_cent[safe_v], axis=-1)
+        a, b = splitting.MACRO_FACE_NODES[mf]
+        mid = 0.5 * (mesh.X[:, :, a] + mesh.X[:, :, b])
+        d_bnd = np.linalg.norm(macro_cent - mid, axis=-1)
+        d_macro[:, mf] = np.where(v >= 0, dd, d_bnd) / (2 ** n)
+
+    intra = np.broadcast_to(
+        (splitting.child_neighbors(n) >= 0)[None], (U, C, 3))
+    dx = np.where(intra, d_child, d_macro[:, None, :][:, :, cf2mf])
+    return np.maximum(dx, 1e-300)
+
+
+def _penalty_face_over_area(mesh: MacroMesh, lvl: semi.SemiLevel,
+                            sdet0: np.ndarray) -> np.ndarray:
+    """Shape-robust SIP penalty scale: max over the two incident elements of
+    |F| / |E| at child scale -> (U, C, 3)."""
+    U = mesh.num_elements
+    n = lvl.n
+    C = 4 ** n
+    area_macro = np.abs(geometry.tri_area(mesh.X))        # (U,)
+    child_area = area_macro / (4.0 ** n)                  # (U,)
+    face_len = sdet0.sum(axis=2) / (2.0 ** n)             # (U, 3) child scale
+    my_ratio = face_len[:, None, :] / child_area[:, None, None]  # (U, 1, 3)
+    my_ratio = np.broadcast_to(my_ratio, (U, C, 3)).copy()
+    neigh_u = np.maximum(lvl.neigh_elem, 0) // C          # (U, C, 3)
+    nb_ratio = face_len[:, None, :] / child_area[neigh_u]
+    nb_ratio = np.where(lvl.neigh_elem >= 0, nb_ratio, my_ratio)
+    return np.maximum(my_ratio, nb_ratio)
+
+
+def build_problem(mesh: MacroMesh, cfg: SemiConfig) -> SemiProblem:
+    """Host tables of every level, pre-cast to the run dtype (the stencil
+    is then assembled in that precision, as in the JAX package)."""
+    grid = semi.build_grid(mesh, cfg.n_split, cfg.multi_levels)
+    dtype = np.dtype(cfg.dtype)
+    ngi, sngi = 3, 2
+    n_tab, nlx, w = shape_functions.tri_p1(ngi)
+    sn_tab, _, sw = shape_functions.edge_p1(sngi)
+    ft = shape_functions.tri_face_tables(ngi, sngi)
+    detwei0, nx0, sdet0, snorm0 = _face_geometry(mesh, ngi, sngi)
+    U = mesh.num_elements
+    k = cfg.physics.k
+    u_vec = np.asarray(cfg.physics.u)
+
+    # macro-scale stencils (children reuse them via scalings)
+    M0 = lm.mass(n_tab, detwei0)
+    ml0 = lm.lumped_mass(n_tab, detwei0)
+    D0 = lm.diffusion_volume(nx0, detwei0, k)
+    K0 = lm.advection_stiffness(
+        n_tab, nx0, detwei0,
+        np.broadcast_to(u_vec, detwei0.shape + (2,)))
+
+    levels = []
+    for i, lvl in enumerate(grid.levels):
+        s = lvl.n
+        C = 4 ** s
+        scale_m = 1.0 / 4.0 ** s
+        scale_k = 1.0 / 2.0 ** s
+        if cfg.physics.sip_consistency:
+            inv_dx = _penalty_face_over_area(mesh, lvl, sdet0)
+            # Galerkin matching: a coarse function prolonged to the fine
+            # grid is penalized with the FINE |F|/|E| coefficient, 2**i
+            # times the coarse level's own ratio
+            inv_dx = inv_dx * (2.0 ** i)
+        else:
+            inv_dx = 1.0 / _penalty_dx(mesh, lvl)
+        # Dirichlet ghost endpoint values at boundary faces (finest level
+        # only; coarse correction equations use homogeneous ghosts)
+        bc_fn = cfg.fns.bc
+        if bc_fn is None and cfg.manufactured:
+            bc_fn = manufactured_solution
+        bc_vals = np.zeros((len(lvl.bc_elem), 2))
+        if bc_fn is not None and i == 0 and len(lvl.bc_elem):
+            bc_vals = np.broadcast_to(np.asarray(
+                bc_fn(lvl.bc_coords[:, :, 0], lvl.bc_coords[:, :, 1]),
+                np.float64), (len(lvl.bc_elem), 2))
+        neu_mask = np.zeros((U, C, 3), bool)
+        if cfg.fns.neumann is not None and len(lvl.bc_elem):
+            mid = lvl.bc_coords.mean(axis=1)             # (nb, 2)
+            is_neu = np.asarray(cfg.fns.neumann(mid[:, 0], mid[:, 1]), bool)
+            flat = np.zeros((U * C, 3), bool)
+            flat[lvl.bc_elem, lvl.bc_face] = is_neu
+            neu_mask = flat.reshape(U, C, 3)
+        diff_on = np.where(neu_mask, 0.0, 1.0)
+        bc_dense = np.zeros((U * C, 3, 2))
+        if len(lvl.bc_elem):
+            bc_dense[lvl.bc_elem, lvl.bc_face] = bc_vals
+        bc_dense = bc_dense.reshape(U, C, 3, 2)
+        L = dict(
+            n=np.asarray(n_tab, dtype),
+            sn=np.asarray(sn_tab, dtype),
+            face_sn=np.asarray(ft["face_sn"], dtype),
+            M=np.asarray(M0 * scale_m, dtype),
+            ml=np.asarray(ml0 * scale_m, dtype),
+            D=np.asarray(D0, dtype),
+            K=np.asarray(K0 * scale_k, dtype),
+            nx1=np.asarray(nx0[:, 0], dtype),    # (U, 2, nloc) P1 gradients
+            sdet=np.asarray(sdet0 * scale_k, dtype),
+            snorm=np.asarray(snorm0, dtype),
+            updown=np.asarray(lvl.updown, dtype),
+            neigh_elem=np.asarray(lvl.neigh_elem),
+            neigh_perm=np.asarray(lvl.neigh_perm),
+            bc_elem=np.asarray(lvl.bc_elem),
+            bc_face=np.asarray(lvl.bc_face),
+            bc_vals=np.asarray(bc_vals, dtype),
+            bc_dense=np.asarray(bc_dense, dtype),
+            inv_dx=np.asarray(inv_dx, dtype),
+            neu_mask=np.asarray(neu_mask),
+            diff_on=np.asarray(diff_on, dtype),
+        )
+        # intra-macro child table and the cross-macro source of every
+        # boundary-strip slot (halo_src: flat u*C + c, the element itself
+        # on a domain-boundary face)
+        cn = splitting.child_neighbors(s)                # (C, 3)
+        intra_idx = np.where(cn >= 0, cn, np.arange(C)[:, None])
+        bnd_c, bnd_f = np.nonzero(cn < 0)
+        nb = len(bnd_c)
+        slot_of = np.zeros((C, 3), np.int64)
+        slot_of[bnd_c, bnd_f] = np.arange(nb)
+        self_flat = (np.arange(U)[:, None] * C + bnd_c[None, :])
+        halo_src = np.asarray(lvl.neigh_elem)[:, bnd_c, bnd_f]
+        halo_src = np.where(halo_src >= 0, halo_src, self_flat)
+        L.update(intra_idx=np.asarray(intra_idx),
+                 intra_mask=np.asarray(cn >= 0),
+                 slot_of=np.asarray(slot_of),
+                 halo_src=np.asarray(halo_src),
+                 C=C, s=s)
+        levels.append(L)
+
+    coords_fine = splitting.child_coords(mesh.X, cfg.n_split)
+    xf, yf = coords_fine[:, :, 0], coords_fine[:, :, 1]
+    src_fn = cfg.fns.source
+    ana_fn = cfg.fns.analytical
+    if cfg.manufactured:
+        src_fn = src_fn or (lambda x, y: manufactured_source(x, y, k))
+        ana_fn = ana_fn or manufactured_solution
+    src = (np.broadcast_to(np.asarray(src_fn(xf, yf), np.float64),
+                           xf.shape) if src_fn else np.zeros(xf.shape))
+    ana = (np.broadcast_to(np.asarray(ana_fn(xf, yf), np.float64),
+                           xf.shape) if ana_fn else np.zeros(xf.shape))
+    levels[0]["source"] = np.asarray(src, dtype)
+    return SemiProblem(grid=grid, cfg=cfg, levels=levels,
+                       coords_fine=coords_fine,
+                       analytical=np.asarray(ana, dtype))
+
+
+# ---------------------------------------------------------------------------
+# multigrid transfer
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _transfer_tables(n_coarse: int):
+    """Transfer tables between split depths n_coarse+1 and n_coarse:
+    fine_of (Cc, 4) children of each coarse element (corners first),
+    parent (Cf,) and pweights (Cf, 3, 3): the correction at fine node l is
+    sum_k pweights[fc, l, k] * e_coarse[parent, k] (linear
+    interpolation)."""
+    fine_of = splitting.element_conversion(n_coarse)
+    Cc = fine_of.shape[0]
+    Cf = 4 ** (n_coarse + 1)
+    cv, _ = splitting.child_lattice(n_coarse)
+    fv, _ = splitting.child_lattice(n_coarse + 1)
+    parent = np.zeros((Cf,), np.int32)
+    for cc in range(Cc):
+        parent[fine_of[cc]] = cc
+    pweights = np.zeros((Cf, 3, 3))
+    for fc in range(Cf):
+        cc = parent[fc]
+        V = cv[cc].astype(float) * 2.0                   # coarse verts, fine units
+        A = np.stack([V[0] - V[2], V[1] - V[2]], axis=1)  # (2, 2)
+        for l in range(3):
+            p = fv[fc, l].astype(float)
+            ab = np.linalg.solve(A, p - V[2])
+            pweights[fc, l] = [ab[0], ab[1], 1.0 - ab.sum()]
+    return fine_of, parent, pweights
+
+
+def _parent_onehot(n_coarse: int) -> np.ndarray:
+    """(Cc, Cf) child -> parent one-hot: the 4-children-per-parent
+    reduction of the restriction as a small contraction, no scatter."""
+    _, parent, _ = _transfer_tables(n_coarse)
+    Cc, Cf = 4 ** n_coarse, 4 ** (n_coarse + 1)
+    parent_oh = np.zeros((Cc, Cf))
+    parent_oh[parent, np.arange(Cf)] = 1.0
+    return parent_oh
+
+
+def restrict_t(r_fine_t, parent_oh, pweights):
+    """Transpose-of-prolongation restriction R = P^T in transposed layout:
+    (3, Cf, U) -> (3, Cc, U)."""
+    contrib = torch.einsum("flk,lfu->kfu", pweights, r_fine_t)
+    return torch.einsum("cf,kfu->kcu", parent_oh, contrib).contiguous()
+
+
+def restrict_corner_average_t(r_fine_t, corners):
+    """The Fortran reference's restrictor, transposed layout: coarse node k
+    takes the mean of the residual over the corner child at that node;
+    corners (Cc, 3) holds those children."""
+    return r_fine_t[:, corners, :].mean(dim=0).permute(1, 0, 2).contiguous()
+
+
+def prolong_t(e_coarse_t, parent_oh, pweights):
+    """Linear interpolation of the coarse correction, transposed layout:
+    (3, Cc, U) -> (3, Cf, U)."""
+    ec = torch.einsum("cf,kcu->kfu", parent_oh, e_coarse_t)
+    return torch.einsum("flk,kfu->lfu", pweights, ec).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# solver
+# ---------------------------------------------------------------------------
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to p_a_multigrids_tpu_torch yet "
+        f"(ROADMAP.md, queue 1: {item})")
+
+
+def _check_config(cfg: SemiConfig):
+    """Raise for every setting whose path this port does not run."""
+    if cfg.amg:
+        raise _not_ported("amg=True", "SA/AMG correction")
+    if cfg.theta < 1.0:
+        raise _not_ported("theta < 1", "non-stencil paths and the other "
+                                       "modes (apply_spatial)")
+    if cfg.coarse_operator == "galerkin":
+        raise _not_ported('coarse_operator="galerkin"',
+                          "deep split and the other stencil-path options")
+    if cfg.coarse_operator != "geometric":
+        raise ValueError(f"unknown coarse_operator {cfg.coarse_operator!r}")
+    if cfg.restrictor not in ("linear", "corner_average"):
+        raise ValueError(f"unknown restrictor {cfg.restrictor!r}")
+    if cfg.solver not in (Solver.CHEBYSHEV, Solver.BLOCK_JACOBI):
+        raise _not_ported(f"solver={cfg.solver.value}",
+                          "non-stencil paths and the other modes")
+    if (not cfg.stencil_operator or cfg.stencil_probe
+            or 4 ** cfg.n_split > cfg.stencil_max_children):
+        raise _not_ported("the non-stencil operator path",
+                          "non-stencil paths and the other modes")
+    if cfg.debug:
+        raise _not_ported("debug (sanitizer) mode", "CLI, IO and validation")
+    if cfg.krylov and cfg.physics.advection:
+        raise _not_ported("krylov with advection (BiCGStab)",
+                          "Krylov and the implicit path")
+    if cfg.coarse_krylov:
+        # an inner CG makes the V-cycle a nonlinear preconditioner
+        if cfg.krylov:
+            raise ValueError(
+                "coarse_krylov=True cannot be combined with krylov=True:"
+                " an inner CG makes the V-cycle preconditioner nonlinear"
+                " across outer Krylov iterations")
+        if cfg.physics.advection:
+            warnings.warn(
+                "coarse_krylov assumes an SPD coarse operator; advective"
+                " physics may misconverge — prefer stationary coarse"
+                " sweeps here", stacklevel=3)
+
+
+class SemiSolver(nn.Module):
+    """Mode-9 V-cycle / PCG transport solver on one device.
+
+    Args:
+      problem: ``build_problem``'s host tables.
+      device:  where the state and all operator buffers live; a CUDA device
+        runs every phase through kernel K1 (float32 only).
+      host:    optional precomputed host parts {"stencil": [StencilData],
+        "lam_max": [float] or None, "coarse_inv": array or None}, as
+        ``convert.solver_from_numpy`` passes them; by default they are
+        built from ``problem``.
+    """
+
+    def __init__(self, problem: SemiProblem, device, host: dict | None = None):
+        super().__init__()
+        cfg = problem.cfg
+        _check_config(cfg)
+        self.p = problem
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        nl = len(problem.levels)
+        if host is None:
+            datas = [build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+                     for L in problem.levels]
+            lam_max = ([lam_max_estimate(d) for d in datas]
+                       if cfg.solver == Solver.CHEBYSHEV else None)
+            coarse_inv = self._build_coarse_inverse(datas)
+        else:
+            datas, lam_max = host["stencil"], host["lam_max"]
+            coarse_inv = host["coarse_inv"]
+        if (cfg.coarse_agg and not cfg.coarse_krylov and coarse_inv is None
+                and nl > 1):
+            raise _not_ported(
+                "coarse_agg below a geometric coarsest level larger than "
+                f"coarse_direct_max_dof={cfg.coarse_direct_max_dof} "
+                "(pass coarse_agg=False for coarse smoothing phases)",
+                "SA/AMG correction")
+        self._lam_max = lam_max
+        self._coarse_inv_np = coarse_inv
+        self.ops = nn.ModuleList(
+            StencilOperator(d, self.dtype, self.device) for d in datas)
+        self.krylov_iters: list[int] = []
+
+        def buf(name, a):
+            self.register_buffer(name, torch.tensor(
+                np.ascontiguousarray(np.asarray(a, cfg.dtype)),
+                device=self.device))
+
+        # transfer tables between level li-1 (fine) and li (coarse)
+        for li in range(1, nl):
+            s = problem.levels[li]["s"]
+            fine_of, _, pweights = _transfer_tables(s)
+            buf(f"parent_oh_{li}", _parent_onehot(s))
+            buf(f"pweights_{li}", pweights)
+            self.register_buffer(f"corners_{li}", torch.as_tensor(
+                fine_of[:, :3].astype(np.int64), device=self.device))
+
+        # dense coarse inverse permuted into transposed flat order
+        # (i, c, u), so the in-cycle coarse solve needs no transposes
+        self.register_buffer("coarse_inv_t", None)
+        if coarse_inv is not None:
+            Lc = problem.levels[-1]
+            Uc, Cc = Lc["M"].shape[0], Lc["updown"].shape[0]
+            u_, c_, i_ = np.meshgrid(np.arange(Uc), np.arange(Cc),
+                                     np.arange(3), indexing="ij")
+            old_to_new = (i_ * Cc * Uc + c_ * Uc + u_).reshape(-1)
+            perm = np.argsort(old_to_new)
+            buf("coarse_inv_t", coarse_inv[perm][:, perm])
+
+        L0 = problem.levels[0]
+        buf("M_t", L0["M"].transpose(1, 2, 0))              # (3, 3, U)
+        buf("source_t", L0["source"].transpose(2, 1, 0))    # (3, C, U)
+        buf("analytical", problem.analytical)               # (U, C, 3)
+
+    def _build_coarse_inverse(self, datas):
+        """Dense inverse of the coarsest level (host numpy) when it has at
+        most coarse_direct_max_dof DOF, else None."""
+        if len(datas) == 1:
+            return None
+        L = self.p.levels[-1]
+        U, C = L["M"].shape[0], L["updown"].shape[0]
+        if U * C * 3 > self.cfg.coarse_direct_max_dof:
+            return None
+        return np.linalg.inv(to_dense(datas[-1])).astype(L["M"].dtype)
+
+    # -- schedules -----------------------------------------------------------
+    def _coarse_cheb_override(self, li: int) -> bool:
+        return (self.cfg.coarse_cheb_degree is not None
+                and len(self.p.levels) > 1
+                and li == len(self.p.levels) - 1)
+
+    def _cheb_roots(self, li: int):
+        cfg = self.cfg
+        deg, lower = cfg.cheb_degree, cfg.cheb_lower
+        if self._coarse_cheb_override(li):
+            deg = cfg.coarse_cheb_degree
+            if cfg.coarse_cheb_lower is not None:
+                lower = cfg.coarse_cheb_lower
+        return smoothers.chebyshev_roots(self._lam_max[li], deg, lower)
+
+    def _cheb_reps(self, li: int, sweeps: int, n_roots: int) -> int:
+        """Polynomial repetitions: with a coarse-degree override the
+        polynomial IS the coarse solve — exactly one rep."""
+        if self._coarse_cheb_override(li):
+            return 1
+        return max(1, sweeps // n_roots)
+
+    def _phase_coefs(self, li: int, sweeps: int):
+        """Per-round step sizes of one relaxation phase."""
+        cfg = self.cfg
+        if cfg.solver == Solver.CHEBYSHEV:
+            roots = self._cheb_roots(li)
+            reps = self._cheb_reps(li, sweeps, len(roots))
+            return [1.0 / r for r in roots] * reps
+        return [cfg.omega] * sweeps
+
+    # -- operator ------------------------------------------------------------
+    def _apply_t(self, li: int, x_t, with_bc: bool = False):
+        """A x in transposed layout by a zero-round phase: z = -D^-1 A x,
+        so A x = -D z."""
+        op = self.ops[li]
+        _, z_t = phase(op, x_t, torch.zeros_like(x_t), [])
+        ax = -op.mul_self(z_t)
+        return ax + op.c_aff_t if with_bc else ax
+
+    def residual(self, li: int, x, b, with_bc: bool):
+        """b - A x in the standard (U, C, 3) layout."""
+        return from_t(to_t(b) - self._apply_t(li, to_t(x), with_bc))
+
+    def _restrict_t(self, r_t, li_coarse: int):
+        if self.cfg.restrictor == "corner_average":
+            return restrict_corner_average_t(
+                r_t, getattr(self, f"corners_{li_coarse}"))
+        return restrict_t(r_t, getattr(self, f"parent_oh_{li_coarse}"),
+                          getattr(self, f"pweights_{li_coarse}"))
+
+    def _prolong_t(self, e_t, li_coarse: int):
+        return prolong_t(e_t, getattr(self, f"parent_oh_{li_coarse}"),
+                         getattr(self, f"pweights_{li_coarse}"))
+
+    def _coarse_cg_t(self, li: int, x_t, b_t):
+        """Coarsest-level solve by `coarse_sweeps` block-Jacobi PCG
+        iterations (coarse_krylov=True)."""
+        op = self.ops[li]
+        x_sol, _, _ = krylov.pcg(
+            lambda v: self._apply_t(li, v, False), b_t, x_t,
+            precond=op.solve_diag, tol=0.0,
+            maxiter=self.cfg.coarse_sweeps)
+        return x_sol
+
+    # -- V-cycle -------------------------------------------------------------
+    def _vcycle_t(self, li: int, x_t, b_t, hom: bool = False):
+        """Level-li V-cycle in the transposed layout.  hom=True solves the
+        homogeneous-BC (linear) problem, as a Krylov preconditioner does."""
+        cfg = self.cfg
+        nl = len(self.p.levels)
+        with_bc = li == 0 and not hom
+        op = self.ops[li]
+        if li == nl - 1:
+            if nl > 1 and self.coarse_inv_t is not None:
+                return (self.coarse_inv_t
+                        @ b_t.reshape(-1)).reshape(x_t.shape)
+            if cfg.coarse_krylov and nl > 1:
+                return self._coarse_cg_t(li, x_t, b_t)
+            sweeps = cfg.coarse_sweeps if nl > 1 else cfg.n_smooth
+            return phase(op, x_t, op._bp(b_t, with_bc),
+                         self._phase_coefs(li, sweeps), want_z=False)[0]
+        bp = op._bp(b_t, with_bc)
+        coefs = self._phase_coefs(li, cfg.n_smooth)
+        x_t, z_t = phase(op, x_t, bp, coefs)
+        r_t = op.mul_self(z_t)                 # r = D z = b - A x
+        bc_ = self._restrict_t(r_t, li + 1)
+        e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
+        if cfg.cycle_type == "w" and li < 2:
+            # W only near the top: the coarse systems below are solved
+            # accurately enough by one visit
+            e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
+        x_t = x_t + self._prolong_t(e_t, li + 1)
+        return phase(op, x_t, bp, coefs, want_z=False)[0]
+
+    # -- time stepping -------------------------------------------------------
+    def _rhs_t(self, told_t):
+        """b = M told/dt + M s (theta = 1) in transposed layout."""
+        def mul_M(v_t):
+            return (self.M_t[:, :, None, :] * v_t[None]).sum(dim=1)
+        return mul_M(told_t) / self.cfg.dt + mul_M(self.source_t)
+
+    def _solve_system_t(self, b_t, x0_t):
+        """A x = b (Dirichlet ghosts folded in) by V-cycle-preconditioned
+        PCG; the iteration count is appended to ``krylov_iters``."""
+        cfg = self.cfg
+        A_lin = lambda x_t: self._apply_t(0, x_t, False)
+        c = self._apply_t(0, torch.zeros_like(b_t), True)   # = c_aff
+        b_lin = b_t - c
+        precond = lambda r: self._vcycle_t(0, torch.zeros_like(r), r,
+                                           hom=True)
+        x_t, it, _ = krylov.pcg(A_lin, b_lin, x0_t, precond=precond,
+                                tol=cfg.krylov_tol,
+                                maxiter=cfg.krylov_maxiter)
+        self.krylov_iters.append(it)
+        return x_t
+
+    def _step_t(self, T_t):
+        """One implicit time step of the transposed state."""
+        b_t = self._rhs_t(T_t)
+        if self.cfg.krylov:
+            return self._solve_system_t(b_t, T_t)
+        for _ in range(self.cfg.n_multigrid):
+            T_t = self._vcycle_t(0, T_t, b_t)
+        return T_t
+
+    def initial_condition(self) -> torch.Tensor:
+        """ic callable if configured, else region_id == 4 painted to 1;
+        (U, C, 3) on the solver's device."""
+        np_dtype = np.dtype(self.cfg.dtype)
+        if self.cfg.fns.ic is not None:
+            cf = self.p.coords_fine
+            T = np.broadcast_to(
+                np.asarray(self.cfg.fns.ic(cf[:, :, 0], cf[:, :, 1]),
+                           np.float64), cf[:, :, 0].shape).astype(np_dtype)
+        else:
+            U = self.p.grid.macro.num_elements
+            T = np.zeros((U, self.p.levels[0]["C"], 3), np_dtype)
+            T[self.p.grid.macro.region_id == 4] = 1.0
+        return torch.as_tensor(T, device=self.device)
+
+    def run(self, T=None, ntime: int | None = None):
+        """ntime steps from T (default: the initial condition); the state
+        stays transposed between steps."""
+        if T is None:
+            T = self.initial_condition()
+        T_t = to_t(T)
+        for _ in range(ntime or self.cfg.ntime):
+            T_t = self._step_t(T_t)
+        return from_t(T_t)
+
+    def error(self, T) -> torch.Tensor:
+        """|T - analytical|."""
+        return (T - self.analytical).abs()
+
+    def convergence(self, T) -> torch.Tensor:
+        """L-inf norm of the residual of the state T (U, C, 3)."""
+        return self.convergence_t(to_t(T))
+
+    def convergence_t(self, T_t) -> torch.Tensor:
+        """L-inf norm of the residual b(T) - A T, transposed layout."""
+        r_t = self._rhs_t(T_t) - self._apply_t(0, T_t, True)
+        return r_t.abs().max()
+
+
+def solve(mesh: MacroMesh, cfg: SemiConfig | None, device):
+    """Build, then run cfg.ntime steps from the initial condition."""
+    cfg = cfg or SemiConfig()
+    solver = SemiSolver(build_problem(mesh, cfg), device)
+    return solver, solver.run()

@@ -1,0 +1,69 @@
+"""Quadrature tables for triangles and edges (host-side numpy).
+
+Copy of the JAX package's ``utils/quadrature.py`` rules that the slice
+uses: triangle rules return barycentric points ``(ngi, 3)`` and weights
+summing to 1; the edge rule is Gauss-Legendre on ``[-1, 1]`` with weights
+summing to 2.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_F = np.float64
+
+
+def triangle_rule(ngi: int) -> tuple[np.ndarray, np.ndarray]:
+    """Barycentric points (ngi,3) and weights (ngi,) for a triangle.
+
+    Supported ngi: 1, 3, 4, 7, 14.
+    """
+    if ngi == 1:
+        L1 = [1.0 / 3.0]
+        L2 = [1.0 / 3.0]
+        w = [1.0]
+    elif ngi == 3:
+        # midpoint rule, degree 2
+        L1 = [0.5, 0.0, 0.5]
+        L2 = [0.5, 0.5, 0.0]
+        w = [1.0 / 3.0] * 3
+    elif ngi == 4:
+        # the standard degree-3 rule (centroid with -27/48)
+        L1 = [1.0 / 3.0, 0.6, 0.2, 0.2]
+        L2 = [1.0 / 3.0, 0.2, 0.6, 0.2]
+        w = [-27.0 / 48.0, 25.0 / 48.0, 25.0 / 48.0, 25.0 / 48.0]
+    elif ngi == 7:
+        a1, b1 = 0.0597158717, 0.4701420641
+        a2, b2 = 0.7974269853, 0.1012865073
+        L1 = [1.0 / 3.0, a1, b1, b1, a2, b2, b2]
+        L2 = [1.0 / 3.0, b1, b1, a1, b2, b2, a2]
+        w = [0.225] + [0.1323941527] * 3 + [0.1259391805] * 3
+    elif ngi == 14:
+        L1 = [6.943184420297371e-002] * 5 + [0.330009478207572] * 4 + [
+            0.669990521792428] * 3 + [0.930568155797026] * 2
+        L2 = [4.365302387072518e-002, 0.214742881469342, 0.465284077898513,
+              0.715825274327684, 0.886915131926301, 4.651867752656094e-002,
+              0.221103222500738, 0.448887299291690, 0.623471844265867,
+              3.719261778493340e-002, 0.165004739103786, 0.292816860422638,
+              1.467267513102734e-002, 5.475916907194637e-002]
+        w = [1.917346464706755e-002, 3.873334126144628e-002,
+             4.603770904527855e-002, 3.873334126144628e-002,
+             1.917346464706755e-002, 3.799714764789616e-002,
+             7.123562049953998e-002, 7.123562049953998e-002,
+             3.799714764789616e-002, 2.989084475992800e-002,
+             4.782535161588505e-002, 2.989084475992800e-002,
+             6.038050853208200e-003, 6.038050853208200e-003]
+        w = list(np.asarray(w) / np.sum(w))
+    else:
+        raise ValueError(f"unsupported triangle rule ngi={ngi}")
+    L1 = np.asarray(L1, _F)
+    L2 = np.asarray(L2, _F)
+    w = np.asarray(w, _F)
+    L = np.stack([L1, L2, 1.0 - L1 - L2], axis=1)
+    return L, w
+
+
+def edge_rule(sngi: int) -> tuple[np.ndarray, np.ndarray]:
+    """Gauss-Legendre points (sngi,) on [-1,1] and weights summing to 2."""
+    x, w = np.polynomial.legendre.leggauss(sngi)
+    return x.astype(_F), w.astype(_F)

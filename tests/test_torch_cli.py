@@ -1,0 +1,84 @@
+"""The port's mode-9 CLI == the JAX package's CLI (float64, CPU); flags and
+modes the port lacks exit with a message; the port runs with jax blocked."""
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from p_a_multigrids_tpu import __main__ as jcli
+
+from p_a_multigrids_tpu_torch import __main__ as tcli
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+SMALL = ["--mode", "9", "--rows", "4", "--cols", "4", "--ntime", "2"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--krylov", "--dt", "1e8"]],
+                         ids=["vcycle", "pcg"])
+def test_cli_matches_jax(extra, capsys):
+    jcli.main(SMALL + extra + ["--cpu", "--f64"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = tcli.main(SMALL + extra + ["--device", "cpu", "--f64"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == got
+    assert set(want) <= set(got)
+    for key in ("mode", "elements", "children"):
+        assert got[key] == want[key]
+    assert got["L1_error"] == pytest.approx(want["L1_error"], rel=1e-9)
+    assert got["residual_history"] == pytest.approx(
+        want["residual_history"], rel=1e-9)
+    assert got["residual"] == pytest.approx(want["residual"], rel=1e-9)
+    assert ("krylov_iterations" in got) == bool(extra)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "4"], ["--mode", "10"], ["--mesh", "m.msh"],
+    ["--vtu", "o.vtu"], ["--vtk-interval", "2"], ["--checkpoint", "c.npz"],
+    ["--ic", "x"], ["--bc", "x"], ["--source", "x"], ["--debug"],
+    ["--devices", "2"], ["--amg"], ["--theta", "0.5"],
+    ["--solver", "jacobi"], ["--krylov", "--u", "1", "0"],
+], ids=lambda a: "_".join(a).strip("-"))
+def test_unported_flags_exit_with_message(argv):
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(SMALL + ["--device", "cpu"] + argv)
+    assert "not ported" in str(exc.value.code)
+
+
+def test_cuda_device_without_card_exits():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tcli.main(SMALL)
+
+
+def test_runs_with_jax_blocked():
+    """Importing and running the port never touches jax or the JAX
+    package."""
+    code = (
+        "import sys, json\n"
+        "sys.modules['jax'] = None\n"
+        "from p_a_multigrids_tpu_torch import __main__ as cli\n"
+        "out = cli.main(['--rows', '2', '--cols', '2', '--n-split', '1',"
+        " '--levels', '2', '--ntime', '1', '--device', 'cpu'])\n"
+        "assert 'p_a_multigrids_tpu' not in sys.modules\n"
+        "assert out['L1_error'] == out['L1_error']\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1])["mode"] == 9
+
+
+def test_sources_free_of_jax():
+    files = sorted((REPO / "p_a_multigrids_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = re.compile(r"^\s*(import jax|from jax|import p_a_multigrids_tpu\b"
+                     r"(?!_torch)|from p_a_multigrids_tpu\b(?!_torch))",
+                     re.M)
+    assert len(files) > 15
+    for f in files:
+        assert not bad.search(f.read_text()), f

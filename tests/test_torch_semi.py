@@ -1,0 +1,152 @@
+"""One solver step of the port == the JAX package's, float64 on the CPU.
+
+The JAX side runs its XLA stencil path (pallas_phase=False); the port runs
+its phase formulation (phase_reference on CPU tensors).  Steps agree to
+1e-11; PCG takes the same number of iterations and reaches the same
+solution to 1e-9.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from p_a_multigrids_tpu import config as jcfg
+from p_a_multigrids_tpu.mesh import structured as jstruct
+from p_a_multigrids_tpu.models import semi as jsemi
+from p_a_multigrids_tpu.ops import krylov as jkrylov
+
+from p_a_multigrids_tpu_torch import config as tcfg
+from p_a_multigrids_tpu_torch import convert
+from p_a_multigrids_tpu_torch.mesh import structured as tstruct
+from p_a_multigrids_tpu_torch.models import semi as tsemi
+from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
+
+MESH = (4, 4, 0.25, 0.25)                   # U = 32
+FORCED_COARSE = dict(coarse_direct_max_dof=0, coarse_agg=False,
+                     coarse_cheb_degree=8)
+CASES = {
+    "dense_coarse": dict(n_split=2, multi_levels=2),
+    "forced_coarse_phase": dict(n_split=2, multi_levels=2, **FORCED_COARSE),
+    "coarse_pack4": dict(n_split=2, multi_levels=2, coarse_pack=4,
+                         **FORCED_COARSE),
+    "w_cycle": dict(n_split=2, multi_levels=3, cycle_type="w"),
+    "block_jacobi_corner_avg": dict(n_split=2, multi_levels=2,
+                                    solver="block_jacobi",
+                                    restrictor="corner_average"),
+    "advection": dict(n_split=2, multi_levels=2, advect=True),
+}
+
+
+def _pair(dt=0.05, advect=False, solver=None, **kw):
+    """(JAX solver, port solver) on the same mesh and configuration."""
+    u = (0.4, -0.2) if advect else (0.0, 0.0)
+    kw = dict(dict(dt=dt, dtype="float64", ntime=1), **kw)
+    jc = jcfg.SemiConfig(pallas_phase=False, physics=jcfg.Physics(
+        advection=advect, u=u), **kw)
+    tc = tcfg.SemiConfig(physics=tcfg.Physics(advection=advect, u=u), **kw)
+    if solver:
+        jc = dataclasses.replace(jc, solver=jcfg.Solver(solver))
+        tc = dataclasses.replace(tc, solver=tcfg.Solver(solver))
+    js = jsemi.SemiSolver(jsemi.build_problem(jstruct.tri_mesh(*MESH), jc))
+    ts = tsemi.SemiSolver(tsemi.build_problem(tstruct.tri_mesh(*MESH), tc),
+                          "cpu")
+    return js, ts
+
+
+def _state(js, seed=0):
+    U = js.p.num_macro
+    C = js.p.levels[0]["C"]
+    return np.random.default_rng(seed).normal(size=(3, C, U))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_step_matches_jax(case):
+    js, ts = _pair(**CASES[case])
+    T_t = _state(js)
+    want = np.asarray(js._step_t(jnp.asarray(T_t)))
+    got = ts._step_t(torch.tensor(T_t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)
+    if case == "coarse_pack4":
+        assert js._pack == [1, 4]           # JAX packed; the port need not
+
+
+def test_pcg_matches_jax():
+    """Same iteration count, same solution (1e-9), same stopping rule."""
+    js, ts = _pair(krylov=True, krylov_tol=1e-8)
+    T_t = _state(js, 1)
+    b_j = js._rhs_t(jnp.asarray(T_t))
+    op = js._stencil[0]
+    b_lin = b_j - op.apply(jnp.zeros_like(b_j), True)
+    x_j, it_j, _ = jkrylov.pcg(
+        lambda v: js._apply_t(0, v, False), b_lin, jnp.asarray(T_t),
+        precond=lambda r: js._vcycle_t(0, jnp.zeros_like(r), r, hom=True),
+        tol=1e-8, maxiter=200)
+    x_t = ts._step_t(torch.tensor(T_t))
+    assert ts.krylov_iters == [int(it_j)]
+    assert 2 < int(it_j) < 200
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_coarse_krylov_step_matches_jax():
+    js, ts = _pair(n_split=2, multi_levels=2, coarse_krylov=True,
+                   coarse_agg=False, coarse_direct_max_dof=0,
+                   coarse_sweeps=6)
+    T_t = _state(js, 2)
+    want = np.asarray(js._step_t(jnp.asarray(T_t)))
+    got = ts._step_t(torch.tensor(T_t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)
+
+
+def test_run_error_convergence_match_jax():
+    js, ts = _pair(n_split=2, multi_levels=2, dt=1e8, ntime=2,
+                   n_multigrid=4)
+    Tj = js.run()
+    Tt = ts.run()
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=1e-11,
+                               atol=1e-11)
+    np.testing.assert_allclose(ts.error(Tt).numpy(),
+                               np.asarray(js.error(Tj)), atol=1e-11)
+    assert float(ts.convergence(Tt)) == pytest.approx(
+        float(js.convergence(Tj)), rel=1e-6, abs=1e-12)
+    assert float(ts.error(Tt).mean()) < 0.01
+    r = ts.residual(0, Tt, from_t(ts._rhs_t(to_t(Tt))), True)
+    assert float(r.abs().max()) == pytest.approx(float(ts.convergence(Tt)))
+
+
+def test_solver_from_numpy_equals_own_setup():
+    """The port's solver built from the JAX solver's host arrays runs the
+    same step as the port's own setup (and as JAX)."""
+    js, ts = _pair(n_split=2, multi_levels=2, krylov=False)
+    conv = convert.solver_from_numpy(
+        ts.cfg, js.p.levels, [op._data for op in js._stencil], js._lam_max,
+        js._coarse_inv_np, np.asarray(js.p.analytical), "cpu",
+        grid=js.p.grid, coords_fine=js.p.coords_fine)
+    T0 = np.asarray(js.initial_condition()) + _state(js, 3).transpose(2, 1, 0)
+    got = convert.state_to_numpy(conv.run(convert.state_from_numpy(conv, T0)))
+    own = convert.state_to_numpy(ts.run(convert.state_from_numpy(ts, T0)))
+    np.testing.assert_array_equal(got, own)
+    np.testing.assert_allclose(got, np.asarray(js.run(jnp.asarray(T0))),
+                               rtol=1e-11, atol=1e-11)
+    assert torch.equal(conv.initial_condition(), ts.initial_condition())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(amg=True),
+    dict(coarse_direct_max_dof=0),          # coarse_agg engages SA
+    dict(theta=0.5),
+    dict(coarse_operator="galerkin"),
+    dict(solver=tcfg.Solver.JACOBI),
+    dict(krylov=True, physics=tcfg.Physics(advection=True, u=(1.0, 0.0))),
+    dict(stencil_operator=False),
+    dict(debug=True),
+], ids=["amg", "coarse_agg", "theta", "galerkin", "jacobi", "bicgstab",
+        "non_stencil", "debug"])
+def test_unported_paths_raise(kw):
+    cfg = tcfg.SemiConfig(n_split=1, multi_levels=2, dt=0.05, **kw)
+    problem = tsemi.build_problem(tstruct.tri_mesh(*MESH), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsemi.SemiSolver(problem, "cpu")
