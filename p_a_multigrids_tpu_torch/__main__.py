@@ -51,7 +51,10 @@ def _parser():
     ap.add_argument("--krylov", action="store_true",
                     help="V-cycle-preconditioned PCG per step")
     ap.add_argument("--krylov-tol", type=float, default=1e-8)
-    ap.add_argument("--amg", action="store_true")
+    ap.add_argument("--amg", action="store_true",
+                    help="strength-filtered smoothed-aggregation correction "
+                         "of the finest level (kernel K2 on the GPU)")
+    ap.add_argument("--agg-strength", type=float, default=0.4)
     ap.add_argument("--cheb-degree", type=int, default=6)
     ap.add_argument("--cheb-lower", type=float, default=0.1)
     ap.add_argument("--coarse-cheb-degree", type=int, default=None)
@@ -68,7 +71,7 @@ def _parser():
     ap.add_argument("--n-smooth", type=int, default=4)
     ap.add_argument("--n-multigrid", type=int, default=2)
     ap.add_argument("--f64", action="store_true",
-                    help="float64 (CPU only: kernel K1 is float32)")
+                    help="float64 (CPU only: kernels K1 and K2 are float32)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device: cuda runs kernel K1, cpu its plain "
                          "PyTorch version")
@@ -82,8 +85,9 @@ def _parser():
     return ap
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; prints the JSON line and returns it as a dict."""
+def setup(argv=None):
+    """Parse the CLI's arguments and build its mesh and solver, as ``main``
+    runs them: returns (args, mesh, solver)."""
     args = _parser().parse_args(argv)
     for dest, item in UNPORTED_FLAGS.items():
         if getattr(args, dest):
@@ -100,17 +104,15 @@ def main(argv=None) -> dict:
     from .config import Physics, SemiConfig, Solver
     from .mesh import structured
     from .models import semi
-    from .ops import fused
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(use --device cpu for the plain PyTorch path)")
     if args.f64 and device.type != "cpu":
-        raise SystemExit("--f64 runs on --device cpu only: kernel K1 is "
+        raise SystemExit("--f64 runs on --device cpu only: kernels K1 and K2 are "
                          "float32")
 
-    t0 = time.time()
     mesh = structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
                                1.0 / args.cols)
     cfg = SemiConfig(
@@ -121,6 +123,7 @@ def main(argv=None) -> dict:
         cheb_lower=args.cheb_lower, cycle_type=args.cycle_type,
         restrictor=args.restrictor, krylov=args.krylov,
         krylov_tol=args.krylov_tol, amg=args.amg,
+        agg_strength=args.agg_strength,
         coarse_cheb_degree=args.coarse_cheb_degree,
         coarse_cheb_lower=args.coarse_cheb_lower,
         coarse_pack=args.coarse_pack,
@@ -134,7 +137,16 @@ def main(argv=None) -> dict:
         solver = semi.SemiSolver(semi.build_problem(mesh, cfg), device)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from e
+    return args, mesh, solver
 
+
+def main(argv=None) -> dict:
+    """Run the CLI; prints the JSON line and returns it as a dict."""
+    from .ops import fused
+
+    t0 = time.time()
+    args, mesh, solver = setup(argv)
+    cfg = solver.cfg
     out = {"mode": args.mode}
     T_t = fused.to_t(solver.initial_condition())
     hist = []

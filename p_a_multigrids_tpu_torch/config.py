@@ -2,9 +2,9 @@
 package's ``config.py``, same fields and defaults).
 
 Fields of paths this port does not run yet are left out.  The few kept for
-such a path (``amg``, ``coarse_agg``, ``stencil_*``, ``debug``, ...) are the
-ones ``models.semi.SemiSolver`` reads: it raises ``NotImplementedError`` for
-any value that would engage the path.
+such a path (``stencil_*``, ``debug``, ...) are the ones
+``models.semi.SemiSolver`` reads: it raises ``NotImplementedError`` for any
+value that would engage the path.
 """
 
 from __future__ import annotations
@@ -77,10 +77,22 @@ class SemiConfig:
     cheb_lower: float = 0.1
     # coarsest level: exact dense inverse when it has at most this many DOF
     coarse_direct_max_dof: int = 4096
-    # smoothed-aggregation levels below the geometric hierarchy (not ported:
-    # a geometric coarsest above the dense cap raises while this is on)
+    # smoothed-aggregation (SA) levels below a geometric coarsest that is
+    # too large for the dense inverse (ops/agg.py)
     coarse_agg: bool = True
-    amg: bool = False              # not ported: raises
+    agg_sweeps: int = 2            # block-Jacobi sweeps per SA level
+    agg_cycles: int = 1            # SA V-cycles per correction
+    agg_dense_max_dof: int = 4096  # dense inverse at the SA bottom
+    # SA filtering: blocks below drop_tol * sqrt(|diag_i||diag_j|) are
+    # dropped from the Galerkin level operators
+    agg_drop_tol: float = 1e-4
+    agg_target: int = 4            # elements per aggregate (BFS target)
+    # strength-of-connection threshold of the aggregation graph (0 = raw
+    # adjacency); dropping weak couplings semicoarsens along anisotropy
+    agg_strength: float = 0.4
+    # the SA hierarchy corrects the finest level directly (geometric
+    # coarse levels bypassed): the robust choice on anisotropic meshes
+    amg: bool = False
     cycle_type: str = "v"          # "w" recurses twice at the top two pairs
     # coarsest level by block-Jacobi PCG instead of stationary sweeps
     coarse_krylov: bool = False

@@ -2,8 +2,9 @@
 
 ``solver_from_numpy`` builds this port's ``SemiSolver`` from the host arrays
 a JAX ``SemiSolver`` holds — its per-level ``StencilData`` and
-``levels[i]["_np"]`` tables, ``_lam_max``, ``_coarse_inv_np`` and
-``analytical`` — given as plain numpy or duck-typed objects.  Nothing here
+``levels[i]["_np"]`` tables, ``_lam_max``, ``_coarse_inv_np``,
+``analytical`` and the SA hierarchy ``_agg`` — given as plain numpy or
+duck-typed objects.  Nothing here
 imports JAX.  A state T of shape (U, C, 3) moves both ways as a numpy array
 (``state_to_numpy`` / ``state_from_numpy``).
 """
@@ -17,12 +18,34 @@ import torch
 
 from .config import SemiConfig
 from .models.semi import SemiProblem, SemiSolver
+from .ops.agg import HostHierarchy, HostLevel
 from .ops.stencil import StencilData
+
+
+def agg_from_numpy(h) -> HostHierarchy:
+    """An SA hierarchy with the fields of the JAX package's
+    ``ops.agg.AggHierarchy`` (arrays of any array type) -> this port's
+    ``HostHierarchy`` of numpy tables."""
+    arr = lambda a: None if a is None else np.asarray(a)
+    levels = [HostLevel(**{f.name: (getattr(lv, f.name)
+                                    if f.name in ("n", "omega")
+                                    else arr(getattr(lv, f.name)))
+                           for f in dataclasses.fields(HostLevel)})
+              for lv in h.levels]
+    fine = None
+    if h.fine is not None:
+        fine = {k: (float(h.fine[k]) if k == "w" else arr(h.fine[k]))
+                for k in ("w", "dinv_t", "r_cols", "r_vals", "p_cols",
+                          "p_vals")}
+    return HostHierarchy(levels=levels, coarse_inv=arr(h.coarse_inv),
+                         coarse_scale=arr(h.coarse_scale),
+                         omega=float(h.omega), sweeps=int(h.sweeps),
+                         fine=fine)
 
 
 def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
                       coarse_inv, analytical, device, grid=None,
-                      coords_fine=None) -> SemiSolver:
+                      coords_fine=None, agg=None) -> SemiSolver:
     """Port ``SemiSolver`` on ``device`` from another solver's host arrays.
 
     Args:
@@ -36,6 +59,9 @@ def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
       analytical: (U, C, 3) exact solution.
       grid, coords_fine: the numpy grid and finest child coordinates, used
                   only by ``initial_condition``.
+      agg:        the other solver's SA hierarchy (``agg_from_numpy``'s
+                  input); None builds it from ``stencil`` where ``cfg``
+                  engages SA.  The level it corrects follows from ``cfg``.
     """
     lv = [dict(L["_np"], C=int(L["C"]), s=int(L["s"])) for L in levels]
     datas = [StencilData(**{f.name: (None if getattr(d, f.name, None) is None
@@ -49,6 +75,8 @@ def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
                 lam_max=None if lam_max is None else list(lam_max),
                 coarse_inv=(None if coarse_inv is None
                             else np.asarray(coarse_inv)))
+    if agg is not None:
+        host["agg"] = agg_from_numpy(agg)
     return SemiSolver(problem, device, host=host)
 
 

@@ -10,13 +10,16 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   phase, residual and operator apply is a call of the relaxation-phase
   kernel K1 (``ops.phase.phase``); on a CPU tensor that call runs the plain
   PyTorch version.
+- The smoothed-aggregation hierarchy (``ops.agg``) corrects the finest
+  level (``amg=True``) or continues below a geometric coarsest too large
+  for the dense inverse (``coarse_agg``); each of its block-row operators is
+  a call of kernel K2 (``ops.spmv``).
 
 What this port does not run raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it: the smoothed-aggregation hierarchy
-(``amg=True``, or ``coarse_agg`` below a geometric coarsest too large for
-the dense inverse), ``theta < 1``, ``coarse_operator="galerkin"``, smoothers
-other than Chebyshev and block-Jacobi, the non-stencil operator paths, the
-sanitizer mode and BiCGStab (``krylov`` with advection).
+ROADMAP.md item that will port it: ``theta < 1``,
+``coarse_operator="galerkin"``, smoothers other than Chebyshev and
+block-Jacobi, the non-stencil operator paths, the sanitizer mode and
+BiCGStab (``krylov`` with advection).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from torch import nn
 from ..config import SemiConfig, Solver
 from ..mesh import geometry, semi, splitting
 from ..mesh.topology import MacroMesh
-from ..ops import krylov, smoothers
+from ..ops import agg, krylov, smoothers
 from ..ops import local_matrices as lm
 from ..ops.fused import from_t, to_t
 from ..ops.phase import phase
@@ -348,8 +351,6 @@ def _not_ported(what: str, item: str):
 
 def _check_config(cfg: SemiConfig):
     """Raise for every setting whose path this port does not run."""
-    if cfg.amg:
-        raise _not_ported("amg=True", "SA/AMG correction")
     if cfg.theta < 1.0:
         raise _not_ported("theta < 1", "non-stencil paths and the other "
                                        "modes (apply_spatial)")
@@ -394,8 +395,9 @@ class SemiSolver(nn.Module):
       device:  where the state and all operator buffers live; a CUDA device
         runs every phase through kernel K1 (float32 only).
       host:    optional precomputed host parts {"stencil": [StencilData],
-        "lam_max": [float] or None, "coarse_inv": array or None}, as
-        ``convert.solver_from_numpy`` passes them; by default they are
+        "lam_max": [float] or None, "coarse_inv": array or None, and
+        optionally "agg": ``agg.HostHierarchy`` or None}, as
+        ``convert.solver_from_numpy`` passes them; what is not given is
         built from ``problem``.
     """
 
@@ -417,13 +419,6 @@ class SemiSolver(nn.Module):
         else:
             datas, lam_max = host["stencil"], host["lam_max"]
             coarse_inv = host["coarse_inv"]
-        if (cfg.coarse_agg and not cfg.coarse_krylov and coarse_inv is None
-                and nl > 1):
-            raise _not_ported(
-                "coarse_agg below a geometric coarsest level larger than "
-                f"coarse_direct_max_dof={cfg.coarse_direct_max_dof} "
-                "(pass coarse_agg=False for coarse smoothing phases)",
-                "SA/AMG correction")
         self._lam_max = lam_max
         self._coarse_inv_np = coarse_inv
         self.ops = nn.ModuleList(
@@ -434,6 +429,39 @@ class SemiSolver(nn.Module):
             self.register_buffer(name, torch.tensor(
                 np.ascontiguousarray(np.asarray(a, cfg.dtype)),
                 device=self.device))
+
+        # SA hierarchy: in amg mode it corrects the finest level (the
+        # geometric levels are bypassed); otherwise it continues below a
+        # geometric coarsest that the dense inverse does not take
+        self.agg = None
+        self._agg_li = None
+        li = None
+        if cfg.amg:
+            li = 0
+        elif (cfg.coarse_agg and not cfg.coarse_krylov and coarse_inv is None
+                and nl > 1):
+            li = nl - 1
+        if li is not None:
+            if host is not None and "agg" in host:
+                h = host["agg"]
+            else:
+                coords = splitting.child_coords(problem.grid.macro.X,
+                                                problem.levels[li]["s"])
+                h = agg.build_hierarchy(
+                    datas[li], coords, max_dense_dof=cfg.agg_dense_max_dof,
+                    omega=cfg.omega, sweeps=cfg.agg_sweeps,
+                    dtype=np.dtype(cfg.dtype), strength=cfg.agg_strength,
+                    always=cfg.amg, drop_tol=cfg.agg_drop_tol,
+                    target=cfg.agg_target)
+            if h.levels:
+                self.agg = agg.AggHierarchy(h, self.dtype, self.device)
+                self._agg_li = li
+                if self.agg.fine_dinv_t is not None:
+                    # (3, E) -> (3, C, U), E = u*C + c
+                    op = self.ops[li]
+                    self.register_buffer(
+                        "agg_fine_dinv_t", self.agg.fine_dinv_t.reshape(
+                            3, op.U, op.C).transpose(1, 2).contiguous())
 
         # transfer tables between level li-1 (fine) and li (coarse)
         for li in range(1, nl):
@@ -537,6 +565,36 @@ class SemiSolver(nn.Module):
             maxiter=self.cfg.coarse_sweeps)
         return x_sol
 
+    def _agg_correct_t(self, li: int, x_t, r_t):
+        """SA correction of level li from its residual r_t (3, C, U):
+        restrict into the SA hierarchy, V-cycle there, prolong back.
+
+        With the factored fine transfers P = (I - w D^-1 A) P_tent and a
+        symmetric operator (no advection), P^T r = P_tent^T (r - w A D^-1 r)
+        and P e = (I - w D^-1 A) P_tent e: the smoothing factor runs as one
+        zero-round K1 apply on each side.  Otherwise the stored smoothed
+        transfers run."""
+        h = self.agg
+        cfg = self.cfg
+        C, U = r_t.shape[1], r_t.shape[2]
+
+        def to_flat(v):                                   # e = u*C + c
+            return v.transpose(1, 2).reshape(3, U * C)
+
+        def from_flat(v):
+            return v.reshape(3, U, C).transpose(1, 2).contiguous()
+
+        if h.tent_r is not None and not cfg.physics.advection:
+            w = h.w
+            dinv = self.agg_fine_dinv_t
+            y_t = r_t - w * self._apply_t(li, dinv * r_t)
+            rc = h.tent_r(to_flat(y_t))
+            e = agg.vcycle_iter(h, rc, cfg.agg_cycles)
+            ef = from_flat(h.tent_p(e))
+            return x_t + (ef - w * (dinv * self._apply_t(li, ef)))
+        return x_t + from_flat(agg.correct_t(h, to_flat(r_t),
+                                             cfg.agg_cycles))
+
     # -- V-cycle -------------------------------------------------------------
     def _vcycle_t(self, li: int, x_t, b_t, hom: bool = False):
         """Level-li V-cycle in the transposed layout.  hom=True solves the
@@ -545,6 +603,14 @@ class SemiSolver(nn.Module):
         nl = len(self.p.levels)
         with_bc = li == 0 and not hom
         op = self.ops[li]
+        if self.agg is not None and li == self._agg_li:
+            # smooth - SA-correct - smooth (the fine level in amg mode,
+            # else the geometric coarsest); the post-smooth skips z
+            bp = op._bp(b_t, with_bc)
+            coefs = self._phase_coefs(li, cfg.n_smooth)
+            x_t, z_t = phase(op, x_t, bp, coefs)
+            x_t = self._agg_correct_t(li, x_t, op.mul_self(z_t))
+            return phase(op, x_t, bp, coefs, want_z=False)[0]
         if li == nl - 1:
             if nl > 1 and self.coarse_inv_t is not None:
                 return (self.coarse_inv_t

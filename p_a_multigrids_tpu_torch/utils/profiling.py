@@ -2,18 +2,22 @@
 
     python -m p_a_multigrids_tpu_torch.utils.profiling [--out FILE]
 
-Two measurements, each printed as a table and gathered into one JSON object
-(printed last, and written to FILE when given):
+Four measurements, each printed as a table and gathered into one JSON
+object (printed last, and written to FILE when given):
 
-- ``vcycle``: where one V-cycle of the bench-geometric configuration
+- ``vcycle`` and ``amg_vcycle``: where one V-cycle spends its device time,
+  by kernel class, with launches per cycle, the wall time per cycle by
+  CUDA events, the host's enqueue time per cycle, and the device's idle
+  share of the profiled window; for the bench-geometric configuration
   (``tri_mesh(128, 32, 3/128, 1/128)``, n_split 2, 2 levels, 393,216 DOF)
-  spends its device time, by kernel class, with launches per cycle, the
-  wall time per cycle by CUDA events, the host's enqueue time per cycle,
-  and the device's idle share of the profiled window.
+  and for the production amg configuration on the same mesh (``amg=True,
+  agg_strength=0.5, cheb_degree=16, cheb_lower=0.05``, 1 level).
 - ``rounds``: the device time of one K1 round at each level K1 runs on in
   the bench-geometric configuration and in the CLI main path
   (``tri_mesh(24, 24, 1/24, 1/24)``, n_split 3, 4 levels), beside the least
   bytes a round must move and the rate that implies.
+- ``rowops``: the device time of one K2 launch for every block-row
+  operator of the amg configuration's SA hierarchy, beside its least bytes.
 
 Device times come from ``torch.profiler`` kernel events.  Needs a CUDA
 device; without one it exits non-zero.
@@ -31,7 +35,9 @@ from ..config import SemiConfig
 from ..mesh import structured
 from ..models import semi
 from ..ops import phase as K
+from ..ops import spmv as K2
 from ..ops.fused import to_t
+from ..ops.spmv import RowOp
 from ..ops.stencil import StencilOperator
 
 
@@ -42,11 +48,20 @@ def least_bytes(op: StencilOperator, itemsize: int = 4) -> int:
     return (27 * op.C * op.U + 9 * op.nb * op.U + 12 * op.C * op.U) * itemsize
 
 
+def rowop_least_bytes(op: RowOp, itemsize: int = 4) -> int:
+    """Bytes one K2 launch must move at least: the tables (9 values and
+    one int32 column per slot), x read once and y written once."""
+    return (op.n_out * op.D * (9 * itemsize + 4)
+            + 3 * (op.n_src + op.n_out) * itemsize)
+
+
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its name."""
     low = name.lower()
     if "phase_round" in low:
         return "k1_phase_round"
+    if "rowop" in low:
+        return "k2_rowop"
     if "gemm" in low or "cutlass" in low or "cublas" in low:
         return "gemm"
     if "reduce" in low:
@@ -55,10 +70,15 @@ def kernel_class(name: str) -> str:
 
 
 def _kernels(prof) -> list:
-    """(name, start_us, duration_us) of every device kernel in a trace."""
+    """(name, start_us, duration_us) of every device kernel in a trace.
+
+    The profiler's step markers are mirrored onto the device timeline as
+    annotations spanning the whole step; they are no kernels."""
     out = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("ProfilerStep")):
             out.append((e.name, e.time_range.start, e.time_range.elapsed_us()))
     if not out:
         raise RuntimeError("torch.profiler recorded no device kernel")
@@ -77,13 +97,28 @@ def _busy_us(kernels) -> float:
 
 
 def _trace(fn, reps: int):
+    """Device kernels of reps calls of fn, traced after one untraced
+    profiler warm-up step of the same calls (the tracer can miss kernels
+    launched just after it starts)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     return _kernels(prof)
+
+
+def _check_launches(kernels, launched: dict):
+    """Raise unless the trace holds each kernel class's counted launches."""
+    for cls, n in launched.items():
+        traced = sum(1 for name, _, _ in kernels if kernel_class(name) == cls)
+        if traced != n:
+            raise RuntimeError(f"traced {traced} {cls} launches, the wrapper "
+                               f"counted {n}")
 
 
 def event_ms(fn, reps: int) -> float:
@@ -106,12 +141,26 @@ def bench_solver(device) -> semi.SemiSolver:
         structured.tri_mesh(128, 32, 3 / 128, 1 / 128), cfg), device)
 
 
-def cli_solver(device) -> semi.SemiSolver:
-    """The CLI main path's solver (``--rows 24 --cols 24 --n-split 3
-    --levels 4``, CLI defaults otherwise)."""
-    cfg = SemiConfig(n_split=3, multi_levels=4, ntime=2)
+def amg_solver(device) -> semi.SemiSolver:
+    """The production configuration (``bench.py``'s amg section) on the
+    stand-in mesh: the SA hierarchy corrects the finest level."""
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05, ntime=1,
+                     n_multigrid=1, amg=True, agg_strength=0.5,
+                     cheb_degree=16, cheb_lower=0.05)
     return semi.SemiSolver(semi.build_problem(
-        structured.tri_mesh(24, 24, 1 / 24, 1 / 24), cfg), device)
+        structured.tri_mesh(128, 32, 3 / 128, 1 / 128), cfg), device)
+
+
+# the CLI's geometric main path
+CLI_MAIN = ["--mode", "9", "--rows", "24", "--cols", "24", "--n-split", "3",
+            "--levels", "4", "--ntime", "2"]
+
+
+def cli_solver(device, argv=CLI_MAIN) -> semi.SemiSolver:
+    """The solver the CLI builds from ``argv`` (no ``--device``), on
+    ``device``."""
+    from .. import __main__ as cli
+    return cli.setup(list(argv) + ["--device", str(device)])[2]
 
 
 def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
@@ -125,12 +174,16 @@ def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
         cycle()
     torch.cuda.synchronize()
     wall_ms = event_ms(cycle, cycles)
+    n1, n2 = K.KERNEL.launches, K2.KERNEL.launches
     t0 = time.perf_counter()
     for _ in range(cycles):
         cycle()
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / cycles
+    launched = {"k1_phase_round": K.KERNEL.launches - n1,
+                "k2_rowop": K2.KERNEL.launches - n2}
     torch.cuda.synchronize()
     kernels = _trace(cycle, cycles)
+    _check_launches(kernels, launched)
     by_class: dict[str, dict] = {}
     for name, _, d in kernels:
         c = by_class.setdefault(kernel_class(name),
@@ -172,19 +225,26 @@ def round_profile(op: StencilOperator, rounds: int = 80) -> dict:
             "effective_GBps": nbytes / (dev_us * 1e-6) / 1e9}
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(
-        prog="p_a_multigrids_tpu_torch.utils.profiling")
-    ap.add_argument("--out", default=None, help="also write the JSON here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling: no CUDA device is available")
-    dev = torch.device("cuda", 0)
-    bench, cli = bench_solver(dev), cli_solver(dev)
-    out = {"device": torch.cuda.get_device_name(0),
-           "vcycle": vcycle_profile(bench), "rounds": {}}
-    v = out["vcycle"]
-    print(f"bench-geometric V-cycle, {v['cycles']} cycles")
+def rowop_profile(op: RowOp, reps: int = 50) -> dict:
+    """Device time of one K2 launch on op."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, op.n_src), generator=g).to(op.vals_t.device)
+    run = lambda: op(x)
+    run()
+    torch.cuda.synchronize()
+    kernels = [k for k in _trace(lambda: [run() for _ in range(reps)], 1)
+               if "rowop" in k[0]]
+    if len(kernels) != reps:
+        raise RuntimeError(f"traced {len(kernels)} K2 launches, ran {reps}")
+    dev_us = sum(d for _, _, d in kernels) / reps
+    nbytes = rowop_least_bytes(op, x.element_size())
+    return {"N": op.n_out, "D": op.D, "S": op.n_src,
+            "device_us": dev_us, "least_bytes": nbytes,
+            "effective_GBps": nbytes / (dev_us * 1e-6) / 1e9}
+
+
+def _print_vcycle(title: str, v: dict):
+    print(f"{title}, {v['cycles']} cycles")
     print(f"{'class':24s} {'device us/cycle':>16s} {'launches/cycle':>15s}")
     for name, c in sorted(v["by_class"].items()):
         print(f"{name:24s} {c['device_us']:16.2f} {c['launches']:15.1f}")
@@ -193,6 +253,22 @@ def main(argv=None) -> dict:
           f"{v['device_idle_share']:.4f}; wall {v['wall_ms_cuda_events']:.4f}"
           f" ms/cycle (CUDA events), host enqueue "
           f"{v['host_enqueue_ms']:.4f} ms/cycle")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(
+        prog="p_a_multigrids_tpu_torch.utils.profiling")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device is available")
+    dev = torch.device("cuda", 0)
+    bench, cli, amg = bench_solver(dev), cli_solver(dev), amg_solver(dev)
+    out = {"device": torch.cuda.get_device_name(0),
+           "vcycle": vcycle_profile(bench), "amg_vcycle": vcycle_profile(amg),
+           "rounds": {}, "rowops": {}}
+    _print_vcycle("bench-geometric V-cycle", out["vcycle"])
+    _print_vcycle("production amg V-cycle", out["amg_vcycle"])
     levels = [(f"bench_L{i}", op) for i, op in enumerate(bench.ops)]
     levels += [(f"cli_L{i}", op) for i, op in enumerate(cli.ops) if op.C > 1]
     print(f"{'level':10s} {'C':>3s} {'U':>5s} {'nb':>3s} {'dev us/round':>13s}"
@@ -204,6 +280,14 @@ def main(argv=None) -> dict:
               f"{r['device_us_per_round']:13.2f} "
               f"{r['wall_us_per_round']:14.2f} {r['least_bytes'] / 1e6:9.2f}"
               f" {r['effective_GBps']:7.0f}")
+    print(f"{'rowop':12s} {'N':>7s} {'D':>4s} {'S':>7s} {'dev us':>8s}"
+          f" {'least MB':>9s} {'GB/s':>7s}")
+    for name, op in amg.agg.rowops().items():
+        r = rowop_profile(op)
+        out["rowops"][name] = r
+        print(f"{name:12s} {r['N']:7d} {r['D']:4d} {r['S']:7d} "
+              f"{r['device_us']:8.2f} {r['least_bytes'] / 1e6:9.2f} "
+              f"{r['effective_GBps']:7.0f}")
     text = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

@@ -18,12 +18,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 SMALL = ["--mode", "9", "--rows", "4", "--cols", "4", "--ntime", "2"]
 
 
-@pytest.mark.parametrize("extra", [[], ["--krylov", "--dt", "1e8"]],
-                         ids=["vcycle", "pcg"])
-def test_cli_matches_jax(extra, capsys):
-    jcli.main(SMALL + extra + ["--cpu", "--f64"])
+def _cli_matches_jax(argv, capsys):
+    jcli.main(argv + ["--cpu", "--f64"])
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    got = tcli.main(SMALL + extra + ["--device", "cpu", "--f64"])
+    got = tcli.main(argv + ["--device", "cpu", "--f64"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == got
     assert set(want) <= set(got)
@@ -33,14 +31,36 @@ def test_cli_matches_jax(extra, capsys):
     assert got["residual_history"] == pytest.approx(
         want["residual_history"], rel=1e-9)
     assert got["residual"] == pytest.approx(want["residual"], rel=1e-9)
-    assert ("krylov_iterations" in got) == bool(extra)
+    assert ("krylov_iterations" in got) == ("--krylov" in argv)
+    return got
+
+
+@pytest.mark.parametrize("extra", [[], ["--krylov", "--dt", "1e8"]],
+                         ids=["vcycle", "pcg"])
+def test_cli_matches_jax(extra, capsys):
+    _cli_matches_jax(SMALL + extra, capsys)
+
+
+@pytest.mark.parametrize("argv", [
+    # the defaults: the 20 x 20 mesh's 9,600-DOF geometric coarsest is
+    # above the dense cap, so SA levels continue below it (coarse_agg)
+    ["--mode", "9"],
+    # the production solver, SA-corrected PCG, at a small size
+    ["--mode", "9", "--rows", "8", "--cols", "8", "--levels", "1", "--amg",
+     "--agg-strength", "0.5", "--cheb-degree", "16", "--cheb-lower", "0.05",
+     "--dt", "0.05", "--krylov", "--krylov-tol", "1e-6", "--ntime", "2"],
+], ids=["defaults", "amg_krylov"])
+def test_sa_cli_matches_jax(argv, capsys):
+    got = _cli_matches_jax(argv, capsys)
+    if "--amg" in argv:
+        assert all(it > 0 for it in got["krylov_iterations"])
 
 
 @pytest.mark.parametrize("argv", [
     ["--mode", "4"], ["--mode", "10"], ["--mesh", "m.msh"],
     ["--vtu", "o.vtu"], ["--vtk-interval", "2"], ["--checkpoint", "c.npz"],
     ["--ic", "x"], ["--bc", "x"], ["--source", "x"], ["--debug"],
-    ["--devices", "2"], ["--amg"], ["--theta", "0.5"],
+    ["--devices", "2"], ["--theta", "0.5"],
     ["--solver", "jacobi"], ["--krylov", "--u", "1", "0"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_unported_flags_exit_with_message(argv):

@@ -1,4 +1,5 @@
-"""Kernel K1 on the GPU == its plain PyTorch version (phase_reference).
+"""Kernels K1 and K2 on the GPU == their plain PyTorch versions
+(phase_reference, rowop_reference).
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -18,15 +19,18 @@ import torch
 from p_a_multigrids_tpu_torch.config import SemiConfig
 from p_a_multigrids_tpu_torch.mesh import structured
 from p_a_multigrids_tpu_torch.models import semi
+from p_a_multigrids_tpu_torch.mesh import splitting
+from p_a_multigrids_tpu_torch.ops import agg
 from p_a_multigrids_tpu_torch.ops import phase as K
-from p_a_multigrids_tpu_torch.ops import smoothers, stencil
+from p_a_multigrids_tpu_torch.ops import smoothers, spmv, stencil
 from p_a_multigrids_tpu_torch.utils import cuda_build
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernel K1 runs only on the GPU")
+        pytest.skip("needs a CUDA device: kernels K1 and K2 run only on "
+                    "the GPU")
     return torch.device("cuda")
 
 
@@ -73,6 +77,62 @@ def test_k1_refuses_float64(cuda):
         K.phase(op, x, x, [0.5])
 
 
+def _k2_matches_plain(op, x):
+    """One K2 launch against rowop_reference: f32 sums of 3*D products
+    (D <= 141) in another order, so 1e-5 of the largest |output|."""
+    n0 = spmv.KERNEL.launches
+    got = op(x)
+    torch.cuda.synchronize()
+    assert spmv.KERNEL.launches - n0 == 1
+    want = spmv.rowop_reference(op.cols_t, op.vals_t, x)
+    assert got.shape == want.shape == (3, op.n_out)
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(1000, 1000, 13), (300, 1000, 25),
+                                   (1000, 300, 3), (257, 40, 141)])
+def test_k2_matches_plain(cuda, shape):
+    """Square and rectangular random block rows, D up to the stand-in
+    hierarchy's widest restriction."""
+    n_out, n_src, D = shape
+    rng = np.random.default_rng(D)
+    op = spmv.RowOp(rng.integers(0, n_src, size=(n_out, D)),
+                    rng.normal(size=(n_out, D, 3, 3)), n_src,
+                    torch.float32, cuda)
+    x = torch.tensor(rng.normal(size=(3, n_src)), dtype=torch.float32,
+                     device=cuda)
+    _k2_matches_plain(op, x)
+
+
+def test_k2_on_an_sa_hierarchy(cuda):
+    """Every block-row operator of a real SA hierarchy (level operators,
+    restrictions, prolongations, fine tentative transfers)."""
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    L = semi.build_problem(mesh, cfg).levels[0]
+    data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+    h = agg.AggHierarchy(agg.build_hierarchy(
+        data, splitting.child_coords(mesh.X, 2), max_dense_dof=256,
+        strength=0.5, always=True), torch.float32, cuda)
+    assert len(h.levels) >= 2
+    rng = np.random.default_rng(0)
+    for op in h.rowops().values():
+        x = torch.tensor(rng.normal(size=(3, op.n_src)),
+                         dtype=torch.float32, device=cuda)
+        _k2_matches_plain(op, x)
+
+
+def test_k2_refuses_float64(cuda):
+    op = spmv.RowOp(np.zeros((4, 2), np.int64), np.ones((4, 2, 3, 3)), 4,
+                    torch.float64, cuda)
+    n0 = spmv.KERNEL.launches
+    with pytest.raises(TypeError, match="float32"):
+        op(torch.zeros((3, 4), dtype=torch.float64, device=cuda))
+    assert spmv.KERNEL.launches == n0
+
+
 def test_build_without_compiler_raises(monkeypatch, tmp_path):
     """No fallback: without nvcc the build raises instead of degrading."""
     if (os.path.isfile("/usr/local/cuda/bin/nvcc")
@@ -80,5 +140,6 @@ def test_build_without_compiler_raises(monkeypatch, tmp_path):
         pytest.skip("a CUDA compiler is installed here")
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.load("phase")
+    for name in ("phase", "spmv"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_build.load(name)

@@ -1,11 +1,13 @@
 """Host-side pieces of the port's GPU profiler (no card needed)."""
 
+import numpy as np
 import pytest
 import torch
 
 from p_a_multigrids_tpu_torch.config import SemiConfig
 from p_a_multigrids_tpu_torch.mesh import structured
 from p_a_multigrids_tpu_torch.models import semi
+from p_a_multigrids_tpu_torch.ops import spmv
 from p_a_multigrids_tpu_torch.utils import profiling
 
 
@@ -19,8 +21,17 @@ def test_least_bytes_counts_the_round_operands(n_split):
     assert profiling.least_bytes(op, 4) == want
 
 
+def test_rowop_least_bytes_counts_tables_and_vectors():
+    op = spmv.RowOp(np.zeros((5, 3), np.int64), np.ones((5, 3, 3, 3)), 7,
+                    torch.float32, "cpu")
+    tables = op.vals_t.numel() * 4 + op.cols_t.numel() * 4
+    assert profiling.rowop_least_bytes(op, 4) == tables + (3 * 7 + 3 * 5) * 4
+
+
 def test_kernel_class_and_busy_union():
     assert profiling.kernel_class("phase_round_kernel") == "k1_phase_round"
+    assert profiling.kernel_class("(anonymous namespace)::rowop_kernel("
+                                  "int const*, float const*)") == "k2_rowop"
     assert profiling.kernel_class("sm90_xmma_gemm_f32f32") == "gemm"
     assert profiling.kernel_class("at::native::reduce_kernel<512>") == \
         "reduction"
@@ -29,6 +40,22 @@ def test_kernel_class_and_busy_union():
     # overlapping [0, 5) and [3, 8), then [10, 12): 8 + 2 busy
     ks = [("a", 3.0, 5.0), ("b", 0.0, 5.0), ("c", 10.0, 2.0)]
     assert profiling._busy_us(ks) == 10.0
+
+
+def test_check_launches_raises_on_a_short_trace():
+    ks = [("phase_round_kernel", 0.0, 1.0)] * 3 + [("rowop_kernel", 0, 1.0)]
+    profiling._check_launches(ks, {"k1_phase_round": 3, "k2_rowop": 1})
+    with pytest.raises(RuntimeError, match="traced 1 k2_rowop launches"):
+        profiling._check_launches(ks, {"k1_phase_round": 3, "k2_rowop": 2})
+
+
+def test_cli_solver_is_the_cli_build():
+    """The profiler's CLI solvers are built by the CLI's own setup."""
+    argv = ["--mode", "9", "--rows", "4", "--cols", "4", "--levels", "1",
+            "--amg"]
+    sv = profiling.cli_solver(torch.device("cpu"), argv)
+    assert sv.cfg.amg and sv.agg is not None and sv.ops[0].U == 32
+    assert sv.cfg.agg_strength == 0.4 and sv.device.type == "cpu"
 
 
 def test_needs_a_cuda_device():

@@ -1,9 +1,9 @@
 """One solver step of the port == the JAX package's, float64 on the CPU.
 
 The JAX side runs its XLA stencil path (pallas_phase=False); the port runs
-its phase formulation (phase_reference on CPU tensors).  Steps agree to
-1e-11; PCG takes the same number of iterations and reaches the same
-solution to 1e-9.
+its phase formulation (phase_reference on CPU tensors) and its SA levels
+through rowop_reference.  Steps agree to 1e-11; PCG takes the same number
+of iterations and reaches the same solution to 1e-9.
 """
 
 import dataclasses
@@ -37,6 +37,20 @@ CASES = {
                                     solver="block_jacobi",
                                     restrictor="corner_average"),
     "advection": dict(n_split=2, multi_levels=2, advect=True),
+    # SA correction of the finest level: factored fine transfers, several
+    # SA levels and a dense bottom
+    "amg": dict(n_split=2, multi_levels=1, amg=True, agg_strength=0.5,
+                agg_dense_max_dof=128),
+    # stored smoothed transfers (advection: the factorization needs a
+    # symmetric operator); the geometric level below is bypassed
+    "amg_advection": dict(n_split=2, multi_levels=2, amg=True, advect=True,
+                          agg_dense_max_dof=128),
+    "amg_two_cycles": dict(n_split=2, multi_levels=1, amg=True,
+                           agg_cycles=2, agg_sweeps=1),
+    # coarse_agg: SA continues below a geometric coarsest that the dense
+    # inverse does not take
+    "coarse_agg": dict(n_split=2, multi_levels=2, coarse_direct_max_dof=0,
+                       agg_dense_max_dof=96),
 }
 
 
@@ -71,12 +85,15 @@ def test_step_matches_jax(case):
     np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)
     if case == "coarse_pack4":
         assert js._pack == [1, 4]           # JAX packed; the port need not
+    assert (ts.agg is None) == (js._agg is None)
+    assert ts._agg_li == js._agg_li
+    if "agg" in case:
+        assert ts.agg is not None
+        assert len(ts.agg.levels) == len(js._agg.levels)
+        assert (ts.agg.tent_r is None) == (js._agg.fine is None)
 
 
-def test_pcg_matches_jax():
-    """Same iteration count, same solution (1e-9), same stopping rule."""
-    js, ts = _pair(krylov=True, krylov_tol=1e-8)
-    T_t = _state(js, 1)
+def _pcg_matches_jax(js, ts, T_t):
     b_j = js._rhs_t(jnp.asarray(T_t))
     op = js._stencil[0]
     b_lin = b_j - op.apply(jnp.zeros_like(b_j), True)
@@ -89,6 +106,37 @@ def test_pcg_matches_jax():
     assert 2 < int(it_j) < 200
     np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-9,
                                atol=1e-9)
+
+
+def test_pcg_matches_jax():
+    """Same iteration count, same solution (1e-9), same stopping rule."""
+    js, ts = _pair(krylov=True, krylov_tol=1e-8)
+    _pcg_matches_jax(js, ts, _state(js, 1))
+
+
+def test_amg_pcg_matches_jax():
+    """SA-preconditioned PCG (the production implicit solve) takes the JAX
+    package's iteration count to the same solution."""
+    js, ts = _pair(n_split=2, multi_levels=1, amg=True, agg_strength=0.5,
+                   agg_dense_max_dof=128, krylov=True, krylov_tol=1e-8)
+    assert ts.agg is not None
+    _pcg_matches_jax(js, ts, _state(js, 4))
+
+
+def test_factored_transfers_match_stored():
+    """The factored fine transfers (P_tent + one K1 apply per side) == the
+    stored smoothed-transfer tables: P = (I - w D^-1 A) P_tent exactly."""
+    js, ts = _pair(n_split=2, multi_levels=1, amg=True, agg_strength=0.4)
+    r_t = torch.tensor(_state(js, 7))
+    x0 = torch.zeros_like(r_t)
+    e_fact = ts._agg_correct_t(0, x0, r_t)
+    tent_r, ts.agg.tent_r = ts.agg.tent_r, None
+    try:
+        e_stored = ts._agg_correct_t(0, x0, r_t)
+    finally:
+        ts.agg.tent_r = tent_r
+    np.testing.assert_allclose(e_fact.numpy(), e_stored.numpy(), rtol=1e-9,
+                               atol=1e-10)
 
 
 def test_coarse_krylov_step_matches_jax():
@@ -134,17 +182,33 @@ def test_solver_from_numpy_equals_own_setup():
     assert torch.equal(conv.initial_condition(), ts.initial_condition())
 
 
+@pytest.mark.parametrize("case", ["amg", "coarse_agg"])
+def test_solver_from_numpy_carries_agg(case):
+    """The port's solver built from the JAX solver's host arrays, SA
+    hierarchy included, runs the port's own step (and JAX's)."""
+    js, ts = _pair(**CASES[case])
+    conv = convert.solver_from_numpy(
+        ts.cfg, js.p.levels, [op._data for op in js._stencil], js._lam_max,
+        js._coarse_inv_np, np.asarray(js.p.analytical), "cpu",
+        grid=js.p.grid, coords_fine=js.p.coords_fine, agg=js._agg)
+    assert conv._agg_li == js._agg_li
+    T_t = _state(js, 5)
+    got = conv._step_t(torch.tensor(T_t)).numpy()
+    np.testing.assert_array_equal(got, ts._step_t(torch.tensor(T_t)).numpy())
+    np.testing.assert_allclose(
+        got, np.asarray(js._step_t(jnp.asarray(T_t))), rtol=1e-11,
+        atol=1e-11)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(amg=True),
-    dict(coarse_direct_max_dof=0),          # coarse_agg engages SA
     dict(theta=0.5),
     dict(coarse_operator="galerkin"),
     dict(solver=tcfg.Solver.JACOBI),
     dict(krylov=True, physics=tcfg.Physics(advection=True, u=(1.0, 0.0))),
     dict(stencil_operator=False),
     dict(debug=True),
-], ids=["amg", "coarse_agg", "theta", "galerkin", "jacobi", "bicgstab",
-        "non_stencil", "debug"])
+], ids=["theta", "galerkin", "jacobi", "bicgstab", "non_stencil",
+        "debug"])
 def test_unported_paths_raise(kw):
     cfg = tcfg.SemiConfig(n_split=1, multi_levels=2, dt=0.05, **kw)
     problem = tsemi.build_problem(tstruct.tri_mesh(*MESH), cfg)
