@@ -11,8 +11,18 @@ CLI defaults, whose coarsest level continues into SA levels), runs the
 benchmark's geometric and amg V-cycle configurations, the amg PCG solve to
 1e-6 and the manufactured-solution PCG gate, times both kernels against
 their plain versions, and holds the production CLI run to the same command
-on the host CPU (the plain PyTorch path, f32).  Every phase prints its numbers; any failure raises
-and the script exits non-zero.  The last line is
+on the host CPU (the plain PyTorch path, f32).
+
+Then the deep-split path (n_split 5, C = 1024 children per macro, where
+the TPU ran its kernel PhaseOperatorResident): K1 against its plain version
+at every level of the level sweep's solvers, K2 against its plain version
+on every SA operator of the deep hierarchies, the Galerkin solver's coarse
+blocks against P^T A P recomputed here, the sweep at 294,912 DOF with 1-6
+levels, its Galerkin configuration and its amg row held to the JAX
+package's f32 histories, the CLI with --mesh on a gmsh file it writes, held
+to the same command on the host CPU, and K1 timed at C = 1024.  Every phase
+prints its numbers; any failure raises and the script exits non-zero.  The
+last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -23,8 +33,10 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -65,6 +77,54 @@ AMG_HISTORY = [7.6809e-03, 3.4141e-04, 1.0777e-04, 4.3869e-05, 1.9073e-05,
 AMG_FLOOR = 5.7173e-06       # the largest of the floored cycles 7-10
 AMG_PCG_ITERS = 5            # JAX package on CPU, f32, same solve
 
+# The deep-split path: bench.py's level sweep on its stand-in mesh
+# (utils.profiling.sweep_solver: tri_mesh(8, 6, 1/8, 1/8), n_split 5, 96
+# macros of C = 1024 children, 294,912 DOF; dt = 1e8, W-cycles, degree-6
+# Chebyshev).  JAX package on CPU, f32: max|b - A x| after each of 10
+# cycles from T0, by geometric levels.  Levels 2-4 continue into SA levels
+# below the geometric coarsest, 5-6 end in the dense coarse solve.
+SWEEP_HISTORY = {
+    1: [2.8865e-01, 1.5550e-01, 1.1369e-01, 8.6897e-02, 7.0131e-02,
+        6.0001e-02, 5.2024e-02, 4.5372e-02, 4.1201e-02, 3.7414e-02],
+    2: [1.0632e-01, 2.3886e-02, 5.4143e-03, 1.2085e-03, 3.2552e-04,
+        9.0915e-05, 2.7973e-05, 8.4020e-06, 4.0009e-06, 2.8117e-06],
+    3: [1.0619e-01, 2.6008e-02, 6.5939e-03, 1.6635e-03, 4.1605e-04,
+        1.1473e-04, 3.4618e-05, 1.0808e-05, 5.0627e-06, 2.9084e-06],
+    4: [1.0512e-01, 2.6307e-02, 7.1375e-03, 2.0125e-03, 5.8771e-04,
+        1.7572e-04, 5.4604e-05, 1.7885e-05, 6.9199e-06, 3.1783e-06],
+    5: [1.0510e-01, 2.6289e-02, 7.1375e-03, 2.0211e-03, 5.9534e-04,
+        1.8240e-04, 6.0326e-05, 1.9793e-05, 7.8736e-06, 4.1237e-06],
+    6: [1.0496e-01, 2.6148e-02, 7.1271e-03, 2.0831e-03, 6.6972e-04,
+        2.4248e-04, 1.0133e-04, 5.6562e-05, 3.3652e-05, 2.1254e-05],
+}
+# the same with coarse_operator="galerkin" at 4 levels
+GALERKIN4_HISTORY = [1.0512e-01, 2.6306e-02, 7.1366e-03, 2.0125e-03,
+                     5.8580e-04, 1.7667e-04, 5.4604e-05, 1.7885e-05,
+                     6.9199e-06, 3.1784e-06]
+# the sweep's production row (utils.profiling.deep_amg_solver: amg,
+# agg_strength 0.5, degree-16 Chebyshev, V-cycles): 10 V-cycles from T0,
+# and PCG iterations to 1e-6
+DEEP_AMG_HISTORY = [1.2443e-02, 1.3240e-03, 2.5828e-04, 1.5814e-04,
+                    9.2815e-05, 5.2765e-05, 3.0349e-05, 1.7951e-05,
+                    1.0326e-05, 6.5072e-06]
+DEEP_AMG_PCG_ITERS = 7
+# The f32 floor of max|b - A x| on the stand-in: the largest value of
+# cycles 16-25 over levels 2-6, Galerkin and amg, where every JAX history
+# has stopped falling (2.2e-6 to 3.2e-6).  Between two summation orders
+# the history moves by up to about half of it near the floor: the port's
+# plain path on the CPU against JAX (both f32) moved by 1.2e-6, 17% of a
+# value at 2x the floor and 4% at 9x.  So a deep history is held to 2% of
+# the JAX value plus this floor.
+SWEEP_FLOOR = 3.1763e-06
+# The CLI with --mesh on a gmsh file of the stand-in (written by this
+# script, every third macro region 4 so that T0 is not zero) at n_split 4:
+# levels C = 256, 64, 16, the 4,608-DOF coarsest continuing into SA
+# levels.  JAX package on CPU, f32, the same command with --cpu.
+MESH_ARGS = ["--mode", "9", "--n-split", "4", "--levels", "3",
+             "--ntime", "2"]
+MESH_CLI = {"residual_history": [0.6321610808372498, 0.18055221438407898],
+            "L1_error": 0.523080587387085}
+
 
 def check(cond: bool, what: str):
     if not cond:
@@ -74,6 +134,29 @@ def check(cond: bool, what: str):
 def say(tag: str, **kv):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+def hold_history(name: str, got: list, want: list):
+    """A deep history against the JAX f32 CPU one: within 2% of each JAX
+    value plus the f32 floor (SWEEP_FLOOR)."""
+    check(len(got) == len(want), f"{name}: {len(got)} cycles")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(math.isfinite(g) and abs(g - w) <= 0.02 * w + SWEEP_FLOOR,
+              f"{name} cycle {i + 1}: {g:.4e} not within 2% + "
+              f"{SWEEP_FLOOR:.2e} of {w:.4e}")
+
+
+def history(solver, cycles: int = 10):
+    """max|b - A x| after each of ``cycles`` cycles from T0."""
+    from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
+    x_t = to_t(solver.initial_condition())
+    b_t = solver._rhs_t(x_t)
+    out = []
+    for _ in range(cycles):
+        x_t = solver._vcycle_t(0, x_t, b_t)
+        r = solver.residual(0, from_t(x_t), from_t(b_t), True)
+        out.append(float(r.abs().max()))
+    return out
 
 
 def main():
@@ -87,9 +170,12 @@ def main():
     from p_a_multigrids_tpu_torch.ops import krylov
     from p_a_multigrids_tpu_torch.ops import phase as K
     from p_a_multigrids_tpu_torch.ops import spmv as K2
-    from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+    from p_a_multigrids_tpu_torch.mesh import gmsh, structured
+    from p_a_multigrids_tpu_torch.ops import galerkin
     from p_a_multigrids_tpu_torch.utils.profiling import (
-        amg_solver, bench_solver, cli_solver, event_ms)
+        SWEEP_MESH, amg_solver, bench_solver, cli_solver, deep_amg_solver,
+        event_ms, sweep_solver)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -158,6 +244,50 @@ def main():
         return torch.as_tensor(
             rng.normal(size=(3, op.C, op.U)).astype(np.float32), device=dev)
 
+    def solver_cases(path, sv):
+        """A phase with sv's smoothing coefficients and z, and the
+        zero-round apply, on each K1 level of sv."""
+        out = []
+        for li, op in enumerate(o for o in sv.ops if o.C > 1):
+            x, b = rand(op), rand(op)
+            coefs = sv._phase_coefs(li, sv.cfg.n_smooth)
+            out += [(f"{path}_l{li}_cheb{len(coefs)}_z", op, x,
+                     op._bp(b, li == 0), coefs, True, 1e-4),
+                    (f"{path}_apply_l{li}", op, x, torch.zeros_like(x), [],
+                     True, 1e-5)]
+        return out
+
+    def k1_parity(name, op, x, bp, coefs, want_z, rtol):
+        """K1 against phase_reference on one phase (launch counts, at
+        C > DEEP_C the deep ones too, and rtol relative to max|plain|);
+        returns the largest absolute difference."""
+        n0, d0 = K.KERNEL.launches, K.KERNEL.launches_deep
+        xk, zk = K.phase(op, x, bp, coefs, want_z)
+        torch.cuda.synchronize()
+        launched = K.KERNEL.launches - n0
+        check(launched == len(coefs) + int(want_z),
+              f"{name}: {launched} launches for {len(coefs)} rounds"
+              f" + z={want_z}")
+        check(K.KERNEL.launches_deep - d0
+              == (launched if op.C > K.DEEP_C else 0),
+              f"{name}: {K.KERNEL.launches_deep - d0} deep launches at "
+              f"C = {op.C}")
+        xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
+        worst = 0.0
+        pairs = [("x", xk, xr)] + ([("z", zk, zr)] if want_z else [])
+        for which, got, ref in pairs:
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            worst = max(worst, err)
+            say("parity", case=name, out=which, C=op.C, U=op.U,
+                rounds=len(coefs) + int(want_z), max_abs_err=f"{err:.3e}",
+                max_ref=f"{scale:.3e}", rel=f"{err / scale:.3e}",
+                tol=rtol)
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+            check(err <= rtol * scale, f"{name} {which}: |K1 - plain| "
+                  f"{err:.3e} > {rtol} * {scale:.3e}")
+        return worst
+
     x0, b0 = rand(op0), rand(op0)
     x1, b1 = rand(op1), rand(op1)
     cases = [
@@ -169,47 +299,19 @@ def main():
         ("apply_l1", op1, x1, torch.zeros_like(x1), [], True, 1e-5),
     ]
     for path, sv in [("amg", amg)] + list(path_sv.items()):
-        for li, op in enumerate(o for o in sv.ops if o.C > 1):
-            x, b = rand(op), rand(op)
-            coefs = sv._phase_coefs(li, sv.cfg.n_smooth)
-            cases += [
-                (f"{path}_l{li}_cheb{len(coefs)}_z", op, x,
-                 op._bp(b, li == 0), coefs, True, 1e-4),
-                (f"{path}_apply_l{li}", op, x, torch.zeros_like(x), [], True,
-                 1e-5),
-            ]
-    max_abs_err = 0.0
-    for name, op, x, bp, coefs, want_z, rtol in cases:
-        n0 = K.KERNEL.launches
-        xk, zk = K.phase(op, x, bp, coefs, want_z)
-        torch.cuda.synchronize()
-        launched = K.KERNEL.launches - n0
-        check(launched == len(coefs) + int(want_z),
-              f"{name}: {launched} launches for {len(coefs)} rounds"
-              f" + z={want_z}")
-        xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
-        pairs = [("x", xk, xr)] + ([("z", zk, zr)] if want_z else [])
-        for which, got, ref in pairs:
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            max_abs_err = max(max_abs_err, err)
-            say("parity", case=name, out=which, C=op.C, U=op.U,
-                rounds=len(coefs) + int(want_z), max_abs_err=f"{err:.3e}",
-                max_ref=f"{scale:.3e}", rel=f"{err / scale:.3e}",
-                tol=rtol)
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
-            check(err <= rtol * scale, f"{name} {which}: |K1 - plain| "
-                  f"{err:.3e} > {rtol} * {scale:.3e}")
+        cases += solver_cases(path, sv)
+    max_abs_err = max(k1_parity(*case) for case in cases)
 
     # 3b. K2 parity: every block-row operator of each SA hierarchy that a
-    # main path runs (the stand-in's production hierarchy, the production
-    # CLI's and the CLI defaults') -------------------------------------------
-    rowops = amg.agg.rowops()
-    k2_err = 0.0
-    for path, h in (("amg", amg.agg), ("amg_cli", path_sv["amg_cli"].agg),
-                    ("defaults", path_sv["defaults"].agg)):
+    # main path runs (here the stand-in's production hierarchy, the
+    # production CLI's and the CLI defaults'; the deep split's in steps 10
+    # and 13) ----------------------------------------------------------------
+    def k2_parity(path, h):
+        """K2 against rowop_reference on every rowop of SA hierarchy h, one
+        launch per apply; returns the largest absolute difference."""
         say("rowops", config=path, shapes={
             k: (op.n_out, op.D, op.n_src) for k, op in h.rowops().items()})
+        worst = 0.0
         for name, op in h.rowops().items():
             x = torch.as_tensor(
                 rng.normal(size=(3, op.n_src)).astype(np.float32), device=dev)
@@ -226,7 +328,7 @@ def main():
                                              x.abs()).max())
             tol = 2 * 3 * op.D * 2.0 ** -24 * absum
             err = float((got - ref).abs().max())
-            k2_err = max(k2_err, err)
+            worst = max(worst, err)
             say("parity", kernel="k2", config=path, case=name, N=op.n_out,
                 D=op.D, S=op.n_src, max_abs_err=f"{err:.3e}",
                 max_ref=f"{float(ref.abs().max()):.3e}", tol=f"{tol:.3e}")
@@ -234,16 +336,29 @@ def main():
                   f"{path} {name}: non-finite")
             check(err <= tol,
                   f"{path} {name}: |K2 - plain| {err:.3e} > {tol:.3e}")
+        return worst
+
+    rowops = amg.agg.rowops()
+    k2_err = max(k2_parity(path, h) for path, h in (
+        ("amg", amg.agg), ("amg_cli", path_sv["amg_cli"].agg),
+        ("defaults", path_sv["defaults"].agg)))
     del path_sv
 
     # 4. main paths through the CLI entry; each path's counts are set to 0
     # just before it and read just after it ----------------------------------
+    def counts_zero():
+        K.KERNEL.launches = K.KERNEL.launches_deep = K2.KERNEL.launches = 0
+
+    def read_counts():
+        return {"k1_phase_round": K.KERNEL.launches,
+                "k1_deep": K.KERNEL.launches_deep,
+                "k2_rowop": K2.KERNEL.launches}
+
     def drive(args):
-        K.KERNEL.launches = K2.KERNEL.launches = 0
+        counts_zero()
         out = cli.main(args + ["--device", "cuda"])
         torch.cuda.synchronize()
-        return out, {"k1_phase_round": K.KERNEL.launches,
-                     "k2_rowop": K2.KERNEL.launches}
+        return out, read_counts()
 
     out, counts = drive(CLI_ARGS)
     main_launches = counts["k1_phase_round"]
@@ -302,38 +417,41 @@ def main():
               f"defaults residual {got:.6g} not within 1% of {want}")
 
     # 5. bench-geometric configuration at 393,216 DOF ------------------------
-    T0_t = to_t(solver.initial_condition())
-    b_t = solver._rhs_t(T0_t)
-    x_t = T0_t
-    bench = []
-    for _ in range(10):
-        x_t = solver._vcycle_t(0, x_t, b_t)
-        r = solver.residual(0, from_t(x_t), from_t(b_t), True)
-        bench.append(float(r.abs().max()))
+    def cycle_ms(sv):
+        """ms per cycle of sv from T0 by CUDA events: 20 cycles after 3."""
+        b_t = sv._rhs_t(to_t(sv.initial_condition()))
+        state = {"x": to_t(sv.initial_condition())}
+
+        def cycle():
+            state["x"] = sv._vcycle_t(0, state["x"], b_t)
+
+        for _ in range(3):
+            cycle()
+        return event_ms(cycle, 20)
+
+    def pcg_to_1e6(sv):
+        """PCG on sv's linear system from T0's right-hand side, x0 = 0, to a
+        1e-6 drop, preconditioned by one homogeneous cycle."""
+        b_t = sv._rhs_t(to_t(sv.initial_condition()))
+        b_lin = b_t - sv.ops[0].apply(torch.zeros_like(b_t), True)
+        return lambda: krylov.pcg(
+            lambda v: sv._apply_t(0, v, False), b_lin,
+            torch.zeros_like(b_lin),
+            precond=lambda r: sv._vcycle_t(0, torch.zeros_like(r), r,
+                                           hom=True),
+            tol=1e-6, maxiter=40)
+
+    bench = history(solver)
     say("bench", residual_history=[f"{v:.4e}" for v in bench])
     say("bench", jax_cpu=BENCH_HISTORY)
     for got, want in zip(bench, BENCH_HISTORY):
         check(np.isfinite(got) and abs(got - want) <= 0.02 * want,
               f"bench residual {got:.4e} not within 2% of {want:.4e}")
-    state = {"x": T0_t}
-
-    def cycle():
-        state["x"] = solver._vcycle_t(0, state["x"], b_t)
-
-    for _ in range(3):
-        cycle()
-    vc_ms = event_ms(cycle, 20)
+    vc_ms = cycle_ms(solver)
     say("bench", ms_per_vcycle=f"{vc_ms:.4f}", card=repr(card))
 
     # 5b. production amg V-cycle and PCG to 1e-6 at 393,216 DOF -------------
-    T0_t = to_t(amg.initial_condition())
-    b_t = amg._rhs_t(T0_t)
-    x_t = T0_t
-    amg_hist = []
-    for _ in range(10):
-        x_t = amg._vcycle_t(0, x_t, b_t)
-        r = amg.residual(0, from_t(x_t), from_t(b_t), True)
-        amg_hist.append(float(r.abs().max()))
+    amg_hist = history(amg)
     say("amg", residual_history=[f"{v:.4e}" for v in amg_hist])
     say("amg", jax_cpu=AMG_HISTORY, floor=AMG_FLOOR)
     for i, (got, want) in enumerate(zip(amg_hist, AMG_HISTORY)):
@@ -345,27 +463,10 @@ def main():
         else:                           # on the floor: stays there
             check(got <= 2 * AMG_FLOOR,
                   f"amg cycle {i + 1}: {got:.4e} above 2x the f32 floor")
-    state = {"x": T0_t}
-
-    def amg_cycle():
-        state["x"] = amg._vcycle_t(0, state["x"], b_t)
-
-    for _ in range(3):
-        amg_cycle()
-    amg_ms = event_ms(amg_cycle, 20)
+    amg_ms = cycle_ms(amg)
     say("amg", ms_per_vcycle=f"{amg_ms:.4f}", card=repr(card))
 
-    op_a = amg.ops[0]
-    b_lin = b_t - op_a.apply(torch.zeros_like(b_t), True)
-
-    def pcg_solve():
-        return krylov.pcg(
-            lambda v: amg._apply_t(0, v, False), b_lin,
-            torch.zeros_like(b_lin),
-            precond=lambda r: amg._vcycle_t(0, torch.zeros_like(r), r,
-                                            hom=True),
-            tol=1e-6, maxiter=40)
-
+    pcg_solve = pcg_to_1e6(amg)
     _, pcg_its, _ = pcg_solve()
     check(abs(pcg_its - AMG_PCG_ITERS) <= 1,
           f"amg PCG took {pcg_its} iterations, JAX CPU {AMG_PCG_ITERS}")
@@ -382,21 +483,26 @@ def main():
           f"gate L1_error {gate['L1_error']} >= 0.01")
 
     # 7. K1 against the plain version, one fine deg-6 phase ------------------
+    def time_pair(run_k, run_p, reps):
+        """ms per call of the kernel and of its plain version by CUDA
+        events: 3 warm-up calls of each, then reps calls in turns plain,
+        kernel, kernel, plain (the kernel is called 3 + 2 reps times)."""
+        for fn in (run_k, run_p):
+            for _ in range(3):
+                fn()
+        times = {"plain": [], "kernel": []}
+        for label, fn in (("plain", run_p), ("kernel", run_k),
+                          ("kernel", run_k), ("plain", run_p)):
+            times[label].append(event_ms(fn, reps))
+        return sum(times["kernel"]) / 2, sum(times["plain"]) / 2, times
+
     coefs = solver._phase_coefs(0, cfg.n_smooth)
     bp0 = op0._bp(b0, True)
-    run_k = lambda: K.phase(op0, x0, bp0, coefs, True)
-    run_p = lambda: K.phase_reference(op0, x0, bp0, coefs, True)
-    for fn in (run_k, run_p):
-        for _ in range(3):
-            fn()
     n_before = K.KERNEL.launches
-    times = {"plain": [], "kernel": []}
-    for label, fn in (("plain", run_p), ("kernel", run_k),
-                      ("kernel", run_k), ("plain", run_p)):
-        times[label].append(event_ms(fn, 20))
-    k_ms = sum(times["kernel"]) / 2
-    p_ms = sum(times["plain"]) / 2
-    check(K.KERNEL.launches - n_before == 40 * (len(coefs) + 1),
+    k_ms, p_ms, times = time_pair(
+        lambda: K.phase(op0, x0, bp0, coefs, True),
+        lambda: K.phase_reference(op0, x0, bp0, coefs, True), 20)
+    check(K.KERNEL.launches - n_before == 43 * (len(coefs) + 1),
           "timed kernel phases did not launch K1")
     say("time", phase="fine_cheb6_z", C=op0.C, U=op0.U,
         k1_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
@@ -410,19 +516,13 @@ def main():
         op = rowops[name]
         x = torch.as_tensor(rng.normal(size=(3, op.n_src)).astype(np.float32),
                             device=dev)
-        run_k = lambda: op(x)
-        run_p = lambda: K2.rowop_reference(op.cols_t, op.vals_t, x)
-        for fn in (run_k, run_p):
-            for _ in range(3):
-                fn()
         n_before = K2.KERNEL.launches
-        times = {"plain": [], "kernel": []}
-        for label, fn in (("plain", run_p), ("kernel", run_k),
-                          ("kernel", run_k), ("plain", run_p)):
-            times[label].append(event_ms(fn, 50))
-        check(K2.KERNEL.launches - n_before == 100,
+        ms, plain_ms, times = time_pair(
+            lambda: op(x),
+            lambda: K2.rowop_reference(op.cols_t, op.vals_t, x), 50)
+        check(K2.KERNEL.launches - n_before == 103,
               f"timed {name} applies did not launch K2")
-        k2_ms[name] = (sum(times["kernel"]) / 2, sum(times["plain"]) / 2)
+        k2_ms[name] = (ms, plain_ms)
         say("time", rowop=name, N=op.n_out, D=op.D, S=op.n_src,
             k2_ms=f"{k2_ms[name][0]:.5f}", plain_ms=f"{k2_ms[name][1]:.5f}",
             k2_runs=[f"{v:.5f}" for v in times["kernel"]],
@@ -458,6 +558,159 @@ def main():
               f"amg CLI residual {got:.6e} not within 25% of the plain CPU "
               f"{want:.6e}")
 
+    # 10. the deep-split path (n_split 5, C = 1024): the level sweep's
+    # solvers at levels 1-6, the Galerkin configuration and the production
+    # amg row on the stand-in mesh, with each host setup's seconds ---------
+    deep = {}
+    for key in list(SWEEP_HISTORY) + ["galerkin4", "amg"]:
+        t0 = time.time()
+        if key == "amg":
+            sv = deep_amg_solver(dev)
+        elif key == "galerkin4":
+            sv = sweep_solver(dev, 4, coarse_operator="galerkin")
+        else:
+            sv = sweep_solver(dev, key)
+        deep[key] = sv
+        say("setup", config=f"sweep_{key}", dof=3 * sv.ops[0].C * sv.ops[0].U,
+            levels=[(op.C, op.U) for op in sv.ops],
+            sa_levels=None if sv.agg is None else
+            [lv.n for lv in sv.agg.levels],
+            dense_coarse=sv.coarse_inv_t is not None,
+            seconds=f"{time.time() - t0:.1f}")
+        check(sv.ops[0].C == 1024 and 3 * sv.ops[0].C * sv.ops[0].U
+              == 294912, f"sweep_{key}: not the 294,912-DOF stand-in")
+    for key in SWEEP_HISTORY:
+        check((deep[key].agg is not None) == (key in (2, 3, 4)),
+              f"sweep_{key}: SA levels below the coarsest "
+              f"{'missing' if deep[key].agg is None else 'set'}")
+    # the Galerkin triple products alone, on the 4-level geometric stencils;
+    # the timed Galerkin solver must hold exactly these coarse blocks, and
+    # they must differ from the geometric ones (surface terms are on)
+    geo = [op._data for op in deep[4].ops]
+    datas = list(geo)
+    t0 = time.time()
+    for i in range(1, len(datas)):
+        datas[i] = galerkin.galerkin_coarse(
+            datas[i - 1], deep[4].p.levels[i]["s"], datas[i])
+    say("setup", galerkin_coarse_seconds=f"{time.time() - t0:.2f}",
+        levels=len(datas) - 1, fine_C=[4 ** (5 - i) for i in range(3)])
+    blocks = ("self_blocks", "face_blocks", "cross_blocks")
+    for i in range(1, len(datas)):
+        held = deep["galerkin4"].ops[i]._data
+        check(all(np.array_equal(getattr(datas[i], k), getattr(held, k))
+                  for k in blocks),
+              f"galerkin4 level {i}: coarse blocks are not P^T A P")
+        check(not all(np.array_equal(getattr(geo[i], k), getattr(held, k))
+                      for k in blocks),
+              f"galerkin4 level {i}: coarse blocks equal the geometric ones")
+    # K2 at the deep split's SA shapes: below the geometric coarsest of
+    # sweep levels 2-4, and the amg row's hierarchy of 98,304 elements
+    for key in (2, 3, 4, "amg"):
+        k2_err = max(k2_err, k2_parity(f"sweep_{key}", deep[key].agg))
+
+    # 11. K1 in the TPU's PhaseOperatorResident regime: every K1 level of
+    # the sweep at 1 and 6 levels (C = 1024, 256, 64, 16, 4 at U = 96), a
+    # degree-6 phase with z and the zero-round apply -----------------------
+    k3_err = 0.0
+    for key in (1, 6):
+        for case in solver_cases(f"sweep{key}", deep[key]):
+            err = k1_parity(*case)
+            if case[1].C > K.DEEP_C:
+                k3_err = max(k3_err, err)
+            else:
+                max_abs_err = max(max_abs_err, err)
+
+    # 12. the level sweep on the card: 10 cycles from T0 at levels 1-6, the
+    # Galerkin configuration and the amg row; each run's counts are set to
+    # 0 just before it and read just after it ------------------------------
+    sweep_deep_launches = 0
+    wants = dict(SWEEP_HISTORY, galerkin4=GALERKIN4_HISTORY,
+                 amg=DEEP_AMG_HISTORY)
+    for key, sv in deep.items():
+        counts_zero()
+        hist = history(sv)
+        torch.cuda.synchronize()
+        c = read_counts()
+        if key in SWEEP_HISTORY:
+            sweep_deep_launches += c["k1_deep"]
+        ms = cycle_ms(sv)
+        say("sweep", config=key, launches=c,
+            residual_history=[f"{v:.4e}" for v in hist])
+        say("sweep", config=key, jax_cpu=wants[key], ms_per_cycle=f"{ms:.4f}",
+            card=repr(card))
+        check(c["k1_deep"] > 0, f"sweep_{key} launched K1 at C = 1024 no time")
+        check((c["k2_rowop"] > 0) == (sv.agg is not None),
+              f"sweep_{key}: {c['k2_rowop']} K2 launches")
+        hold_history(f"sweep_{key}", hist, wants[key])
+
+    deep_pcg = pcg_to_1e6(deep["amg"])
+    _, deep_its, _ = deep_pcg()
+    deep_pcg_ms = event_ms(deep_pcg, 3)
+    say("sweep", config="amg", pcg_iterations=deep_its,
+        jax_cpu_iterations=DEEP_AMG_PCG_ITERS,
+        ms_to_1e6=f"{deep_pcg_ms:.4f}", card=repr(card))
+    # the f32 stop at a 1e-6 2-norm drop moves by one iteration between
+    # summation orders (section 4)
+    check(abs(deep_its - DEEP_AMG_PCG_ITERS) <= 1,
+          f"deep amg PCG took {deep_its} iterations, JAX CPU "
+          f"{DEEP_AMG_PCG_ITERS}")
+    sweep1 = deep[1]
+    del deep
+
+    # 13. the CLI with --mesh: a gmsh file of the stand-in at n_split 4 on
+    # the card (counts set to 0 just before, read just after), then the same
+    # command on the host CPU (the plain PyTorch path, f32) ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = structured.tri_mesh(*SWEEP_MESH)
+        mesh.region_id = np.where(np.arange(mesh.num_elements) % 3 == 0, 4,
+                                  1).astype(np.int32)
+        path = f"{tmp}/stand_in.msh"
+        gmsh.write_msh(path, mesh)
+        mesh_argv = MESH_ARGS + ["--mesh", path]
+        k2_err = max(k2_err, k2_parity(
+            "mesh_cli", cli_solver(dev, mesh_argv).agg))
+        mesh_out, mesh_counts = drive(mesh_argv)
+        mesh_cpu = cli.main(mesh_argv + ["--device", "cpu"])
+    say("main", path="mesh_cli", launches=mesh_counts,
+        residual_history=mesh_out["residual_history"],
+        cpu=mesh_cpu["residual_history"], jax_cpu=MESH_CLI["residual_history"],
+        L1_error=mesh_out["L1_error"], cpu_L1_error=mesh_cpu["L1_error"],
+        jax_L1_error=MESH_CLI["L1_error"], wall_s=mesh_out["wall_s"],
+        cpu_wall_s=mesh_cpu["wall_s"])
+    check(mesh_out["elements"] == 96 and mesh_out["children"] == 256,
+          "mesh CLI: not the stand-in at n_split 4")
+    check(mesh_counts["k1_deep"] > 0 and mesh_counts["k2_rowop"] > 0,
+          f"the mesh CLI did not launch K1 at C = 256 and K2: {mesh_counts}")
+    # port CPU and JAX CPU agreed to 1e-6 relative on this command; f32
+    # sums in the kernels' order move a V-cycle history by far less than 1%
+    for ref_name, ref in (("plain CPU", mesh_cpu), ("JAX CPU", MESH_CLI)):
+        check(abs(mesh_out["L1_error"] - ref["L1_error"])
+              <= 1e-4 * ref["L1_error"],
+              f"mesh CLI L1 {mesh_out['L1_error']} not within 1e-4 of the "
+              f"{ref_name} {ref['L1_error']}")
+        for got, want in zip(mesh_out["residual_history"],
+                             ref["residual_history"]):
+            check(abs(got - want) <= 0.01 * want,
+                  f"mesh CLI residual {got:.6g} not within 1% of the "
+                  f"{ref_name} {want:.6g}")
+
+    # 14. K1 against the plain version in K3's regime: one fine degree-6
+    # phase at C = 1024 (the sweep's level 0) ------------------------------
+    op_d = sweep1.ops[0]
+    xd, bd = rand(op_d), rand(op_d)
+    coefs = sweep1._phase_coefs(0, sweep1.cfg.n_smooth)
+    bpd = op_d._bp(bd, True)
+    n_before = K.KERNEL.launches_deep
+    k3_ms, k3_plain_ms, times = time_pair(
+        lambda: K.phase(op_d, xd, bpd, coefs, True),
+        lambda: K.phase_reference(op_d, xd, bpd, coefs, True), 20)
+    check(K.KERNEL.launches_deep - n_before == 43 * (len(coefs) + 1),
+          "timed C = 1024 phases did not launch K1")
+    say("time", phase="deep_fine_cheb6_z", C=op_d.C, U=op_d.U,
+        k1_ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}",
+        k1_runs=[f"{v:.4f}" for v in times["kernel"]],
+        plain_runs=[f"{v:.4f}" for v in times["plain"]], card=repr(card))
+
     print(json.dumps({"kernels": [{
         "name": "k1_phase_round", "route": "cuda",
         "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
@@ -468,7 +721,12 @@ def main():
         "source": "p_a_multigrids_tpu_torch/csrc/spmv.cu",
         "replaces": "p_a_multigrids_tpu/ops/pallas_bsr.py:144",
         "launches": amg_counts["k2_rowop"], "max_abs_err": k2_err,
-        "ms": k2_ms["l0_op"][0], "plain_ms": k2_ms["l0_op"][1]}]}),
+        "ms": k2_ms["l0_op"][0], "plain_ms": k2_ms["l0_op"][1]}, {
+        "name": "k1_phase_round_deep", "route": "cuda",
+        "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
+        "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:608",
+        "launches": sweep_deep_launches, "max_abs_err": k3_err,
+        "ms": k3_ms, "plain_ms": k3_plain_ms}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

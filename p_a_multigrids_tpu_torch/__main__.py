@@ -1,12 +1,17 @@
-"""CLI entry point of the port (mode 9 only so far).
+"""CLI entry point of the port (mode 9).
 
     python -m p_a_multigrids_tpu_torch --mode 9 --rows 24 --cols 24 \\
         --n-split 3 --levels 4 --ntime 2 --device cuda
+    python -m p_a_multigrids_tpu_torch --mode 9 --mesh macro.msh \\
+        --n-split 5 --levels 6 --cycle-type w --dt 1e8 --device cuda
 
-Prints one JSON line with the JAX package's keys (mode, residual_history,
-elements, children, L1_error, residual, wall_s), plus krylov_iterations
-with --krylov.  Flags and modes the port does not run yet exit with a
-message naming the ROADMAP.md item that will port them.
+The macro mesh is a gmsh 2.x ASCII ``--mesh`` file, else the generated
+``--rows`` x ``--cols`` unit square.  Prints one JSON line with the JAX
+package's keys (mode, residual_history, elements, children, L1_error,
+residual, wall_s), plus krylov_iterations with --krylov.  The other modes,
+``--mesh`` with a ``.geo`` file, output, checkpoints, expressions, the
+sanitizer, the profiler flag and ``--devices`` are not ported yet: each
+exits with a message naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -18,7 +23,6 @@ import time
 
 # flag (argparse dest) -> ROADMAP.md queue-1 item that ports it
 UNPORTED_FLAGS = {
-    "mesh": "CLI, IO and validation (.msh/.geo readers)",
     "vtu": "CLI, IO and validation",
     "vtk_interval": "CLI, IO and validation",
     "curves": "non-stencil paths and the other modes (mode 1)",
@@ -75,8 +79,11 @@ def _parser():
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device: cuda runs kernel K1, cpu its plain "
                          "PyTorch version")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="gmsh 2.x ASCII macro mesh (.msh); default: the "
+                         "generated --rows x --cols unit square")
     # not ported yet: each exits with a message (UNPORTED_FLAGS)
-    for flag in ("--mesh", "--vtu", "--curves", "--checkpoint", "--ic",
+    for flag in ("--vtu", "--curves", "--checkpoint", "--ic",
                  "--bc", "--source", "--analytical", "--profile"):
         ap.add_argument(flag, type=str, default=None)
     ap.add_argument("--vtk-interval", type=int, default=0)
@@ -102,7 +109,7 @@ def setup(argv=None):
     import torch
 
     from .config import Physics, SemiConfig, Solver
-    from .mesh import structured
+    from .mesh import structured, topology
     from .models import semi
 
     device = torch.device(args.device)
@@ -113,8 +120,16 @@ def setup(argv=None):
         raise SystemExit("--f64 runs on --device cpu only: kernels K1 and K2 are "
                          "float32")
 
-    mesh = structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
-                               1.0 / args.cols)
+    if args.mesh and args.mesh.endswith(".geo"):
+        raise SystemExit(
+            "--mesh with a .geo file is not ported to "
+            "p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: CLI, IO and "
+            "validation (mesh/geo.py)); give a gmsh .msh file")
+    if args.mesh:
+        mesh = topology.from_msh(args.mesh)
+    else:
+        mesh = structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
+                                   1.0 / args.cols)
     cfg = SemiConfig(
         n_split=args.n_split, multi_levels=args.levels,
         ntime=args.ntime, dt=args.dt or 1.25e-5, theta=args.theta,

@@ -113,7 +113,7 @@ class SemiConfig:
     # bound) instead of repeating the fine one
     coarse_cheb_degree: int | None = None
     coarse_cheb_lower: float | None = None
-    coarse_operator: str = "geometric"   # "galerkin" is not ported
+    coarse_operator: str = "geometric"   # or "galerkin" (P^T A P)
     restrictor: str = "linear"           # or "corner_average"
     physics: Physics = dataclasses.field(default_factory=Physics)
     manufactured: bool = True

@@ -1,10 +1,19 @@
 // K1: one round of a block-Jacobi / Chebyshev relaxation phase of the
 // semi-structured DG block stencil, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel PhaseOperator._kernel in
-// p_a_multigrids_tpu/ops/pallas_stencil.py (as configured by
-// PhaseOperatorCoefResident), which ran a whole phase of R rounds in one
-// pallas_call over a (rounds x macro tiles) grid.
+// Replaces two TPU kernels of p_a_multigrids_tpu/ops/pallas_stencil.py,
+// which each ran a whole phase of R rounds in one pallas_call over a
+// (rounds x macro tiles) grid:
+// - PhaseOperator._kernel (as configured by PhaseOperatorCoefResident), the
+//   phase at C <= 64 children per macro (n_split <= 3);
+// - PhaseOperatorResident._kernel, the same phase at C > 64 (n_split 4 and
+//   5, C = 256 and 1024).  It re-indexed the children onto a padded square
+//   lattice (Cp = 2 * 4^s rows) so that intra-macro neighbors sat at fixed
+//   sublane shifts with up/down masks, and packed the boundary strips with
+//   a one-hot matmul, because a gather through a child table of length C
+//   cost O(C^2) one-hot work on the TPU's matrix unit.  Here a gather
+//   through the `intra` table costs O(1) per child at any C, so one kernel
+//   covers every depth: no lattice, padding, masks or strip packing.
 //
 // What one round computes, for every child c of every macro u and dof i:
 //   acc_i = sum_f sum_j Fp[f,i,j,c,u] * x[j, nb_f(c), u]
@@ -30,10 +39,27 @@
 // microseconds of work per launch, the launch count of a phase (one per
 // round) weighs as much as the bandwidth.
 //
-// What this design does about it: nothing yet.  It is the simple correct
-// kernel, one launch per round.  A persistent cooperative kernel with a
-// grid barrier between rounds, or CUDA-graph capture of a phase, comes in
-// a later change.
+// At C = 1024 (the level sweep's finest level, n_split 5, U = 96) Fp is
+// 27*C*U*4 B = 10.6 MB and x, bp, x_out and z another 4.7 MB: the round is
+// bandwidth-bound from L2 once a phase has warmed it, and its 98,304
+// threads (384 blocks) fit on the 132 SMs in one partial wave.  Child c's
+// intra neighbors lie within 2^(s+1) - 2 rows of c in the row-major child
+// order (62 rows at s = 5), so their x reads hit lines that nearby blocks
+// have just brought into L2.
+//
+// Index bounds.  All offsets into the (3, C, U) state and the coefficient
+// planes are computed in 64 bits.  The tables are int32: `intra` holds
+// child ids < C, and `src` holds c_src*U + u_src < C*U, so the kernel needs
+// C*U < 2^31.  The largest shape the CLI reaches on a generated mesh in
+// practice, n_split 5 with --rows 24 --cols 24 (U = 1152), has
+// C*U = 1,179,648; the bound is 1,820 times that, and a level at the bound
+// would hold 232 GB of Fp, more than the card, so allocating its
+// coefficients fails before any launch and the wrapper does not check it.
+//
+// What this design does about the bytes and launches: nothing yet.  It is
+// the simple correct kernel, one launch per round.  A persistent
+// cooperative kernel with a grid barrier between rounds, or CUDA-graph
+// capture of a phase, comes in a later change.
 
 #include <cuda_runtime.h>
 

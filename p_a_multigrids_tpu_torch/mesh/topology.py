@@ -1,6 +1,5 @@
 """Macro-mesh neighbor topology by sorted-edge hashing, O(E) (copy of the
-JAX package's ``mesh/topology.py`` without its native ctypes path and its
-gmsh reader).
+JAX package's ``mesh/topology.py`` without its native ctypes path).
 
 Face convention (MACRO_FACE_NODES): face 0 = edge(node0, node2), face 1 =
 edge(node0, node1), face 2 = edge(node1, node2).  ``dir_flag[e, f]`` is
@@ -89,6 +88,13 @@ def _neighbor_topology_py(triangles: np.ndarray):
             else:
                 edge_map[key] = (e, f, a)
     return neig, neigh_face, dir_flag
+
+
+def from_msh(path: str) -> MacroMesh:
+    """Macro mesh of a gmsh 2.x ASCII file (``mesh.gmsh.read_msh``)."""
+    from . import gmsh
+    raw = gmsh.read_msh(path)
+    return build_macro_mesh(raw.vertices, raw.triangles, raw.region_id)
 
 
 def reorder_elements(mesh: MacroMesh, perm: np.ndarray) -> MacroMesh:

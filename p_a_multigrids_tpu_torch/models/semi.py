@@ -14,12 +14,15 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   level (``amg=True``) or continues below a geometric coarsest too large
   for the dense inverse (``coarse_agg``); each of its block-row operators is
   a call of kernel K2 (``ops.spmv``).
+- The coarse levels are assembled geometrically or, with
+  ``coarse_operator="galerkin"``, as P^T A P (``ops.galerkin``), at any
+  split depth (the level sweep runs n_split 5: C = 1024 children per
+  macro).
 
 What this port does not run raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it: ``theta < 1``,
-``coarse_operator="galerkin"``, smoothers other than Chebyshev and
-block-Jacobi, the non-stencil operator paths, the sanitizer mode and
-BiCGStab (``krylov`` with advection).
+ROADMAP.md item that will port it: ``theta < 1``, smoothers other than
+Chebyshev and block-Jacobi, the non-stencil operator paths, the sanitizer
+mode and BiCGStab (``krylov`` with advection).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from torch import nn
 from ..config import SemiConfig, Solver
 from ..mesh import geometry, semi, splitting
 from ..mesh.topology import MacroMesh
-from ..ops import agg, krylov, smoothers
+from ..ops import agg, galerkin, krylov, smoothers
 from ..ops import local_matrices as lm
 from ..ops.fused import from_t, to_t
 from ..ops.phase import phase
@@ -307,21 +310,12 @@ def _transfer_tables(n_coarse: int):
     return fine_of, parent, pweights
 
 
-def _parent_onehot(n_coarse: int) -> np.ndarray:
-    """(Cc, Cf) child -> parent one-hot: the 4-children-per-parent
-    reduction of the restriction as a small contraction, no scatter."""
-    _, parent, _ = _transfer_tables(n_coarse)
-    Cc, Cf = 4 ** n_coarse, 4 ** (n_coarse + 1)
-    parent_oh = np.zeros((Cc, Cf))
-    parent_oh[parent, np.arange(Cf)] = 1.0
-    return parent_oh
-
-
-def restrict_t(r_fine_t, parent_oh, pweights):
+def restrict_t(r_fine_t, fine_of, pweights):
     """Transpose-of-prolongation restriction R = P^T in transposed layout:
-    (3, Cf, U) -> (3, Cc, U)."""
+    (3, Cf, U) -> (3, Cc, U); coarse child c sums the weighted residuals of
+    its four children fine_of[c] (Cc, 4)."""
     contrib = torch.einsum("flk,lfu->kfu", pweights, r_fine_t)
-    return torch.einsum("cf,kfu->kcu", parent_oh, contrib).contiguous()
+    return contrib[:, fine_of].sum(dim=2).contiguous()
 
 
 def restrict_corner_average_t(r_fine_t, corners):
@@ -331,11 +325,11 @@ def restrict_corner_average_t(r_fine_t, corners):
     return r_fine_t[:, corners, :].mean(dim=0).permute(1, 0, 2).contiguous()
 
 
-def prolong_t(e_coarse_t, parent_oh, pweights):
+def prolong_t(e_coarse_t, parent, pweights):
     """Linear interpolation of the coarse correction, transposed layout:
-    (3, Cc, U) -> (3, Cf, U)."""
-    ec = torch.einsum("cf,kcu->kfu", parent_oh, e_coarse_t)
-    return torch.einsum("flk,kfu->lfu", pweights, ec).contiguous()
+    (3, Cc, U) -> (3, Cf, U); fine child f reads its parent parent[f]."""
+    return torch.einsum("flk,kfu->lfu", pweights,
+                        e_coarse_t[:, parent]).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -354,10 +348,7 @@ def _check_config(cfg: SemiConfig):
     if cfg.theta < 1.0:
         raise _not_ported("theta < 1", "non-stencil paths and the other "
                                        "modes (apply_spatial)")
-    if cfg.coarse_operator == "galerkin":
-        raise _not_ported('coarse_operator="galerkin"',
-                          "deep split and the other stencil-path options")
-    if cfg.coarse_operator != "geometric":
+    if cfg.coarse_operator not in ("geometric", "galerkin"):
         raise ValueError(f"unknown coarse_operator {cfg.coarse_operator!r}")
     if cfg.restrictor not in ("linear", "corner_average"):
         raise ValueError(f"unknown restrictor {cfg.restrictor!r}")
@@ -413,6 +404,12 @@ class SemiSolver(nn.Module):
         if host is None:
             datas = [build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
                      for L in problem.levels]
+            if cfg.coarse_operator == "galerkin":
+                # variational P^T A P coarse blocks instead of the
+                # per-level geometric assembly
+                for i in range(1, nl):
+                    datas[i] = galerkin.galerkin_coarse(
+                        datas[i - 1], problem.levels[i]["s"], datas[i])
             lam_max = ([lam_max_estimate(d) for d in datas]
                        if cfg.solver == Solver.CHEBYSHEV else None)
             coarse_inv = self._build_coarse_inverse(datas)
@@ -465,12 +462,12 @@ class SemiSolver(nn.Module):
 
         # transfer tables between level li-1 (fine) and li (coarse)
         for li in range(1, nl):
-            s = problem.levels[li]["s"]
-            fine_of, _, pweights = _transfer_tables(s)
-            buf(f"parent_oh_{li}", _parent_onehot(s))
+            fine_of, parent, pweights = _transfer_tables(
+                problem.levels[li]["s"])
             buf(f"pweights_{li}", pweights)
-            self.register_buffer(f"corners_{li}", torch.as_tensor(
-                fine_of[:, :3].astype(np.int64), device=self.device))
+            for name, idx in (("fine_of", fine_of), ("parent", parent)):
+                self.register_buffer(f"{name}_{li}", torch.as_tensor(
+                    idx.astype(np.int64), device=self.device))
 
         # dense coarse inverse permuted into transposed flat order
         # (i, c, u), so the in-cycle coarse solve needs no transposes
@@ -547,12 +544,12 @@ class SemiSolver(nn.Module):
     def _restrict_t(self, r_t, li_coarse: int):
         if self.cfg.restrictor == "corner_average":
             return restrict_corner_average_t(
-                r_t, getattr(self, f"corners_{li_coarse}"))
-        return restrict_t(r_t, getattr(self, f"parent_oh_{li_coarse}"),
+                r_t, getattr(self, f"fine_of_{li_coarse}")[:, :3])
+        return restrict_t(r_t, getattr(self, f"fine_of_{li_coarse}"),
                           getattr(self, f"pweights_{li_coarse}"))
 
     def _prolong_t(self, e_t, li_coarse: int):
-        return prolong_t(e_t, getattr(self, f"parent_oh_{li_coarse}"),
+        return prolong_t(e_t, getattr(self, f"parent_{li_coarse}"),
                          getattr(self, f"pweights_{li_coarse}"))
 
     def _coarse_cg_t(self, li: int, x_t, b_t):

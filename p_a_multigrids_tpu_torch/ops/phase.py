@@ -7,11 +7,14 @@ z is returned.  With no coefs and ``want_z`` the single round gives
 z = bp - D^-1 A x, so with bp = 0, A x = -D z (``SemiSolver._apply_t``).
 
 On a CUDA tensor every round is one launch of the hand-written kernel in
-``csrc/phase.cu`` (the port of the TPU kernel ``PhaseOperator._kernel``,
-``p_a_multigrids_tpu/ops/pallas_stencil.py``).  On a CPU tensor the plain
-PyTorch version ``phase_reference`` runs instead; it is also what the tests
-and ``chip_smoke.py`` hold the kernel against.  There is no fallback: on a
-CUDA tensor the kernel builds and launches, or this module raises.
+``csrc/phase.cu``, the port of the TPU kernels ``PhaseOperator._kernel``
+(C <= 64 children per macro) and ``PhaseOperatorResident._kernel`` (C > 64:
+n_split 4 and 5) of ``p_a_multigrids_tpu/ops/pallas_stencil.py``: one
+kernel gathers children through an index table at any C.  On a CPU tensor
+the plain PyTorch version ``phase_reference`` runs instead; it is also what
+the tests and ``chip_smoke.py`` hold the kernel against.  There is no
+fallback: on a CUDA tensor the kernel builds and launches, or this module
+raises.
 """
 
 from __future__ import annotations
@@ -24,14 +27,21 @@ from ..utils import cuda_build
 from .stencil import StencilOperator
 
 
-class PhaseKernel:
-    """ctypes binding of ``k1_phase_round`` with its launch count.
+# the TPU kernel PhaseOperatorResident took the levels with more children
+DEEP_C = 64
 
-    ``launches`` grows by one for every kernel launch and nowhere else; the
-    library is built at the first launch (``cuda_build.load``)."""
+
+class PhaseKernel:
+    """ctypes binding of ``k1_phase_round`` with its launch counts.
+
+    ``launches`` grows by one for every kernel launch and nowhere else;
+    ``launches_deep`` counts those of them on a level with C > ``DEEP_C``
+    children (the TPU's ``PhaseOperatorResident`` regime).  The library is
+    built at the first launch (``cuda_build.load``)."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_deep = 0
         self.build_info: dict | None = None
         self._fn = None
 
@@ -61,6 +71,8 @@ class PhaseKernel:
             raise RuntimeError(f"kernel K1 (phase round) launch failed: "
                                f"CUDA error {err}")
         self.launches += 1
+        if op.C > DEEP_C:
+            self.launches_deep += 1
 
 
 KERNEL = PhaseKernel()

@@ -2,7 +2,7 @@
 
     python -m p_a_multigrids_tpu_torch.utils.profiling [--out FILE]
 
-Four measurements, each printed as a table and gathered into one JSON
+Five measurements, each printed as a table and gathered into one JSON
 object (printed last, and written to FILE when given):
 
 - ``vcycle`` and ``amg_vcycle``: where one V-cycle spends its device time,
@@ -12,10 +12,14 @@ object (printed last, and written to FILE when given):
   (``tri_mesh(128, 32, 3/128, 1/128)``, n_split 2, 2 levels, 393,216 DOF)
   and for the production amg configuration on the same mesh (``amg=True,
   agg_strength=0.5, cheb_degree=16, cheb_lower=0.05``, 1 level).
+- ``sweep6_wcycle`` and ``deep_amg_vcycle``: the same for the deep split,
+  the level sweep's 6-level W-cycle and its production amg row at n_split
+  5 (``sweep_solver``, ``deep_amg_solver``: 294,912 DOF, C = 1024).
 - ``rounds``: the device time of one K1 round at each level K1 runs on in
-  the bench-geometric configuration and in the CLI main path
-  (``tri_mesh(24, 24, 1/24, 1/24)``, n_split 3, 4 levels), beside the least
-  bytes a round must move and the rate that implies.
+  the bench-geometric configuration, in the CLI main path
+  (``tri_mesh(24, 24, 1/24, 1/24)``, n_split 3, 4 levels) and in the
+  6-level sweep (C = 1024 to 4), beside the least bytes a round must move
+  and the rate that implies.
 - ``rowops``: the device time of one K2 launch for every block-row
   operator of the amg configuration's SA hierarchy, beside its least bytes.
 
@@ -151,6 +155,33 @@ def amg_solver(device) -> semi.SemiSolver:
         structured.tri_mesh(128, 32, 3 / 128, 1 / 128), cfg), device)
 
 
+# the level sweep's stand-in for the reference's 2_split.msh family: 96
+# macros of isotropic right triangles on a 1 x 0.75 domain; at n_split 5,
+# 294,912 DOF
+SWEEP_MESH = (8, 6, 1 / 8, 1 / 8)
+
+
+def sweep_solver(device, levels: int, **kw) -> semi.SemiSolver:
+    """One row of ``bench.py``'s level sweep on the stand-in mesh: steady
+    diffusion (dt = 1e8) at n_split 5 with ``levels`` geometric levels,
+    W-cycles and degree-6 Chebyshev.  Below a geometric coarsest above the
+    dense cap (levels 2-4) SA levels continue; levels 5-6 end in the dense
+    coarse solve.  ``kw`` overrides SemiConfig fields."""
+    cfg = SemiConfig(**{**dict(
+        n_split=5, multi_levels=levels, dt=1e8, ntime=1, n_multigrid=1,
+        cheb_degree=6, cycle_type="w"), **kw})
+    return semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(*SWEEP_MESH), cfg), device)
+
+
+def deep_amg_solver(device) -> semi.SemiSolver:
+    """The level sweep's production row: the amg configuration at n_split 5
+    on the stand-in mesh (the SA hierarchy of 98,304 elements corrects the
+    finest level)."""
+    return sweep_solver(device, 1, amg=True, agg_strength=0.5,
+                        cheb_degree=16, cheb_lower=0.05, cycle_type="v")
+
+
 # the CLI's geometric main path
 CLI_MAIN = ["--mode", "9", "--rows", "24", "--cols", "24", "--n-split", "3",
             "--levels", "4", "--ntime", "2"]
@@ -264,19 +295,26 @@ def main(argv=None) -> dict:
         raise SystemExit("profiling: no CUDA device is available")
     dev = torch.device("cuda", 0)
     bench, cli, amg = bench_solver(dev), cli_solver(dev), amg_solver(dev)
+    sweep6, deep_amg = sweep_solver(dev, 6), deep_amg_solver(dev)
     out = {"device": torch.cuda.get_device_name(0),
            "vcycle": vcycle_profile(bench), "amg_vcycle": vcycle_profile(amg),
+           "sweep6_wcycle": vcycle_profile(sweep6),
+           "deep_amg_vcycle": vcycle_profile(deep_amg),
            "rounds": {}, "rowops": {}}
     _print_vcycle("bench-geometric V-cycle", out["vcycle"])
     _print_vcycle("production amg V-cycle", out["amg_vcycle"])
+    _print_vcycle("level sweep, 6-level W-cycle", out["sweep6_wcycle"])
+    _print_vcycle("level sweep, amg V-cycle", out["deep_amg_vcycle"])
     levels = [(f"bench_L{i}", op) for i, op in enumerate(bench.ops)]
     levels += [(f"cli_L{i}", op) for i, op in enumerate(cli.ops) if op.C > 1]
-    print(f"{'level':10s} {'C':>3s} {'U':>5s} {'nb':>3s} {'dev us/round':>13s}"
+    levels += [(f"sweep_L{i}", op) for i, op in enumerate(sweep6.ops)
+               if op.C > 1]
+    print(f"{'level':10s} {'C':>4s} {'U':>5s} {'nb':>3s} {'dev us/round':>13s}"
           f" {'wall us/round':>14s} {'least MB':>9s} {'GB/s':>7s}")
     for name, op in levels:
         r = round_profile(op)
         out["rounds"][name] = r
-        print(f"{name:10s} {r['C']:3d} {r['U']:5d} {r['nb']:3d} "
+        print(f"{name:10s} {r['C']:4d} {r['U']:5d} {r['nb']:3d} "
               f"{r['device_us_per_round']:13.2f} "
               f"{r['wall_us_per_round']:14.2f} {r['least_bytes'] / 1e6:9.2f}"
               f" {r['effective_GBps']:7.0f}")

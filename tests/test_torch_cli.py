@@ -57,7 +57,7 @@ def test_sa_cli_matches_jax(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mode", "4"], ["--mode", "10"], ["--mesh", "m.msh"],
+    ["--mode", "4"], ["--mode", "10"], ["--mesh", "m.geo"],
     ["--vtu", "o.vtu"], ["--vtk-interval", "2"], ["--checkpoint", "c.npz"],
     ["--ic", "x"], ["--bc", "x"], ["--source", "x"], ["--debug"],
     ["--devices", "2"], ["--theta", "0.5"],

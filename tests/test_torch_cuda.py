@@ -34,12 +34,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n_split", [0, 1, 2, 3])
+@pytest.mark.parametrize("n_split", [0, 1, 2, 3, 4, 5])
 def test_k1_matches_plain(cuda, n_split):
     """f32 sums of ~40 terms taken in another order, compounded over <= 7
     rounds with intermediate Chebyshev amplification: 1e-4 relative for
     multi-round phases, 1e-5 for the zero-round apply.  n_split 0 has 3
-    cross slots per child, 1-3 the corner children's 2."""
+    cross slots per child, 1-5 the corner children's 2; n_split 4 and 5
+    (C = 256 and 1024) are the TPU's PhaseOperatorResident regime, counted
+    in launches_deep too."""
     cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05)
     L = semi.build_problem(structured.tri_mesh(6, 5, 0.2, 0.25),
                            cfg).levels[0]
@@ -55,10 +57,12 @@ def test_k1_matches_plain(cuda, n_split):
             (cheb, True, op._bp(b, True), 1e-4),
             ([0.8] * 3, False, op._bp(b, False), 1e-4),
             ([], True, torch.zeros_like(x), 1e-5)):
-        n0 = K.KERNEL.launches
+        n0, d0 = K.KERNEL.launches, K.KERNEL.launches_deep
         xk, zk = K.phase(op, x, bp, coefs, want_z)
         torch.cuda.synchronize()
         assert K.KERNEL.launches - n0 == len(coefs) + int(want_z)
+        assert K.KERNEL.launches_deep - d0 == (
+            K.KERNEL.launches - n0 if op.C > K.DEEP_C else 0)
         xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
         pairs = [(xk, xr), (zk, zr)] if want_z else [(xk, xr)]
         for got, ref in pairs:

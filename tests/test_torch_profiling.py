@@ -58,6 +58,25 @@ def test_cli_solver_is_the_cli_build():
     assert sv.cfg.agg_strength == 0.4 and sv.device.type == "cpu"
 
 
+def test_sweep_solvers_are_the_bench_sweep(monkeypatch):
+    """bench.py's level-sweep rows (n_split 5, dt 1e8, W-cycles, degree 6)
+    and its production amg row, built here on a 4-macro mesh; the stand-in
+    itself is 96 macros, 294,912 DOF at n_split 5."""
+    rows, cols = profiling.SWEEP_MESH[:2]
+    assert 2 * rows * cols * 4 ** 5 * 3 == 294912
+    monkeypatch.setattr(profiling, "SWEEP_MESH", (2, 1, 0.5, 0.5))
+    sv = profiling.sweep_solver("cpu", 3, coarse_operator="galerkin")
+    c = sv.cfg
+    assert (c.n_split, c.multi_levels, c.dt, c.cheb_degree, c.cycle_type,
+            c.coarse_operator) == (5, 3, 1e8, 6, "w", "galerkin")
+    assert [op.C for op in sv.ops] == [1024, 256, 64]
+    amg = profiling.deep_amg_solver("cpu")
+    c = amg.cfg
+    assert (c.amg, c.agg_strength, c.cheb_degree, c.cheb_lower,
+            c.cycle_type, c.multi_levels) == (True, 0.5, 16, 0.05, "v", 1)
+    assert amg.agg is not None and amg.ops[0].C == 1024
+
+
 def test_needs_a_cuda_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -202,12 +202,11 @@ def test_solver_from_numpy_carries_agg(case):
 
 @pytest.mark.parametrize("kw", [
     dict(theta=0.5),
-    dict(coarse_operator="galerkin"),
     dict(solver=tcfg.Solver.JACOBI),
     dict(krylov=True, physics=tcfg.Physics(advection=True, u=(1.0, 0.0))),
     dict(stencil_operator=False),
     dict(debug=True),
-], ids=["theta", "galerkin", "jacobi", "bicgstab", "non_stencil",
+], ids=["theta", "jacobi", "bicgstab", "non_stencil",
         "debug"])
 def test_unported_paths_raise(kw):
     cfg = tcfg.SemiConfig(n_split=1, multi_levels=2, dt=0.05, **kw)
