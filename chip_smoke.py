@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (csrc/phase.cu) and K2 (csrc/spmv.cu) from this checkout,
-holds each against its plain PyTorch version at the main paths' shapes,
+Builds kernels K1 (csrc/phase.cu: one launch per relaxation phase, in its
+small, resident or streaming tier) and K2 (csrc/spmv.cu: one thread or a
+group of lanes per block row) from this checkout, holds each against its
+plain PyTorch version at the main paths' shapes (K1 in each tier),
 drives the mode-9 main paths through the CLI entry at full width (the
 geometric V-cycle, the production smoothed-aggregation PCG solve, and the
 CLI defaults, whose coarsest level continues into SA levels), runs the
 benchmark's geometric and amg V-cycle configurations, the amg PCG solve to
-1e-6 and the manufactured-solution PCG gate, times both kernels against
-their plain versions, and holds the production CLI run to the same command
-on the host CPU (the plain PyTorch path, f32).
+1e-6 and the manufactured-solution PCG gate, counts K1's launches and
+rounds in one cycle of each configuration, times both kernels against their
+plain versions, their bounds and, for K2, the library call that computes
+the same product (a sparse BSR matrix times a vector), and holds the
+production CLI run to the same command on the host CPU (the plain PyTorch
+path, f32).
 
 Then the deep-split path (n_split 5, C = 1024 children per macro, where
 the TPU ran its kernel PhaseOperatorResident): K1 against its plain version
@@ -76,6 +81,10 @@ AMG_HISTORY = [7.6809e-03, 3.4141e-04, 1.0777e-04, 4.3869e-05, 1.9073e-05,
                8.1749e-06, 5.7173e-06, 4.2293e-06, 5.6080e-06, 4.2279e-06]
 AMG_FLOOR = 5.7173e-06       # the largest of the floored cycles 7-10
 AMG_PCG_ITERS = 5            # JAX package on CPU, f32, same solve
+# K1 phases (= launches) and rounds in one cycle: bench-geometric,
+# production amg, the level sweep's 6-level W-cycle (counted on the CPU by
+# wrapping models.semi.phase)
+CYCLE_K1 = {"bench": (3, 21), "amg": (4, 35), 6: (30, 195)}
 
 # The deep-split path: bench.py's level sweep on its stand-in mesh
 # (utils.profiling.sweep_solver: tri_mesh(8, 6, 1/8, 1/8), n_split 5, 96
@@ -175,7 +184,8 @@ def main():
     from p_a_multigrids_tpu_torch.ops import galerkin
     from p_a_multigrids_tpu_torch.utils.profiling import (
         SWEEP_MESH, amg_solver, bench_solver, cli_solver, deep_amg_solver,
-        event_ms, sweep_solver)
+        bound_ms, bsr_matrix, event_ms, least_bytes, rowop_least_bytes,
+        sweep_solver, _trace)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -192,7 +202,7 @@ def main():
     print(card, flush=True)
 
     # 2. build: one nvcc per kernel source, both started together ----------
-    kernels = {"k1_phase_round": K.KERNEL, "k2_rowop": K2.KERNEL}
+    kernels = {"k1_phase": K.KERNEL, "k2_rowop": K2.KERNEL}
     with ThreadPoolExecutor(len(kernels)) as pool:
         for fut in [pool.submit(k.function) for k in kernels.values()]:
             fut.result()
@@ -257,19 +267,23 @@ def main():
                      True, 1e-5)]
         return out
 
-    def k1_parity(name, op, x, bp, coefs, want_z, rtol):
-        """K1 against phase_reference on one phase (launch counts, at
-        C > DEEP_C the deep ones too, and rtol relative to max|plain|);
-        returns the largest absolute difference."""
+    def k1_parity(name, op, x, bp, coefs, want_z, rtol, tier=None):
+        """K1 against phase_reference on one phase, in ``tier`` when given
+        (one launch, its rounds, at C > DEEP_C a deep launch too, and rtol
+        relative to max|plain|); returns the largest absolute
+        difference."""
         n0, d0 = K.KERNEL.launches, K.KERNEL.launches_deep
-        xk, zk = K.phase(op, x, bp, coefs, want_z)
+        r0, t0 = K.KERNEL.rounds, dict(K.KERNEL.by_tier)
+        xk, zk = K.phase_on_tier(op, x, bp, coefs, want_z, tier)
         torch.cuda.synchronize()
         launched = K.KERNEL.launches - n0
-        check(launched == len(coefs) + int(want_z),
-              f"{name}: {launched} launches for {len(coefs)} rounds"
-              f" + z={want_z}")
-        check(K.KERNEL.launches_deep - d0
-              == (launched if op.C > K.DEEP_C else 0),
+        rounds = len(coefs) + int(want_z)
+        used = K.KERNEL.plan(op, tier).tier
+        check(launched == 1 and K.KERNEL.rounds - r0 == rounds
+              and K.KERNEL.by_tier[used] - t0[used] == 1,
+              f"{name}: {launched} launches, {K.KERNEL.rounds - r0} rounds "
+              f"for {len(coefs)} rounds + z={want_z}")
+        check(K.KERNEL.launches_deep - d0 == int(op.C > K.DEEP_C),
               f"{name}: {K.KERNEL.launches_deep - d0} deep launches at "
               f"C = {op.C}")
         xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
@@ -279,8 +293,8 @@ def main():
             err = float((got - ref).abs().max())
             scale = float(ref.abs().max())
             worst = max(worst, err)
-            say("parity", case=name, out=which, C=op.C, U=op.U,
-                rounds=len(coefs) + int(want_z), max_abs_err=f"{err:.3e}",
+            say("parity", case=name, out=which, C=op.C, U=op.U, tier=used,
+                rounds=rounds, max_abs_err=f"{err:.3e}",
                 max_ref=f"{scale:.3e}", rel=f"{err / scale:.3e}",
                 tol=rtol)
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
@@ -297,6 +311,10 @@ def main():
          solver._phase_coefs(1, cfg.coarse_sweeps), False, 1e-4),
         ("apply_l0", op0, x0, torch.zeros_like(x0), [], True, 1e-5),
         ("apply_l1", op1, x1, torch.zeros_like(x1), [], True, 1e-5),
+        ("fine_cheb6_z_stream", op0, x0, op0._bp(b0, True),
+         solver._phase_coefs(0, cfg.n_smooth), True, 1e-4, "stream"),
+        ("apply_l0_stream", op0, x0, torch.zeros_like(x0), [], True, 1e-5,
+         "stream"),
     ]
     for path, sv in [("amg", amg)] + list(path_sv.items()):
         cases += solver_cases(path, sv)
@@ -321,23 +339,35 @@ def main():
             check(K2.KERNEL.launches - n0 == 1,
                   f"{path} {name}: {K2.KERNEL.launches - n0} K2 launches for "
                   "one apply")
-            ref = K2.rowop_reference(op.cols_t, op.vals_t, x)
+            cols_t, vals_t = op.tables()
+            ref = K2.rowop_reference(cols_t, vals_t, x)
             # two summation orders of 3*D f32 products each lie within
             # 3*D*2^-24 of the exact sum, relative to the sum of |products|
-            absum = float(K2.rowop_reference(op.cols_t, op.vals_t.abs(),
+            absum = float(K2.rowop_reference(cols_t, vals_t.abs(),
                                              x.abs()).max())
             tol = 2 * 3 * op.D * 2.0 ** -24 * absum
             err = float((got - ref).abs().max())
             worst = max(worst, err)
+            variants.add(op.variant)
             say("parity", kernel="k2", config=path, case=name, N=op.n_out,
-                D=op.D, S=op.n_src, max_abs_err=f"{err:.3e}",
+                D=op.D, S=op.n_src, variant=op.variant, lanes=op.lanes,
+                max_abs_err=f"{err:.3e}",
                 max_ref=f"{float(ref.abs().max()):.3e}", tol=f"{tol:.3e}")
             check(bool(torch.isfinite(got).all()),
                   f"{path} {name}: non-finite")
             check(err <= tol,
                   f"{path} {name}: |K2 - plain| {err:.3e} > {tol:.3e}")
+            if op.variant == "lanes":
+                # the lane groups add slot sums in the thread variant's
+                # order: the same bits
+                twin = K2.RowOp(cols_t.T.cpu().numpy(),
+                                vals_t.permute(3, 0, 1, 2).cpu().numpy(),
+                                op.n_src, torch.float32, dev, "thread")
+                check(torch.equal(got, twin(x)),
+                      f"{path} {name}: the lanes and thread variants differ")
         return worst
 
+    variants = set()
     rowops = amg.agg.rowops()
     k2_err = max(k2_parity(path, h) for path, h in (
         ("amg", amg.agg), ("amg_cli", path_sv["amg_cli"].agg),
@@ -346,12 +376,17 @@ def main():
 
     # 4. main paths through the CLI entry; each path's counts are set to 0
     # just before it and read just after it ----------------------------------
+    check(variants == {"thread", "lanes"},
+          f"the SA hierarchies ran K2 variants {variants}")
+
     def counts_zero():
-        K.KERNEL.launches = K.KERNEL.launches_deep = K2.KERNEL.launches = 0
+        K.KERNEL.reset()
+        K2.KERNEL.launches = 0
 
     def read_counts():
-        return {"k1_phase_round": K.KERNEL.launches,
+        return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
                 "k1_deep": K.KERNEL.launches_deep,
+                "k1_tiers": {k: v for k, v in K.KERNEL.by_tier.items() if v},
                 "k2_rowop": K2.KERNEL.launches}
 
     def drive(args):
@@ -361,7 +396,7 @@ def main():
         return out, read_counts()
 
     out, counts = drive(CLI_ARGS)
-    main_launches = counts["k1_phase_round"]
+    main_launches = counts["k1_phase"]
     hist = out["residual_history"]
     say("main", path="geometric", launches=counts, residual_history=hist,
         jax_cpu=CLI_HISTORY, L1_error=out["L1_error"],
@@ -383,7 +418,7 @@ def main():
         jax_krylov_iterations=AMG_CLI["krylov_iterations"],
         L1_error=amg_out["L1_error"], jax_L1_error=AMG_CLI["L1_error"],
         wall_s=amg_out["wall_s"])
-    check(amg_counts["k1_phase_round"] > 0 and amg_counts["k2_rowop"] > 0,
+    check(amg_counts["k1_phase"] > 0 and amg_counts["k2_rowop"] > 0,
           f"the amg path did not launch both kernels: {amg_counts}")
     check(all(np.isfinite(v) for v in amg_out["residual_history"]
               + [amg_out["L1_error"], amg_out["residual"]]),
@@ -410,7 +445,7 @@ def main():
     say("main", path="defaults_coarse_agg", launches=dflt_counts,
         residual_history=dflt["residual_history"], jax_cpu=DEFAULT_HISTORY,
         wall_s=dflt["wall_s"])
-    check(dflt_counts["k1_phase_round"] > 0 and dflt_counts["k2_rowop"] > 0,
+    check(dflt_counts["k1_phase"] > 0 and dflt_counts["k2_rowop"] > 0,
           f"the defaults path did not launch both kernels: {dflt_counts}")
     for got, want in zip(dflt["residual_history"], DEFAULT_HISTORY):
         check(abs(got - want) <= 0.01 * want,
@@ -429,6 +464,22 @@ def main():
             cycle()
         return event_ms(cycle, 20)
 
+    def cycle_counts(key, sv):
+        """K1 launches and rounds in one cycle of sv from T0, against
+        CYCLE_K1 (counts set to 0 just before, read just after)."""
+        x_t = to_t(sv.initial_condition())
+        b_t = sv._rhs_t(x_t)
+        counts_zero()
+        sv._vcycle_t(0, x_t, b_t)
+        torch.cuda.synchronize()
+        c = read_counts()
+        say("cycle", config=key, k1_launches=c["k1_phase"],
+            k1_rounds=c["k1_rounds"], k1_tiers=c["k1_tiers"],
+            k2_launches=c["k2_rowop"], want_k1=CYCLE_K1[key])
+        check((c["k1_phase"], c["k1_rounds"]) == CYCLE_K1[key],
+              f"{key}: K1 {c['k1_phase']} launches, {c['k1_rounds']} rounds "
+              f"a cycle, expected {CYCLE_K1[key]}")
+
     def pcg_to_1e6(sv):
         """PCG on sv's linear system from T0's right-hand side, x0 = 0, to a
         1e-6 drop, preconditioned by one homogeneous cycle."""
@@ -441,6 +492,7 @@ def main():
                                            hom=True),
             tol=1e-6, maxiter=40)
 
+    cycle_counts("bench", solver)
     bench = history(solver)
     say("bench", residual_history=[f"{v:.4e}" for v in bench])
     say("bench", jax_cpu=BENCH_HISTORY)
@@ -451,6 +503,7 @@ def main():
     say("bench", ms_per_vcycle=f"{vc_ms:.4f}", card=repr(card))
 
     # 5b. production amg V-cycle and PCG to 1e-6 at 393,216 DOF -------------
+    cycle_counts("amg", amg)
     amg_hist = history(amg)
     say("amg", residual_history=[f"{v:.4e}" for v in amg_hist])
     say("amg", jax_cpu=AMG_HISTORY, floor=AMG_FLOOR)
@@ -498,33 +551,49 @@ def main():
 
     coefs = solver._phase_coefs(0, cfg.n_smooth)
     bp0 = op0._bp(b0, True)
-    n_before = K.KERNEL.launches
+    n_before, r_before = K.KERNEL.launches, K.KERNEL.rounds
     k_ms, p_ms, times = time_pair(
         lambda: K.phase(op0, x0, bp0, coefs, True),
         lambda: K.phase_reference(op0, x0, bp0, coefs, True), 20)
-    check(K.KERNEL.launches - n_before == 43 * (len(coefs) + 1),
-          "timed kernel phases did not launch K1")
+    check(K.KERNEL.launches - n_before == 43
+          and K.KERNEL.rounds - r_before == 43 * (len(coefs) + 1),
+          "timed kernel phases did not launch K1 once each")
+    k1_bound = bound_ms(least_bytes(op0))
     say("time", phase="fine_cheb6_z", C=op0.C, U=op0.U,
-        k1_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        tier=K.KERNEL.plan(op0).tier, k1_ms=f"{k_ms:.4f}",
+        plain_ms=f"{p_ms:.4f}", bound_ms=f"{k1_bound:.4f}",
         k1_runs=[f"{v:.4f}" for v in times["kernel"]],
         plain_runs=[f"{v:.4f}" for v in times["plain"]], card=repr(card))
 
-    # 8. K2 against the plain version: the level-0 operator and the fine
-    # tentative restriction ---------------------------------------------------
+    # 8. K2 against the plain version, its bound and the library call that
+    # computes the same product (a sparse BSR matrix built once from the
+    # RowOp, times the vector in the layout it wants): the level-0 operator,
+    # the fine tentative restriction and the wide SA restrictions ---------
     k2_ms = {}
-    for name in ("l0_op", "fine_tent_r"):
+    for name in ("l0_op", "fine_tent_r", "l2_r", "l3_r"):
         op = rowops[name]
         x = torch.as_tensor(rng.normal(size=(3, op.n_src)).astype(np.float32),
                             device=dev)
         n_before = K2.KERNEL.launches
         ms, plain_ms, times = time_pair(
             lambda: op(x),
-            lambda: K2.rowop_reference(op.cols_t, op.vals_t, x), 50)
+            lambda: K2.rowop_reference(*op.tables(), x), 50)
         check(K2.KERNEL.launches - n_before == 103,
               f"timed {name} applies did not launch K2")
-        k2_ms[name] = (ms, plain_ms)
+        A, xv = bsr_matrix(op), x.T.reshape(-1).contiguous()
+        lib_y = (A @ xv).reshape(op.n_out, 3).T
+        lib_err = float((lib_y - op(x)).abs().max())
+        check(lib_err <= 1e-5 * float(lib_y.abs().max()),
+              f"{name}: the BSR yardstick differs from K2 by {lib_err:.3e}")
+        for _ in range(3):
+            A @ xv
+        lib_ms = event_ms(lambda: A @ xv, 50)
+        backend = sorted({k for k, _, _ in _trace(lambda: A @ xv, 1)})
+        k2_ms[name] = (ms, plain_ms, bound_ms(rowop_least_bytes(op)), lib_ms)
         say("time", rowop=name, N=op.n_out, D=op.D, S=op.n_src,
-            k2_ms=f"{k2_ms[name][0]:.5f}", plain_ms=f"{k2_ms[name][1]:.5f}",
+            variant=op.variant, lanes=op.lanes, k2_ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{k2_ms[name][2]:.5f}",
+            library_ms=f"{lib_ms:.5f}", library_kernels=backend,
             k2_runs=[f"{v:.5f}" for v in times["kernel"]],
             plain_runs=[f"{v:.5f}" for v in times["plain"]], card=repr(card))
 
@@ -619,10 +688,17 @@ def main():
                 k3_err = max(k3_err, err)
             else:
                 max_abs_err = max(max_abs_err, err)
+    # and the streaming tier at C = 1024, forced
+    op_d = deep[1].ops[0]
+    xd, bd = rand(op_d), rand(op_d)
+    k3_err = max(k3_err, k1_parity(
+        "sweep1_l0_cheb6_z_stream", op_d, xd, op_d._bp(bd, True),
+        deep[1]._phase_coefs(0, deep[1].cfg.n_smooth), True, 1e-4, "stream"))
 
     # 12. the level sweep on the card: 10 cycles from T0 at levels 1-6, the
     # Galerkin configuration and the amg row; each run's counts are set to
     # 0 just before it and read just after it ------------------------------
+    cycle_counts(6, deep[6])
     sweep_deep_launches = 0
     wants = dict(SWEEP_HISTORY, galerkin4=GALERKIN4_HISTORY,
                  amg=DEEP_AMG_HISTORY)
@@ -696,37 +772,44 @@ def main():
 
     # 14. K1 against the plain version in K3's regime: one fine degree-6
     # phase at C = 1024 (the sweep's level 0) ------------------------------
-    op_d = sweep1.ops[0]
-    xd, bd = rand(op_d), rand(op_d)
     coefs = sweep1._phase_coefs(0, sweep1.cfg.n_smooth)
     bpd = op_d._bp(bd, True)
-    n_before = K.KERNEL.launches_deep
+    n_before, r_before = K.KERNEL.launches_deep, K.KERNEL.rounds
     k3_ms, k3_plain_ms, times = time_pair(
         lambda: K.phase(op_d, xd, bpd, coefs, True),
         lambda: K.phase_reference(op_d, xd, bpd, coefs, True), 20)
-    check(K.KERNEL.launches_deep - n_before == 43 * (len(coefs) + 1),
-          "timed C = 1024 phases did not launch K1")
+    check(K.KERNEL.launches_deep - n_before == 43
+          and K.KERNEL.rounds - r_before == 43 * (len(coefs) + 1),
+          "timed C = 1024 phases did not launch K1 once each")
+    k3_bound = bound_ms(least_bytes(op_d))
     say("time", phase="deep_fine_cheb6_z", C=op_d.C, U=op_d.U,
-        k1_ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}",
+        tier=K.KERNEL.plan(op_d).tier, k1_ms=f"{k3_ms:.4f}",
+        plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound:.4f}",
         k1_runs=[f"{v:.4f}" for v in times["kernel"]],
         plain_runs=[f"{v:.4f}" for v in times["plain"]], card=repr(card))
 
+    # bounds: the least bytes over the H100's 3.35 TB/s (a phase's Fp, Xp,
+    # x0, bp, x and z; a rowop's tables and vectors); K1 has no library call
     print(json.dumps({"kernels": [{
-        "name": "k1_phase_round", "route": "cuda",
+        "name": "k1_phase", "route": "cuda",
         "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
         "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:176",
-        "launches": amg_counts["k1_phase_round"], "max_abs_err": max_abs_err,
-        "ms": k_ms, "plain_ms": p_ms}, {
+        "launches": amg_counts["k1_phase"], "max_abs_err": max_abs_err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": k1_bound,
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "k2_rowop", "route": "cuda",
         "source": "p_a_multigrids_tpu_torch/csrc/spmv.cu",
         "replaces": "p_a_multigrids_tpu/ops/pallas_bsr.py:144",
         "launches": amg_counts["k2_rowop"], "max_abs_err": k2_err,
-        "ms": k2_ms["l0_op"][0], "plain_ms": k2_ms["l0_op"][1]}, {
-        "name": "k1_phase_round_deep", "route": "cuda",
+        "ms": k2_ms["l0_op"][0], "plain_ms": k2_ms["l0_op"][1],
+        "bound_ms": k2_ms["l0_op"][2], "bound_by": "bytes",
+        "library_ms": k2_ms["l0_op"][3]}, {
+        "name": "k1_phase_deep", "route": "cuda",
         "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
         "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:608",
         "launches": sweep_deep_launches, "max_abs_err": k3_err,
-        "ms": k3_ms, "plain_ms": k3_plain_ms}]}),
+        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+        "bound_by": "bytes", "library_ms": None}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

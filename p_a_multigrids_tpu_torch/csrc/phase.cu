@@ -1,9 +1,10 @@
-// K1: one round of a block-Jacobi / Chebyshev relaxation phase of the
-// semi-structured DG block stencil, for NVIDIA Hopper (sm_90a).
+// K1: one whole block-Jacobi / Chebyshev relaxation phase of the
+// semi-structured DG block stencil in one launch, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces two TPU kernels of p_a_multigrids_tpu/ops/pallas_stencil.py,
 // which each ran a whole phase of R rounds in one pallas_call over a
-// (rounds x macro tiles) grid:
+// (rounds x macro tiles) grid and kept the coefficients in VMEM for it:
 // - PhaseOperator._kernel (as configured by PhaseOperatorCoefResident), the
 //   phase at C <= 64 children per macro (n_split <= 3);
 // - PhaseOperatorResident._kernel, the same phase at C > 64 (n_split 4 and
@@ -19,135 +20,387 @@
 //   acc_i = sum_f sum_j Fp[f,i,j,c,u] * x[j, nb_f(c), u]
 //         + sum_{slots s of c} sum_j Xp[i,j,s,u] * x[j, src(s,u)]
 //   z_i   = bp_i - x_i - acc_i              (= D^-1 (b - A x))
-//   x'_i  = x_i + coef * z_i
-// reading only the previous round's state (Jacobi semantics: x and x_out
-// are distinct buffers).  Fp = D^-1 F and Xp = D^-1 X are premultiplied
-// blocks; nb_f(c) is the intra-macro neighbor (the child itself on a macro
-// boundary face, where Fp is zero); src(s, u) is the cross-macro source of
-// slot s as an offset c_src*U + u_src in a (C, U) plane.
+//   x'_i  = x_i + coef_r * z_i
+// reading only the previous round's state (Jacobi semantics: every round
+// reads one of two ping-pong buffers and writes the other, and a barrier
+// over all blocks separates the rounds).  The last round also writes z when
+// it is wanted.  Fp = D^-1 F and Xp = D^-1 X are premultiplied blocks;
+// nb_f(c) is the intra-macro neighbor (the child itself on a macro boundary
+// face, where Fp is zero); src(s, u) is the cross-macro source of slot s as
+// an offset c_src*U + u_src in a (C, U) plane.
 //
 // Layout: state (3, C, U), Fp (3f, 3i, 3j, C, U), Xp (3i, 3j, nb, U),
-// src (nb, U).  One thread owns one (c, u) pair and writes its three dofs;
-// u is the fastest index, so coefficient planes and state read coalesced.
+// src (nb, U).  A pair is one (c, u), flat index t = c*U + u; block b owns
+// the contiguous pairs [b*slice, (b+1)*slice) for the whole phase and its
+// threads walk them with a stride of blockDim.x, so coefficient planes and
+// state are read coalesced along u.
 //
-// What bounds it on an H100: bytes and launches.  At the stand-in mesh's
-// level 0 (U = 8192, C = 16, f32) one round reads 27*C*U*4 B = 14.2 MB of
-// Fp, 9*nb*U*4 B = 3.5 MB of Xp (nb = 12 slots) and moves about 6 MB of x,
-// bp, x_out and z: some 24 MB, which fits the 50 MB L2, so a round of a
-// phase can find the coefficients of the round before still cached.  From
-// device memory at 3.35 TB/s that is about 7 us a round; at a few
-// microseconds of work per launch, the launch count of a phase (one per
-// round) weighs as much as the bandwidth.
+// What bounds it on an H100: bytes, and before this design launches.  A
+// phase must move Fp (27 floats a pair), Xp (9 a slot), x0 and bp in and x
+// and z out at least once: 24.0 MB at C = 16, U = 8192 (7.2 us at 3.35
+// TB/s) and 15.7 MB at C = 1024, U = 96 (4.7 us).  The round kernel this
+// replaces re-read all of it every round and cost a launch (a ~4.3 us
+// device floor and 9-24 us of host time) per round.
 //
-// At C = 1024 (the level sweep's finest level, n_split 5, U = 96) Fp is
-// 27*C*U*4 B = 10.6 MB and x, bp, x_out and z another 4.7 MB: the round is
-// bandwidth-bound from L2 once a phase has warmed it, and its 98,304
-// threads (384 blocks) fit on the 132 SMs in one partial wave.  Child c's
-// intra neighbors lie within 2^(s+1) - 2 rows of c in the row-major child
-// order (62 rows at s = 5), so their x reads hit lines that nearby blocks
-// have just brought into L2.
+// What this design does about it.  One launch runs all rounds, and Fp,
+// bp and the index offsets of each pair (40 words a pair) stay on chip:
+// round 0 reads each block's slice of them from device memory for its own
+// arithmetic and keeps it in shared memory, so later rounds read only the
+// neighbours' x from the ping-pong buffers, which sit in L2, and the small
+// Xp (L2 too), all at addresses known from shared memory, so they are in
+// flight together instead of behind a chain of dependent table reads.
+// Three tiers, chosen by the host (ops/phase.phase_plan) from the shape and
+// the card:
+// - small: one block holds the whole level (46 words a pair: C*U <= 1,263
+//   pairs on an H100, the sweep's C = 4 at U = 96); the state ping-pongs in
+//   its shared memory too and __syncthreads() separates the rounds, so
+//   after round 0 nothing but Xp leaves the SM.  (A cluster of up to 8
+//   such blocks, reading each other's state as distributed shared memory,
+//   lost to the resident tier at 5-6 blocks, C = 4, U = 1,152 and C = 64,
+//   U = 96, by 10-35%, and won by 5% at 2 blocks; it is not kept.)
+// - resident: one block per SM with its slice on chip (C = 16, U = 8192:
+//   159 KB a block; C = 1024, U = 96: 119 KB), a cooperative launch and a
+//   grid barrier between rounds;
+// - stream: a slice too large for shared memory (C*U = 1,179,648 at
+//   n_split 5 on 24 x 24 macros: 189 MB); the same kernel reads Fp, bp and
+//   the tables from L2 / device memory every round, with a grid barrier
+//   between rounds and as many blocks as the card holds at once.
+// A refused launch (a cooperative grid larger than the card holds, too
+// much shared memory) returns its CUDA error; the wrapper raises it.
 //
-// Index bounds.  All offsets into the (3, C, U) state and the coefficient
-// planes are computed in 64 bits.  The tables are int32: `intra` holds
-// child ids < C, and `src` holds c_src*U + u_src < C*U, so the kernel needs
-// C*U < 2^31.  The largest shape the CLI reaches on a generated mesh in
+// What is left (H100 80GB HBM3, 700 W, utils/profiling.py): a round costs
+// 2.6-4.4 us in the resident tier, of which the grid barrier alone takes
+// about 1.3 us and the round's L2 reads of x and Xp without the barrier
+// 1.7-2.2 us, and 1.7-2.5 us in the small tier, so a 7-round phase takes
+// 15-33 us against its 0.02-7.2 us bound: the barriers and the round's
+// L2 latency, not the bytes, bound it now.
+//
+// Memory ordering.  The state written in round r is read by other blocks
+// in round r + 1 after the grid barrier (release/acquire semantics); its
+// loads bypass L1 (ld.global.cg), so no SM can see a stale line of a
+// buffer that another SM rewrote.  The read-only inputs (Fp, bp, Xp,
+// tables) are marked __restrict__ const.
+//
+// Index bounds.  Offsets of a dof plane or coefficient plane (j*C*U + ...)
+// are computed in 64 bits, offsets inside a (C, U) plane in 32.  The
+// tables are int32: `intra` holds child ids < C, and `src` holds
+// c_src*U + u_src < C*U, so the kernel needs C*U < 2^31.  The largest shape the CLI reaches on a generated mesh in
 // practice, n_split 5 with --rows 24 --cols 24 (U = 1152), has
 // C*U = 1,179,648; the bound is 1,820 times that, and a level at the bound
 // would hold 232 GB of Fp, more than the card, so allocating its
 // coefficients fails before any launch and the wrapper does not check it.
-//
-// What this design does about the bytes and launches: nothing yet.  It is
-// the simple correct kernel, one launch per round.  A persistent
-// cooperative kernel with a grid barrier between rounds, or CUDA-graph
-// capture of a phase, comes in a later change.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void phase_round_kernel(
-    const float* __restrict__ x, const float* __restrict__ bp,
-    const float* __restrict__ Fp, const float* __restrict__ Xp,
-    const int* __restrict__ intra, const int* __restrict__ slot_ptr,
-    const int* __restrict__ slot_idx, const int* __restrict__ src,
-    float* __restrict__ x_out, float* __restrict__ z_out, float coef,
-    int C, int U, int nb) {
-  const long long CU = static_cast<long long>(C) * U;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= CU) return;
-  const int c = static_cast<int>(t / U);
-  const int u = static_cast<int>(t - static_cast<long long>(c) * U);
+// rounds one launch takes; ops/phase.py splits a longer phase
+constexpr int kMaxRounds = 64;
 
-  // intra-macro neighbor values x[j, nb_f(c), u]
-  float xn[3][3];
-#pragma unroll
-  for (int f = 0; f < 3; ++f) {
-    const long long q = static_cast<long long>(intra[f * C + c]) * U + u;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) xn[f][j] = x[j * CU + q];
-  }
+enum Tier { kSmall = 0, kResident = 1, kStream = 2 };
+enum CoefSource { kGlobal, kGlobalKeep, kShared };
 
-  float acc[3];
+struct Args {
+  const float* __restrict__ x0;
+  const float* __restrict__ bp;
+  const float* __restrict__ Fp;
+  const float* __restrict__ Xp;
+  const int* __restrict__ intra;
+  const int* __restrict__ slot_ptr;
+  const int* __restrict__ slot_idx;
+  const int* __restrict__ src;
+  float* buf0;
+  float* buf1;
+  float* z_out;
+  int C, U, nb, rounds, slice;
+  float coef[kMaxRounds];
+};
+
+// What a pair keeps in shared memory on chip: Fp (27) and bp (3) as
+// floats, then as ints the offsets in a (C, U) plane of its three
+// intra-macro neighbors, its number of cross-macro slots and, for each of
+// at most kMaxSlots slots, the offsets of its source and of its Xp blocks;
+// in the small tier also its state, x of two rounds (6 floats).
+constexpr int kMaxSlots = 3;               // the single child at C = 1
+constexpr int kKeepFloats = 30;
+constexpr int kKeepInts = 4 + 2 * kMaxSlots;
+
+// One round over this block's pairs.  kGlobal reads the coefficients and
+// index tables from device memory, kGlobalKeep also keeps them in shared
+// memory `keep` ([30][slice] floats, then [10][slice] ints), kShared reads
+// them from there: then the round's only reads outside shared memory are
+// the x and Xp values, all at known addresses, in flight together.
+// Outside the small tier x is read from device memory and x_out written
+// there (z_out too, unless null).  In the small tier (kBlock: one block
+// holds the level, slice = C*U) x is read from device memory in round 0
+// (kGlobalKeep) and from shared memory xs_in afterwards (kShared); every
+// round writes xs_out, and x_out and z_out in device memory when they are
+// not null (the last round).
+template <int kSrc, bool kBlock>
+__device__ __forceinline__ void relax_round(const Args& a, const float* x,
+                                            float* x_out, float* z_out,
+                                            float coef, float* keep,
+                                            const float* xs_in,
+                                            float* xs_out) {
+  constexpr bool kFromBlock = kBlock && kSrc == kShared;
+  const long long CU = static_cast<long long>(a.C) * a.U;
+  const long long nbU = static_cast<long long>(a.nb) * a.U;
+  const long long t0 = static_cast<long long>(blockIdx.x) * a.slice;
+  const long long rest = CU - t0;
+  const int len = rest < a.slice ? static_cast<int>(rest) : a.slice;
+  int* ikeep = reinterpret_cast<int*>(keep + kKeepFloats * a.slice);
+  // dof j of the pair at offset q of a (C, U) plane, previous round
+  auto fetch = [&](int j, int q) -> float {
+    return kFromBlock ? xs_in[j * a.slice + q] : __ldcg(x + j * CU + q);
+  };
+  for (int p = threadIdx.x; p < len; p += blockDim.x) {
+    const long long t = t0 + p;
+    // the three intra-macro neighbors q, and the source g and Xp offset su
+    // of each cross-macro slot (two at a corner child, none inside)
+    int q[3], g[kMaxSlots], su[kMaxSlots], ns;
+    if (kSrc == kShared) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float a = 0.0f;
+      for (int f = 0; f < 3; ++f) q[f] = ikeep[f * a.slice + p];
+      ns = ikeep[3 * a.slice + p];
+#pragma unroll
+      for (int k = 0; k < kMaxSlots; ++k) {
+        g[k] = ikeep[(4 + k) * a.slice + p];
+        su[k] = ikeep[(4 + kMaxSlots + k) * a.slice + p];
+      }
+    } else {
+      const int c = static_cast<int>(t / a.U);
+      const int u = static_cast<int>(t - static_cast<long long>(c) * a.U);
+#pragma unroll
+      for (int f = 0; f < 3; ++f) q[f] = a.intra[f * a.C + c] * a.U + u;
+      const int k0 = a.slot_ptr[c];
+      ns = a.slot_ptr[c + 1] - k0;
+#pragma unroll
+      for (int k = 0; k < kMaxSlots; ++k) {
+        if (k < ns) {
+          su[k] = a.slot_idx[k0 + k] * a.U + u;
+          g[k] = a.src[su[k]];
+        }
+      }
+      if (kSrc == kGlobalKeep) {
+#pragma unroll
+        for (int f = 0; f < 3; ++f) ikeep[f * a.slice + p] = q[f];
+        ikeep[3 * a.slice + p] = ns;
+#pragma unroll
+        for (int k = 0; k < kMaxSlots; ++k) {
+          if (k < ns) {
+            ikeep[(4 + k) * a.slice + p] = g[k];
+            ikeep[(4 + kMaxSlots + k) * a.slice + p] = su[k];
+          }
+        }
+      }
+    }
+
+    // intra-macro neighbor values x[j, nb_f(c), u]
+    float xn[3][3];
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        a += Fp[((f * 3 + i) * 3 + j) * CU + t] * xn[f][j];
-      }
+      for (int j = 0; j < 3; ++j) xn[f][j] = fetch(j, q[f]);
     }
-    acc[i] = a;
-  }
 
-  // cross-macro slots of child c (two at a corner child, none inside)
-  float cross[3] = {0.0f, 0.0f, 0.0f};
-  const long long nbU = static_cast<long long>(nb) * U;
-  for (int k = slot_ptr[c]; k < slot_ptr[c + 1]; ++k) {
-    const int s = slot_idx[k];
-    const long long su = static_cast<long long>(s) * U + u;
-    const long long g = src[su];
-    const float s0 = x[g], s1 = x[CU + g], s2 = x[2 * CU + g];
+    float acc[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      cross[i] += Xp[(i * 3 + 0) * nbU + su] * s0
-                + Xp[(i * 3 + 1) * nbU + su] * s1
-                + Xp[(i * 3 + 2) * nbU + su] * s2;
+      float s = 0.0f;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int k = (f * 3 + i) * 3 + j;
+          float w;
+          if (kSrc == kShared) {
+            w = keep[k * a.slice + p];
+          } else {
+            w = a.Fp[k * CU + t];
+            if (kSrc == kGlobalKeep) keep[k * a.slice + p] = w;
+          }
+          s += w * xn[f][j];
+        }
+      }
+      acc[i] = s;
     }
-  }
+
+    // cross-macro slots of the child, in slot order
+    float cross[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < kMaxSlots; ++k) {
+      if (k < ns) {
+        const float s0 = fetch(0, g[k]), s1 = fetch(1, g[k]),
+                    s2 = fetch(2, g[k]);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          cross[i] += a.Xp[(i * 3 + 0) * nbU + su[k]] * s0
+                    + a.Xp[(i * 3 + 1) * nbU + su[k]] * s1
+                    + a.Xp[(i * 3 + 2) * nbU + su[k]] * s2;
+        }
+      }
+    }
 
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float xi = x[i * CU + t];
-    const float z = bp[i * CU + t] - xi - (acc[i] + cross[i]);
-    x_out[i * CU + t] = xi + coef * z;
-    if (z_out != nullptr) z_out[i * CU + t] = z;
+    for (int i = 0; i < 3; ++i) {
+      float b;
+      if (kSrc == kShared) {
+        b = keep[(27 + i) * a.slice + p];
+      } else {
+        b = a.bp[i * CU + t];
+        if (kSrc == kGlobalKeep) keep[(27 + i) * a.slice + p] = b;
+      }
+      const float xi = fetch(i, static_cast<int>(t));
+      const float z = b - xi - (acc[i] + cross[i]);
+      const float xo = xi + coef * z;
+      if (kBlock) xs_out[i * a.slice + p] = xo;
+      if (x_out != nullptr) x_out[i * CU + t] = xo;
+      if (z_out != nullptr) z_out[i * CU + t] = z;
+    }
   }
+}
+
+template <int kTier>
+__global__ void __launch_bounds__(1024) phase_kernel(const Args a) {
+  extern __shared__ float keep[];
+  const int last = a.rounds - 1;
+  if constexpr (kTier == kSmall) {
+    // the state ping-pongs in shared memory, [2][3][slice] after the kept
+    // coefficients and offsets; device memory sees x0 and the last round's
+    // x and z only
+    float* xs = keep + (kKeepFloats + kKeepInts) * a.slice;
+    for (int r = 0; r <= last; ++r) {
+      float* x_out = r < last ? nullptr : ((r & 1) ? a.buf1 : a.buf0);
+      float* z_out = r < last ? nullptr : a.z_out;
+      float* xs_out = xs + (r & 1) * 3 * a.slice;
+      if (r == 0) {
+        relax_round<kGlobalKeep, true>(a, a.x0, x_out, z_out, a.coef[r],
+                                       keep, nullptr, xs_out);
+      } else {
+        relax_round<kShared, true>(a, nullptr, x_out, z_out, a.coef[r],
+                                   keep, xs + ((r - 1) & 1) * 3 * a.slice,
+                                   xs_out);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  for (int r = 0; r <= last; ++r) {
+    const float* x = r == 0 ? a.x0 : ((r & 1) ? a.buf0 : a.buf1);
+    float* x_out = (r & 1) ? a.buf1 : a.buf0;
+    float* z_out = r == last ? a.z_out : nullptr;
+    if constexpr (kTier == kStream) {
+      relax_round<kGlobal, false>(a, x, x_out, z_out, a.coef[r], keep,
+                                  nullptr, nullptr);
+    } else if (r == 0) {
+      relax_round<kGlobalKeep, false>(a, x, x_out, z_out, a.coef[r], keep,
+                                      nullptr, nullptr);
+    } else {
+      relax_round<kShared, false>(a, x, x_out, z_out, a.coef[r], keep,
+                                  nullptr, nullptr);
+    }
+    if (r < last) cg::this_grid().sync();
+  }
+}
+
+// Allow up to the card's opt-in shared memory per block, once per kernel.
+template <int kTier>
+cudaError_t allow_shared_memory() {
+  static cudaError_t done = cudaErrorNotReady;
+  if (done == cudaErrorNotReady) {
+    int dev = 0, optin = 0;
+    done = cudaGetDevice(&dev);
+    if (done == cudaSuccess)
+      done = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (done == cudaSuccess)
+      done = cudaFuncSetAttribute(
+          phase_kernel<kTier>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin);
+  }
+  return done;
 }
 
 }  // namespace
 
-// One relaxation round on `stream`.  z_out may be null (z not wanted).
-// Returns cudaGetLastError() after the launch: 0 when it was accepted.
-extern "C" int k1_phase_round(const void* x, const void* bp, const void* Fp,
-                              const void* Xp, const void* intra,
-                              const void* slot_ptr, const void* slot_idx,
-                              const void* src, void* x_out, void* z_out,
-                              float coef, int C, int U, int nb,
-                              void* stream) {
-  const long long CU = static_cast<long long>(C) * U;
-  const int threads = 256;
-  const unsigned int blocks =
-      static_cast<unsigned int>((CU + threads - 1) / threads);
-  phase_round_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(bp),
-      static_cast<const float*>(Fp), static_cast<const float*>(Xp),
-      static_cast<const int*>(intra), static_cast<const int*>(slot_ptr),
-      static_cast<const int*>(slot_idx), static_cast<const int*>(src),
-      static_cast<float*>(x_out), static_cast<float*>(z_out), coef, C, U,
-      nb);
+// The card's numbers the host plan needs: SMs, opt-in shared memory per
+// block, and how many 1024-thread blocks of the streaming tier an SM holds
+// at once.  Returns a CUDA error code, 0 on success.
+extern "C" int k1_phase_limits(int* sm_count, int* smem_optin,
+                               int* stream_blocks_per_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        stream_blocks_per_sm, phase_kernel<kStream>, 1024, 0);
+  return static_cast<int>(err);
+}
+
+// One phase of `rounds` rounds (1..64) with step sizes coefs[0..rounds) on
+// `stream`, in the tier and launch shape the host planned: `grid` blocks of
+// `threads`, `slice` pairs a block, `smem` bytes of dynamic shared memory
+// (46 * 4 * slice small, 40 * 4 * slice resident, 0 streaming).  Round r reads x0 (r = 0) or the
+// buffer round r - 1 wrote and writes buf0 (r even) or buf1 (r odd); the
+// last round also writes z_out unless it is null.  Returns the launch's
+// CUDA error code, 0 when it was accepted.
+extern "C" int k1_phase(const void* x0, const void* bp, const void* Fp,
+                        const void* Xp, const void* intra,
+                        const void* slot_ptr, const void* slot_idx,
+                        const void* src, void* buf0, void* buf1, void* z_out,
+                        const float* coefs, int rounds, int C, int U, int nb,
+                        int tier, int grid, int threads, int slice, int smem,
+                        void* stream) {
+  if (rounds < 1 || rounds > kMaxRounds || grid < 1 || threads < 1
+      || (tier == kSmall && grid != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.x0 = static_cast<const float*>(x0);
+  a.bp = static_cast<const float*>(bp);
+  a.Fp = static_cast<const float*>(Fp);
+  a.Xp = static_cast<const float*>(Xp);
+  a.intra = static_cast<const int*>(intra);
+  a.slot_ptr = static_cast<const int*>(slot_ptr);
+  a.slot_idx = static_cast<const int*>(slot_idx);
+  a.src = static_cast<const int*>(src);
+  a.buf0 = static_cast<float*>(buf0);
+  a.buf1 = static_cast<float*>(buf1);
+  a.z_out = static_cast<float*>(z_out);
+  a.C = C;
+  a.U = U;
+  a.nb = nb;
+  a.rounds = rounds;
+  a.slice = slice;
+  for (int r = 0; r < rounds; ++r) a.coef[r] = coefs[r];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* params[] = {&a};
+  cudaError_t err;
+  if (tier == kSmall) {
+    err = allow_shared_memory<kSmall>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    phase_kernel<kSmall><<<grid, threads, smem, s>>>(a);
+    err = cudaSuccess;
+  } else if (tier == kResident) {
+    err = allow_shared_memory<kResident>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(phase_kernel<kResident>), dim3(grid),
+        dim3(threads), params, smem, s);
+  } else if (tier == kStream) {
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(phase_kernel<kStream>), dim3(grid),
+        dim3(threads), params, 0, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

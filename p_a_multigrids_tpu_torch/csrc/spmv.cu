@@ -8,38 +8,54 @@
 // gather over a square padded embedding.
 //
 // What it computes, for every output block row n and dof i:
-//   y[i, n] = sum_d sum_j vals[d, i, j, n] * x[j, cols[d, n]]
+//   y[i, n] = sum_d sum_j vals[n, d, i, j] * x[j, cols[n, d]]
 // with x of shape (3, S) and y of shape (3, N): square (S = N) for a level
 // operator, rectangular for a transfer.  Zero blocks pad short rows and
 // point at valid columns, so padded slots are computed like any other
 // slot, with no branch.
 //
-// Layout: cols (D, N) int32, vals (D, 3, 3, N), row index fastest.  One
-// thread owns one output row and writes its three dofs, looping over the D
-// slots; neighbouring threads read neighbouring addresses of cols and vals.
+// What bounds it on an H100: bytes, where there are rows enough to fill
+// the card.  A slot costs 36 B of vals and 4 B of cols, read once, plus the
+// 12 B of x it gathers.  The level-0 operator of the production hierarchy
+// on the 393,216-DOF stand-in (N = 32,768 rows, D = 13 slots) streams
+// 17 MB of tables a call, about 5 us at 3.35 TB/s.  The x gathers stay
+// local: rows follow the fine element order, which is banded, and SA
+// aggregates are relabeled by their first member, so a row's columns sit
+// near each other and mostly hit L1/L2.  The coarse SA operators are short
+// and wide (513 x 141, 2,047 x 63, 2,047 x 33, 8,223 x 25): one thread per
+// row leaves most of the card idle and walks up to 141 slots in sequence,
+// so they are latency-bound, 49 us for a 2.9 MB operator.
 //
-// What bounds it on an H100: bytes.  A slot costs 36 B of vals and 4 B of
-// cols, read once, plus the 12 B of x it gathers.  The level-0 operator of
-// the production hierarchy on the 393,216-DOF stand-in (N = 32,768 rows,
-// D = 13 slots) streams 32,768 * 13 * 40 B = 17 MB of tables a call, about
-// 5 us at 3.35 TB/s.  The x gathers stay local: rows follow the fine
-// element order, which is banded (RCM-ordered, or a structured mesh's own
-// numbering), and SA aggregates are relabeled by their first member, so a
-// row's columns sit near each other and near the rows of its neighbours
-// and mostly hit L1/L2.
-//
-// What this design does about it: nothing yet.  It is the simple correct
-// kernel: one thread per row, no shared-memory staging of x, no vector
-// loads.  Making it fast is later work.
+// The design: two variants, chosen per operator by the host
+// (ops/spmv.rowop_plan) from D.
+// - thread: one thread per row for narrow operators (D < 8).  Tables
+//   cols (D, N) int32 and vals (D, 3, 3, N), row index fastest, so the
+//   threads of neighbouring rows read neighbouring addresses.
+// - lanes: a group of G = 4, 8, 16 or 32 lanes per row for the wider
+//   ones, sized from D, the level-0 operator included (5.3 us against 6.3
+//   for one thread a row: H100 80GB HBM3, 700 W, utils/profiling.py).  Tables row-major, cols (N, Dp) int32 and vals
+//   (N, 3, 3, Dp) with D padded to Dp, a multiple of 4, by zero blocks on
+//   a valid column.  Lane l takes the slot quads l, l + G, ...: one 16-byte
+//   load of 4 columns and nine 16-byte loads of 4 slots' values from
+//   consecutive addresses, and the 12 gathers of x, all independent, so
+//   the row's loads are in flight together instead of one slot after the
+//   other.  The lanes write each slot's three sums to shared memory and the
+//   row's first lane adds them in slot order, as the thread variant does:
+//   both variants give the same bits, so the choice of variant never moves
+//   a result (a tree of lane partials moved the production amg history by
+//   2% at its fourth cycle, within the f32 spread of the solve but outside
+//   the check that holds it).  Rows of more than 1,024 slots (48 KB of sums
+//   a block) take the thread variant.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void rowop_kernel(const int* __restrict__ cols,
-                             const float* __restrict__ vals,
-                             const float* __restrict__ x,
-                             float* __restrict__ y, int N, int D, int S) {
+__global__ void rowop_thread_kernel(const int* __restrict__ cols,
+                                    const float* __restrict__ vals,
+                                    const float* __restrict__ x,
+                                    float* __restrict__ y, int N, int D,
+                                    int S) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const long long NN = N;
@@ -57,19 +73,119 @@ __global__ void rowop_kernel(const int* __restrict__ cols,
   y[2 * NN + n] = a2;
 }
 
+// one slot's three sums, block v[0..9) (3i + j) against x[:, c], written
+// as the thread variant writes them, so that both compile to the same
+// multiply-adds
+__device__ __forceinline__ void slot_sums(float* out,
+                                          const float* __restrict__ x,
+                                          long long S, int c, float v0,
+                                          float v1, float v2, float v3,
+                                          float v4, float v5, float v6,
+                                          float v7, float v8) {
+  const float x0 = x[c], x1 = x[S + c], x2 = x[2 * S + c];
+  out[0] = v0 * x0 + v1 * x1 + v2 * x2;
+  out[1] = v3 * x0 + v4 * x1 + v5 * x2;
+  out[2] = v6 * x0 + v7 * x1 + v8 * x2;
+}
+
+// G lanes per row; Q = Dp / 4 slot quads a row.  The lanes load the row's
+// tables and compute its slots' sums into shared memory `sums`
+// ([rows a block][Dp][3]); then the row's first lane adds them up in slot
+// order, the thread variant's order, so that both variants give the same
+// bits (padding slots add exact zeros).  Rows past N compute row N - 1
+// and store nothing, so every lane of a warp reaches __syncwarp.
+template <int G>
+__global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
+                                   const float4* __restrict__ vals,
+                                   const float* __restrict__ x,
+                                   float* __restrict__ y, int N, int Q,
+                                   int S) {
+  extern __shared__ float sums[];
+  const long long g = (static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x);
+  const long long row = g / G;
+  const int lane = static_cast<int>(g % G);
+  const long long n = row < N ? row : N - 1;
+  const int4* cr = cols + n * Q;
+  const float4* vr = vals + n * 9 * Q;
+  float* rs = sums + static_cast<long long>(threadIdx.x / G) * Q * 12;
+  for (int q = lane; q < Q; q += G) {
+    const int4 c = cr[q];
+    float4 v[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = vr[k * Q + q];
+    float* o = rs + q * 12;
+    slot_sums(o, x, S, c.x, v[0].x, v[1].x, v[2].x, v[3].x, v[4].x, v[5].x,
+              v[6].x, v[7].x, v[8].x);
+    slot_sums(o + 3, x, S, c.y, v[0].y, v[1].y, v[2].y, v[3].y, v[4].y,
+              v[5].y, v[6].y, v[7].y, v[8].y);
+    slot_sums(o + 6, x, S, c.z, v[0].z, v[1].z, v[2].z, v[3].z, v[4].z,
+              v[5].z, v[6].z, v[7].z, v[8].z);
+    slot_sums(o + 9, x, S, c.w, v[0].w, v[1].w, v[2].w, v[3].w, v[4].w,
+              v[5].w, v[6].w, v[7].w, v[8].w);
+  }
+  __syncwarp();
+  if (lane == 0 && row < N) {
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+    for (int d = 0; d < 4 * Q; ++d) {
+      a0 += rs[3 * d];
+      a1 += rs[3 * d + 1];
+      a2 += rs[3 * d + 2];
+    }
+    y[n] = a0;
+    y[static_cast<long long>(N) + n] = a1;
+    y[2LL * N + n] = a2;
+  }
+}
+
+template <int G>
+cudaError_t launch_lanes(const void* cols, const void* vals, const void* x,
+                         void* y, int N, int Q, int S, cudaStream_t s) {
+  const int threads = 128;
+  const long long total = static_cast<long long>(N) * G;
+  const unsigned int blocks =
+      static_cast<unsigned int>((total + threads - 1) / threads);
+  const size_t smem = static_cast<size_t>(threads / G) * Q * 12 * sizeof(float);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  rowop_lanes_kernel<G><<<blocks, threads, smem, s>>>(
+      static_cast<const int4*>(cols), static_cast<const float4*>(vals),
+      static_cast<const float*>(x), static_cast<float*>(y), N, Q, S);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // y (3, N) <- block-row operator (cols, vals) applied to x (3, S), on
-// `stream`.  Returns cudaGetLastError() after the launch: 0 when it was
-// accepted.
+// `stream`.  lanes = 1: the thread variant, tables (D, N) / (D, 3, 3, N);
+// lanes = 4, 8, 16 or 32: the lane-group variant, tables (N, D) /
+// (N, 3, 3, D) with D a multiple of 4.  Returns cudaGetLastError() after
+// the launch: 0 when it was accepted.
 extern "C" int k2_rowop(const void* cols, const void* vals, const void* x,
-                        void* y, int N, int D, int S, void* stream) {
+                        void* y, int N, int D, int S, int lanes,
+                        void* stream) {
   if (N <= 0) return 0;
-  const int threads = 256;
-  const unsigned int blocks =
-      static_cast<unsigned int>((N + threads - 1) / threads);
-  rowop_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cols), static_cast<const float*>(vals),
-      static_cast<const float*>(x), static_cast<float*>(y), N, D, S);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes == 1) {
+    const int threads = 256;
+    const unsigned int blocks =
+        static_cast<unsigned int>((N + threads - 1) / threads);
+    rowop_thread_kernel<<<blocks, threads, 0, s>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const float*>(x), static_cast<float*>(y), N, D, S);
+  } else {
+    cudaError_t err = cudaErrorInvalidValue;
+    if (D % 4 != 0) {
+      // the 16-byte loads need whole quads of slots
+    } else if (lanes == 4) {
+      err = launch_lanes<4>(cols, vals, x, y, N, D / 4, S, s);
+    } else if (lanes == 8) {
+      err = launch_lanes<8>(cols, vals, x, y, N, D / 4, S, s);
+    } else if (lanes == 16) {
+      err = launch_lanes<16>(cols, vals, x, y, N, D / 4, S, s);
+    } else if (lanes == 32) {
+      err = launch_lanes<32>(cols, vals, x, y, N, D / 4, S, s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

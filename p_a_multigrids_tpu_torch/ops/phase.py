@@ -6,20 +6,24 @@ the previous round's state, plus (``want_z``) a trailing coef-0 round whose
 z is returned.  With no coefs and ``want_z`` the single round gives
 z = bp - D^-1 A x, so with bp = 0, A x = -D z (``SemiSolver._apply_t``).
 
-On a CUDA tensor every round is one launch of the hand-written kernel in
+On a CUDA tensor a whole phase is one launch of the hand-written kernel in
 ``csrc/phase.cu``, the port of the TPU kernels ``PhaseOperator._kernel``
 (C <= 64 children per macro) and ``PhaseOperatorResident._kernel`` (C > 64:
 n_split 4 and 5) of ``p_a_multigrids_tpu/ops/pallas_stencil.py``: one
-kernel gathers children through an index table at any C.  On a CPU tensor
-the plain PyTorch version ``phase_reference`` runs instead; it is also what
-the tests and ``chip_smoke.py`` hold the kernel against.  There is no
-fallback: on a CUDA tensor the kernel builds and launches, or this module
-raises.
+kernel gathers children through an index table at any C, runs every round
+with a barrier over its blocks between rounds, and keeps the coefficients
+in shared memory where they fit (``phase_plan`` picks the tier).  On a CPU
+tensor the plain PyTorch version ``phase_reference`` runs instead; it is
+also what the tests and ``chip_smoke.py`` hold the kernel against.  There
+is no fallback: on a CUDA tensor the kernel builds and launches, or this
+module raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -29,48 +33,144 @@ from .stencil import StencilOperator
 
 # the TPU kernel PhaseOperatorResident took the levels with more children
 DEEP_C = 64
+# rounds one launch takes (csrc/phase.cu kMaxRounds); a longer phase is
+# split into launches of at most this many rounds
+MAX_ROUNDS = 64
+MAX_THREADS = 1024
+# bytes of a (child, macro) pair kept on chip: Fp (27 floats), bp (3) and
+# 10 int32 index locations (csrc/phase.cu kKeepFloats, kKeepInts), and in
+# the small tier its state of two rounds (6 floats)
+RESIDENT_BYTES = 40 * 4
+SMALL_BYTES = 46 * 4
+TIERS = ("small", "resident", "stream")
+
+
+@dataclasses.dataclass(frozen=True)
+class PhasePlan:
+    """How kernel K1 runs one level: the tier, ``grid`` blocks of
+    ``threads``, ``slice`` (child, macro) pairs a block, ``smem`` bytes of
+    dynamic shared memory."""
+    tier: str
+    grid: int
+    threads: int
+    slice: int
+    smem: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def phase_plan(C: int, U: int, sm_count: int, smem_per_block: int,
+               stream_blocks_per_sm: int, tier: str | None = None
+               ) -> PhasePlan:
+    """The tier and launch shape of K1 for a (3, C, U) level on a card with
+    ``sm_count`` SMs, ``smem_per_block`` bytes of opt-in shared memory a
+    block and room for ``stream_blocks_per_sm`` 1024-thread streaming
+    blocks an SM.  The first tier that fits, unless ``tier`` names one
+    (ValueError when it does not fit):
+
+    - small: one block, the whole level's Fp, bp, index offsets and state
+      in its shared memory;
+    - resident: one block per SM at most, each with its slice on chip;
+    - stream: as many blocks as the card holds at once, everything read
+      from L2 / device memory every round.
+    """
+    if tier not in (None,) + TIERS:
+        raise ValueError(f"phase_plan: unknown tier {tier!r}")
+    pairs = C * U
+    round32 = lambda n: min(MAX_THREADS, 32 * _ceil(n, 32))
+    if tier in (None, "small") and pairs * SMALL_BYTES <= smem_per_block:
+        return PhasePlan("small", 1, round32(pairs), pairs,
+                         pairs * SMALL_BYTES)
+    if tier in (None, "resident"):
+        sl = _ceil(pairs, sm_count)
+        if sl * RESIDENT_BYTES <= smem_per_block:
+            return PhasePlan("resident", _ceil(pairs, sl), round32(sl), sl,
+                             sl * RESIDENT_BYTES)
+    if tier in (None, "stream"):
+        sl = _ceil(pairs, sm_count * stream_blocks_per_sm)
+        return PhasePlan("stream", _ceil(pairs, sl), MAX_THREADS, sl, 0)
+    raise ValueError(f"phase_plan: C * U = {pairs} pairs do not fit the "
+                     f"{tier} tier")
 
 
 class PhaseKernel:
-    """ctypes binding of ``k1_phase_round`` with its launch counts.
+    """ctypes binding of ``k1_phase`` with its counts.
 
-    ``launches`` grows by one for every kernel launch and nowhere else;
-    ``launches_deep`` counts those of them on a level with C > ``DEEP_C``
+    ``launches`` grows by one for every kernel launch and nowhere else (one
+    per phase of up to MAX_ROUNDS rounds), ``rounds`` by the rounds that
+    launch ran, ``by_tier[tier]`` by one for a launch in that tier;
+    ``launches_deep`` counts the launches on a level with C > ``DEEP_C``
     children (the TPU's ``PhaseOperatorResident`` regime).  The library is
     built at the first launch (``cuda_build.load``)."""
 
     def __init__(self):
         self.launches = 0
         self.launches_deep = 0
+        self.rounds = 0
+        self.by_tier = dict.fromkeys(TIERS, 0)
         self.build_info: dict | None = None
-        self._fn = None
+        self._lib = None
+        self._limits: dict[int, tuple] = {}
+        self._plans: dict[tuple, PhasePlan] = {}
+
+    def reset(self):
+        """Set every count to 0."""
+        self.launches = self.launches_deep = self.rounds = 0
+        self.by_tier = dict.fromkeys(TIERS, 0)
 
     def function(self):
-        if self._fn is None:
+        if self._lib is None:
             lib, self.build_info = cuda_build.load("phase")
-            fn = lib.k1_phase_round
-            fn.argtypes = [ctypes.c_void_p] * 10 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            lib.k1_phase.argtypes = [ctypes.c_void_p] * 11 + [
+                ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 9 + [
                 ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            lib.k1_phase.restype = ctypes.c_int
+            lib.k1_phase_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            lib.k1_phase_limits.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib.k1_phase
 
-    def round(self, op: StencilOperator, x, bp, x_out, z_out, coef: float,
-              stream: int):
-        """Launch one round on ``stream``: x_out <- x + coef * z and, when
-        z_out is given, z_out <- z."""
+    def plan(self, op: StencilOperator, tier: str | None = None
+             ) -> PhasePlan:
+        """``phase_plan`` for op's level on op's card, cached per shape."""
+        dev = op.Fp_t.device.index or 0
+        key = (dev, op.C, op.U, tier)
+        if key not in self._plans:
+            if dev not in self._limits:
+                self.function()
+                vals = [ctypes.c_int() for _ in range(3)]
+                err = self._lib.k1_phase_limits(*map(ctypes.byref, vals))
+                if err != 0:
+                    raise RuntimeError(f"kernel K1: reading the card's "
+                                       f"limits failed: CUDA error {err}")
+                self._limits[dev] = tuple(v.value for v in vals)
+            self._plans[key] = phase_plan(op.C, op.U, *self._limits[dev],
+                                          tier=tier)
+        return self._plans[key]
+
+    def launch(self, op: StencilOperator, x, bp, buf0, buf1, z_out,
+               coefs, plan: PhasePlan, stream: int):
+        """Launch one phase of len(coefs) rounds (a ctypes float array) on
+        ``stream``: round r reads x (r = 0) or the buffer round r - 1
+        wrote, writes buf0 (r even) or buf1 (r odd), and the last round
+        writes z_out unless it is None."""
         fn = self.function()
         err = fn(x.data_ptr(), bp.data_ptr(), op.Fp_t.data_ptr(),
                  op.Xp_t.data_ptr(), op.intra_rows.data_ptr(),
                  op.slot_ptr.data_ptr(), op.slot_idx.data_ptr(),
-                 op.src_cu.data_ptr(), x_out.data_ptr(),
-                 None if z_out is None else z_out.data_ptr(),
-                 coef, op.C, op.U, op.nb, stream)
+                 op.src_cu.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
+                 None if z_out is None else z_out.data_ptr(), coefs,
+                 len(coefs), op.C, op.U, op.nb, TIERS.index(plan.tier),
+                 plan.grid, plan.threads, plan.slice, plan.smem, stream)
         if err != 0:
-            raise RuntimeError(f"kernel K1 (phase round) launch failed: "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"kernel K1 (phase, {plan.tier} tier, "
+                               f"{plan.grid} x {plan.threads}) launch failed:"
+                               f" CUDA error {err}")
         self.launches += 1
+        self.rounds += len(coefs)
+        self.by_tier[plan.tier] += 1
         if op.C > DEEP_C:
             self.launches_deep += 1
 
@@ -84,6 +184,16 @@ def _round_coefs(coefs, want_z: bool, dtype: torch.dtype) -> list[float]:
     tail = [0.0] if want_z else []
     return torch.tensor(list(coefs) + tail, dtype=torch.float64
                         ).to(dtype).tolist()
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_rounds(coefs: tuple, want_z: bool) -> tuple:
+    """The float32 step sizes of a phase on the card as ctypes arrays of at
+    most MAX_ROUNDS rounds each, one a launch; cached, since a cycle runs
+    the same few phases again and again."""
+    rounds = _round_coefs(coefs, want_z, torch.float32)
+    return tuple((ctypes.c_float * len(rounds[k:k + MAX_ROUNDS]))(
+        *rounds[k:k + MAX_ROUNDS]) for k in range(0, len(rounds), MAX_ROUNDS))
 
 
 def _check(op: StencilOperator, x_t, bp_t):
@@ -122,8 +232,15 @@ def phase(op: StencilOperator, x_t, bp_t, coefs, want_z: bool = True):
       coefs: per-round step sizes (1/root_k or omega)
       want_z: add the coef-0 round and return its z; False returns None
     Returns (x_new, z).  CPU tensors run ``phase_reference``; CUDA tensors
-    (float32 only) launch kernel K1 once per round.
+    (float32 only) launch kernel K1 once, in the tier ``phase_plan`` picks.
     """
+    return phase_on_tier(op, x_t, bp_t, coefs, want_z, None)
+
+
+def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
+                  tier: str | None):
+    """``phase`` with K1's tier forced to ``tier`` (None: ``phase_plan``'s
+    choice); a tier the level does not fit raises ValueError."""
     _check(op, x_t, bp_t)
     if x_t.device.type == "cpu":
         return phase_reference(op, x_t, bp_t, coefs, want_z)
@@ -131,18 +248,26 @@ def phase(op: StencilOperator, x_t, bp_t, coefs, want_z: bool = True):
         raise ValueError(f"phase: unsupported device {x_t.device}")
     if x_t.dtype != torch.float32:
         raise TypeError(f"kernel K1 takes float32 state, got {x_t.dtype}")
-    rounds = _round_coefs(coefs, want_z, x_t.dtype)
-    if not rounds:
+    chunks = _launch_rounds(tuple(map(float, coefs)), want_z)
+    if not chunks:
         return x_t, None
     with torch.cuda.device(x_t.device):
         stream = torch.cuda.current_stream(x_t.device).cuda_stream
-        bufs = [torch.empty_like(x_t) for _ in range(min(2, len(rounds)))]
-        z = torch.empty_like(x_t) if want_z else None
+        plan = KERNEL.plan(op, tier)
+        # the two ping-pong buffers (one for a single round) and z, in one
+        # allocation
+        n_bufs = min(2, sum(map(len, chunks)))
+        out = torch.empty((n_bufs + int(want_z),) + tuple(x_t.shape),
+                          dtype=x_t.dtype, device=x_t.device)
+        bufs, z = list(out[:n_bufs]), (out[n_bufs] if want_z else None)
         src = x_t
-        for r, coef in enumerate(rounds):
-            dst = bufs[r % 2]          # never the buffer this round reads
-            last = r == len(rounds) - 1
-            KERNEL.round(op, src, bp_t, dst, z if last else None, coef,
-                         stream)
-            src = dst
+        for k, chunk in enumerate(chunks):
+            # the launch writes buf0 first: never the buffer it reads
+            b0, b1 = bufs[0], bufs[-1]
+            if src is b0:
+                b0, b1 = b1, b0
+            KERNEL.launch(op, src, bp_t, b0, b1,
+                          z if k == len(chunks) - 1 else None, chunk, plan,
+                          stream)
+            src = b0 if len(chunk) % 2 else b1
     return src, z

@@ -9,10 +9,13 @@ pad short rows), and maps a transposed vector (3, S) to (3, N):
 Square for an SA level operator, rectangular for a transfer.  On a CUDA
 tensor every application is one launch of the hand-written kernel in
 ``csrc/spmv.cu`` (the port of the TPU kernel ``PallasSpMV._kernel``,
-``p_a_multigrids_tpu/ops/pallas_bsr.py``).  On a CPU tensor the plain
-PyTorch version ``rowop_reference`` runs instead; it is also what the tests
-and ``chip_smoke.py`` hold the kernel against.  There is no fallback: on a
-CUDA tensor the kernel builds and launches, or this module raises.
+``p_a_multigrids_tpu/ops/pallas_bsr.py``), in the variant ``rowop_plan``
+picks from the operator's width: one thread per row for narrow operators,
+a group of lanes per row for wide ones.  On a CPU tensor
+the plain PyTorch version ``rowop_reference`` runs instead; it is also what
+the tests and ``chip_smoke.py`` hold the kernel against.  There is no
+fallback: on a CUDA tensor the kernel builds and launches, or this module
+raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,32 @@ import torch
 from torch import nn
 
 from ..utils import cuda_build
+
+# lane groups for operators of LANES_MIN_D to LANES_MAX_D slots a row: on
+# the H100 they beat one thread a row from D = 8 on (32,768 x 13: 5.29 us
+# against 6.33) and lose below (32,768 x 5: 4.12 against 3.33); above
+# LANES_MAX_D slots the slot sums of a block's rows outgrow 48 KB of shared
+# memory
+LANES_MIN_D = 8
+LANES_MAX_D = 1024
+
+
+def rowop_plan(n_out: int, D: int, variant: str | None = None
+               ) -> tuple[str, int, int]:
+    """(variant, lanes, Dp) of K2 for an operator of D slots a row:
+    ("thread", 1, D), or ("lanes", G, Dp) with D padded to Dp, a multiple of
+    4 (the 16-byte loads), and G = 4, 8, 16 or 32 lanes a row, the power of
+    two that gives each lane about one quad of slots.  ``variant`` forces
+    one; None chooses by the shape."""
+    if variant is None:
+        variant = ("lanes" if LANES_MIN_D <= D <= LANES_MAX_D
+                   else "thread")
+    if variant == "thread":
+        return "thread", 1, D
+    if variant != "lanes":
+        raise ValueError(f"rowop_plan: unknown variant {variant!r}")
+    quads = max(1, -(-D // 4))
+    return "lanes", min(32, max(4, 1 << (quads - 1).bit_length())), 4 * quads
 
 
 class SpMVKernel:
@@ -41,7 +70,7 @@ class SpMVKernel:
         if self._fn is None:
             lib, self.build_info = cuda_build.load("spmv")
             fn = lib.k2_rowop
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -51,10 +80,10 @@ class SpMVKernel:
         """y_t <- op(x_t) on ``stream``."""
         fn = self.function()
         err = fn(op.cols_t.data_ptr(), op.vals_t.data_ptr(), x_t.data_ptr(),
-                 y_t.data_ptr(), op.n_out, op.D, op.n_src, stream)
+                 y_t.data_ptr(), op.n_out, op.Dp, op.n_src, op.lanes, stream)
         if err != 0:
-            raise RuntimeError(f"kernel K2 (block-row SpMV) launch failed: "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"kernel K2 (block-row SpMV, {op.variant}) "
+                               f"launch failed: CUDA error {err}")
         self.launches += 1
 
 
@@ -64,14 +93,18 @@ KERNEL = SpMVKernel()
 class RowOp(nn.Module):
     """One padded block-row operator on a device.
 
-    Buffers: ``cols_t`` (D, N) int32 and ``vals_t`` (D, 3i, 3j, N), both
-    with the row index fastest, so that threads of neighbouring rows read
-    neighbouring addresses.  ``n_src`` is the number of source block rows
-    S; every column index lies in [0, S).
+    ``variant`` (``rowop_plan``'s choice unless given) fixes the layout of
+    the buffers: "thread" stores ``cols_t`` (D, N) int32 and ``vals_t``
+    (D, 3i, 3j, N), row index fastest, so that threads of neighbouring rows
+    read neighbouring addresses; "lanes" stores ``cols_t`` (N, Dp) and
+    ``vals_t`` (N, 3i, 3j, Dp), the slots of a row consecutive, with D
+    padded to Dp by zero blocks on the row's first column.  ``tables()``
+    reads either as (D, N) / (D, 3, 3, N).  ``n_src`` is the number of
+    source block rows S; every column index lies in [0, S).
     """
 
     def __init__(self, cols: np.ndarray, vals: np.ndarray, n_src: int,
-                 dtype: torch.dtype, device):
+                 dtype: torch.dtype, device, variant: str | None = None):
         super().__init__()
         cols = np.asarray(cols)
         N, D = cols.shape
@@ -81,12 +114,29 @@ class RowOp(nn.Module):
         if N and (cols.min() < 0 or cols.max() >= n_src):
             raise ValueError(f"RowOp: column index outside [0, {n_src})")
         self.n_out, self.D, self.n_src = int(N), int(D), int(n_src)
+        self.variant, self.lanes, self.Dp = rowop_plan(N, D, variant)
         np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        vals = np.asarray(vals, np_dtype)
+        if self.variant == "thread":
+            cols_t, vals_t = cols.T, vals.transpose(1, 2, 3, 0)
+        else:
+            pad = self.Dp - D
+            first = cols[:, :1] if D else np.zeros((N, 1), cols.dtype)
+            cols_t = np.concatenate([cols, np.repeat(first, pad, 1)], 1)
+            vals_t = np.concatenate(
+                [vals, np.zeros((N, pad, 3, 3), np_dtype)], 1
+            ).transpose(0, 2, 3, 1)
         self.register_buffer("cols_t", torch.tensor(
-            np.ascontiguousarray(cols.T.astype(np.int32)), device=device))
-        self.register_buffer("vals_t", torch.tensor(np.ascontiguousarray(
-            np.asarray(vals, np_dtype).transpose(1, 2, 3, 0)),
-            device=device))
+            np.ascontiguousarray(cols_t.astype(np.int32)), device=device))
+        self.register_buffer("vals_t", torch.tensor(
+            np.ascontiguousarray(vals_t), device=device))
+
+    def tables(self):
+        """(cols (D, N), vals (D, 3, 3, N)): views of the stored tables in
+        the thread layout, whatever the variant (D is Dp for "lanes")."""
+        if self.variant == "thread":
+            return self.cols_t, self.vals_t
+        return self.cols_t.T, self.vals_t.permute(3, 1, 2, 0)
 
     def forward(self, x_t):
         return rowop(self, x_t)
@@ -94,7 +144,8 @@ class RowOp(nn.Module):
 
 def rowop_reference(cols_t, vals_t, x_t):
     """Plain PyTorch block-row SpMV, (3, S) -> (3, N): one gather and one
-    einsum over the transposed tables (cols_t (D, N), vals_t (D, 3, 3, N))."""
+    einsum over tables in the thread layout (cols_t (D, N), vals_t
+    (D, 3, 3, N), as ``RowOp.tables()`` gives them)."""
     xg = x_t[:, cols_t.long()]                            # (3j, D, N)
     return torch.einsum("dijn,jdn->in", vals_t, xg).contiguous()
 
@@ -118,7 +169,7 @@ def rowop(op: RowOp, x_t):
     """
     _check(op, x_t)
     if x_t.device.type == "cpu":
-        return rowop_reference(op.cols_t, op.vals_t, x_t)
+        return rowop_reference(*op.tables(), x_t)
     if x_t.device.type != "cuda":
         raise ValueError(f"rowop: unsupported device {x_t.device}")
     if x_t.dtype != torch.float32:

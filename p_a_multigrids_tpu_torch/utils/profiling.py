@@ -2,7 +2,7 @@
 
     python -m p_a_multigrids_tpu_torch.utils.profiling [--out FILE]
 
-Five measurements, each printed as a table and gathered into one JSON
+Seven measurements, each printed as a table and gathered into one JSON
 object (printed last, and written to FILE when given):
 
 - ``vcycle`` and ``amg_vcycle``: where one V-cycle spends its device time,
@@ -15,16 +15,27 @@ object (printed last, and written to FILE when given):
 - ``sweep6_wcycle`` and ``deep_amg_vcycle``: the same for the deep split,
   the level sweep's 6-level W-cycle and its production amg row at n_split
   5 (``sweep_solver``, ``deep_amg_solver``: 294,912 DOF, C = 1024).
-- ``rounds``: the device time of one K1 round at each level K1 runs on in
-  the bench-geometric configuration, in the CLI main path
+- ``phases``: the device time of one K1 launch (a 7-round phase with z,
+  the fine degree-6 phase's shape) at each level K1 runs on in the
+  bench-geometric configuration, in the CLI main path
   (``tri_mesh(24, 24, 1/24, 1/24)``, n_split 3, 4 levels) and in the
-  6-level sweep (C = 1024 to 4), beside the least bytes a round must move
-  and the rate that implies.
+  6-level sweep (C = 1024 to 4), with its tier and the cost of one more
+  round, beside the least bytes a phase must move and the bound they give.
+- ``choices``: the same phase in every K1 tier that fits each of those
+  levels, and each rowop below in both K2 variants, beside the plans'
+  choices.
 - ``rowops``: the device time of one K2 launch for every block-row
-  operator of the amg configuration's SA hierarchy, beside its least bytes.
+  operator of the amg configuration's SA hierarchy, with its variant,
+  beside its least bytes, its bound and the device time of the library
+  call that computes the same product (``bsr_matrix``: a
+  ``torch.sparse_bsr_tensor`` times a dense vector), with the names of the
+  kernels that call ran.
 
-Device times come from ``torch.profiler`` kernel events.  Needs a CUDA
-device; without one it exits non-zero.
+Device times come from ``torch.profiler`` kernel events, traced in windows
+of at most ``WINDOW`` cycles; a window whose trace misses a K1 or K2
+launch the wrappers counted is traced again, and after ``TRACE_TRIES``
+such traces the profile raises.  Needs a CUDA device; without one it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -32,7 +43,9 @@ from __future__ import annotations
 import argparse
 import json
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from ..config import SemiConfig
@@ -45,10 +58,15 @@ from ..ops.spmv import RowOp
 from ..ops.stencil import StencilOperator
 
 
+# device memory rate of an H100 SXM (NVIDIA's data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+
+
 def least_bytes(op: StencilOperator, itemsize: int = 4) -> int:
-    """Bytes one K1 round must move at least: the premultiplied face planes
-    Fp (27 per child), the slot blocks Xp (9 per slot), and the four state
-    planes x, bp, x_out, z (3 per child); index tables not counted."""
+    """Bytes one K1 phase must move at least, whatever its rounds: the
+    premultiplied face planes Fp (27 per child), the slot blocks Xp (9 per
+    slot), and the four state planes x0, bp in and x, z out (3 per child);
+    index tables not counted."""
     return (27 * op.C * op.U + 9 * op.nb * op.U + 12 * op.C * op.U) * itemsize
 
 
@@ -59,11 +77,44 @@ def rowop_least_bytes(op: RowOp, itemsize: int = 4) -> int:
             + 3 * (op.n_src + op.n_out) * itemsize)
 
 
+def bound_ms(nbytes: int) -> float:
+    """The least time an H100 takes to move nbytes through device memory:
+    the bound of a kernel whose bytes, not operations, limit it."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bsr_matrix(op: RowOp):
+    """op as a ``torch.sparse_bsr_tensor`` of shape (3N, 3S) with 3x3
+    blocks, on op's device: the library call that computes K2's product,
+    ``bsr_matrix(op) @ x_t.T.reshape(3S)``, is K2's yardstick and nothing
+    else (the port never calls it).  With a vector PyTorch dispatches to
+    cuSPARSE's BSR matrix-vector product; a (3S, 1) matrix operand takes a
+    slower gather and cuBLAS GEMV path instead.  BSR wants sorted, unique columns in a
+    row, so the blocks of repeated columns (RowOp's zero padding repeats a
+    valid one) are summed."""
+    cols, vals = op.tables()
+    cols = cols.T.cpu().numpy().astype(np.int64)            # (N, D)
+    vals = vals.permute(3, 0, 1, 2).cpu().numpy()           # (N, D, 3, 3)
+    N, S = op.n_out, op.n_src
+    keys, inv = np.unique((np.arange(N)[:, None] * S + cols).ravel(),
+                          return_inverse=True)
+    blocks = np.zeros((len(keys), 3, 3), vals.dtype)
+    np.add.at(blocks, inv, vals.reshape(-1, 3, 3))
+    crow = np.concatenate([[0], np.cumsum(np.bincount(keys // S,
+                                                      minlength=N))])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # BSR support is "beta"
+        return torch.sparse_bsr_tensor(
+            torch.tensor(crow), torch.tensor(keys % S), torch.tensor(blocks),
+            size=(3 * N, 3 * S), device=op.vals_t.device,
+            check_invariants=True)
+
+
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its name."""
     low = name.lower()
-    if "phase_round" in low:
-        return "k1_phase_round"
+    if "phase_kernel" in low:
+        return "k1_phase"
     if "rowop" in low:
         return "k2_rowop"
     if "gemm" in low or "cutlass" in low or "cublas" in low:
@@ -78,15 +129,11 @@ def _kernels(prof) -> list:
 
     The profiler's step markers are mirrored onto the device timeline as
     annotations spanning the whole step; they are no kernels."""
-    out = []
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.start, e.time_range.elapsed_us())
+            for e in prof.events()
+            if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)
-                and not e.name.startswith("ProfilerStep")):
-            out.append((e.name, e.time_range.start, e.time_range.elapsed_us()))
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device kernel")
-    return out
+                and not e.name.startswith("ProfilerStep"))]
 
 
 def _busy_us(kernels) -> float:
@@ -100,29 +147,59 @@ def _busy_us(kernels) -> float:
     return busy
 
 
+# times a window is traced before a trace that misses launches the wrappers
+# counted raises, and the idle host time at both ends of a traced step: on
+# the H100 the tracer dropped kernel events near the edges of a step (1-18
+# of 60-700 in a window, 18 of 50 short K2 launches three times running)
+# until the steps had such margins
+TRACE_TRIES = 3
+MARGIN_S = 0.002
+
+
+def _launch_counts() -> dict:
+    return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches}
+
+
 def _trace(fn, reps: int):
     """Device kernels of reps calls of fn, traced after one untraced
     profiler warm-up step of the same calls (the tracer can miss kernels
-    launched just after it starts)."""
+    launched just after it starts).  The trace must hold every K1 and K2
+    launch the wrappers counted in the traced step, and some kernel; one
+    that misses any is taken again, and after TRACE_TRIES such traces this
+    raises."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return _kernels(prof)
+    for _ in range(TRACE_TRIES):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _ in range(2):
+                before = _launch_counts()
+                # idle margins of host time at both ends of the step, so
+                # that no kernel lies near its edges
+                time.sleep(MARGIN_S)
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(MARGIN_S)
+                launched = {k: v - before[k]
+                            for k, v in _launch_counts().items()}
+                prof.step()
+        kernels = _kernels(prof)
+        missing = (_missing_launches(kernels, launched) if kernels
+                   else "torch.profiler recorded no device kernel")
+        if missing is None:
+            return kernels
+    raise RuntimeError(missing)
 
 
-def _check_launches(kernels, launched: dict):
-    """Raise unless the trace holds each kernel class's counted launches."""
+def _missing_launches(kernels, launched: dict) -> str | None:
+    """What the trace lacks of each kernel class's counted launches, or
+    None when it holds them all."""
     for cls, n in launched.items():
         traced = sum(1 for name, _, _ in kernels if kernel_class(name) == cls)
         if traced != n:
-            raise RuntimeError(f"traced {traced} {cls} launches, the wrapper "
-                               f"counted {n}")
+            return f"traced {traced} {cls} launches, the wrapper counted {n}"
+    return None
 
 
 def event_ms(fn, reps: int) -> float:
@@ -194,7 +271,15 @@ def cli_solver(device, argv=CLI_MAIN) -> semi.SemiSolver:
     return cli.setup(list(argv) + ["--device", str(device)])[2]
 
 
+# cycles a trace window holds at most: longer windows lost kernel events
+# on the deep W-cycles (14 of 3,500 at 20 cycles of the 4-level sweep)
+WINDOW = 5
+
+
 def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
+    """Device time of ``cycles`` cycles by kernel class, traced in windows
+    of at most WINDOW cycles and summed; busy and span are summed over the
+    windows, so the idle share leaves out the gaps between them."""
     b_t = solver._rhs_t(to_t(solver.initial_condition()))
     state = {"x": to_t(solver.initial_condition())}
 
@@ -205,16 +290,18 @@ def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
         cycle()
     torch.cuda.synchronize()
     wall_ms = event_ms(cycle, cycles)
-    n1, n2 = K.KERNEL.launches, K2.KERNEL.launches
     t0 = time.perf_counter()
     for _ in range(cycles):
         cycle()
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / cycles
-    launched = {"k1_phase_round": K.KERNEL.launches - n1,
-                "k2_rowop": K2.KERNEL.launches - n2}
     torch.cuda.synchronize()
-    kernels = _trace(cycle, cycles)
-    _check_launches(kernels, launched)
+    kernels, busy, span = [], 0.0, 0.0
+    for w in range(0, cycles, WINDOW):
+        window = _trace(cycle, min(WINDOW, cycles - w))
+        kernels += window
+        busy += _busy_us(window)
+        span += (max(s + d for _, s, d in window)
+                 - min(s for _, s, _ in window))
     by_class: dict[str, dict] = {}
     for name, _, d in kernels:
         c = by_class.setdefault(kernel_class(name),
@@ -223,9 +310,6 @@ def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
         c["launches"] += 1
     for c in by_class.values():
         c["launches"] /= cycles
-    busy = _busy_us(kernels)
-    span = (max(s + d for _, s, d in kernels)
-            - min(s for _, s, _ in kernels))
     return {"cycles": cycles, "by_class": by_class,
             "device_busy_us": busy / cycles,
             "device_span_us": span / cycles,
@@ -234,44 +318,78 @@ def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
             "host_enqueue_ms": enqueue_ms}
 
 
-def round_profile(op: StencilOperator, rounds: int = 80) -> dict:
-    """Device time of one K1 round on op, from a phase of ``rounds``
-    rounds (coef 0, so the state stays finite)."""
+def phase_profile(op: StencilOperator, rounds: int = 7, reps: int = 20,
+                  tier: str | None = None) -> dict:
+    """Device time of one K1 launch on op, in ``tier`` when given: a phase
+    of ``rounds`` rounds with z (coef 0, so the state stays finite), beside
+    its least bytes and bound."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn((3, op.C, op.U), generator=g).to(op.Fp_t.device)
     bp = torch.randn((3, op.C, op.U), generator=g).to(op.Fp_t.device)
-    run = lambda: K.phase(op, x, bp, [0.0] * (rounds - 1), True)
+    run = lambda: K.phase_on_tier(op, x, bp, [0.0] * (rounds - 1), True,
+                                  tier)
     run()
     torch.cuda.synchronize()
-    wall_ms = event_ms(run, 3)
-    kernels = [k for k in _trace(run, 1) if "phase_round" in k[0]]
-    if len(kernels) != rounds:
-        raise RuntimeError(f"traced {len(kernels)} K1 rounds, ran {rounds}")
-    dev_us = sum(d for _, _, d in kernels) / rounds
+    wall_ms = event_ms(run, reps)
+    kernels = [k for k in _trace(run, reps)
+               if kernel_class(k[0]) == "k1_phase"]
+    dev_us = sum(d for _, _, d in kernels) / reps
     nbytes = least_bytes(op, x.element_size())
     return {"C": op.C, "U": op.U, "nb": op.nb, "rounds": rounds,
-            "device_us_per_round": dev_us,
-            "wall_us_per_round": wall_ms * 1e3 / rounds,
-            "least_bytes": nbytes,
+            "tier": K.KERNEL.plan(op, tier).tier,
+            "device_us_per_phase": dev_us,
+            "wall_us_per_phase": wall_ms * 1e3,
+            "least_bytes": nbytes, "bound_us": bound_ms(nbytes) * 1e3,
             "effective_GBps": nbytes / (dev_us * 1e-6) / 1e9}
 
 
 def rowop_profile(op: RowOp, reps: int = 50) -> dict:
-    """Device time of one K2 launch on op."""
+    """Device time of one K2 launch on op and of the library call
+    ``bsr_matrix(op) @ x`` on the same vector, beside op's least bytes and
+    bound."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn((3, op.n_src), generator=g).to(op.vals_t.device)
     run = lambda: op(x)
     run()
     torch.cuda.synchronize()
-    kernels = [k for k in _trace(lambda: [run() for _ in range(reps)], 1)
-               if "rowop" in k[0]]
-    if len(kernels) != reps:
-        raise RuntimeError(f"traced {len(kernels)} K2 launches, ran {reps}")
+    kernels = [k for k in _trace(run, reps)
+               if kernel_class(k[0]) == "k2_rowop"]
     dev_us = sum(d for _, _, d in kernels) / reps
+    A, xv = bsr_matrix(op), x.T.reshape(-1).contiguous()
+    lib = _trace(lambda: A @ xv, reps)
     nbytes = rowop_least_bytes(op, x.element_size())
     return {"N": op.n_out, "D": op.D, "S": op.n_src,
+            "variant": op.variant, "lanes": op.lanes,
             "device_us": dev_us, "least_bytes": nbytes,
-            "effective_GBps": nbytes / (dev_us * 1e-6) / 1e9}
+            "bound_us": bound_ms(nbytes) * 1e3,
+            "effective_GBps": nbytes / (dev_us * 1e-6) / 1e9,
+            "library_us": sum(d for _, _, d in lib) / reps,
+            "library_kernels": sorted({name for name, _, _ in lib})}
+
+
+def choices_profile(levels: dict, rowops: dict) -> dict:
+    """What the plans' choices cost against the alternatives: device us of
+    a 7-round K1 phase in every tier that fits each level, and of a K2
+    apply in both variants of each rowop (a copy of the tables in the other
+    variant), beside the choice."""
+    out = {"phases": {}, "rowops": {}}
+    for name, op in levels.items():
+        row = out["phases"][name] = {"chosen": K.KERNEL.plan(op).tier}
+        for tier in K.TIERS:
+            try:
+                K.KERNEL.plan(op, tier)
+            except ValueError:          # the level does not fit the tier
+                continue
+            row[tier] = phase_profile(op, tier=tier)["device_us_per_phase"]
+    for name, op in rowops.items():
+        row = out["rowops"][name] = {"chosen": op.variant}
+        cols, vals = op.tables()
+        for variant in ("thread", "lanes"):
+            twin = RowOp(cols.T.cpu().numpy(),
+                         vals.permute(3, 0, 1, 2).cpu().numpy(), op.n_src,
+                         vals.dtype, vals.device, variant)
+            row[variant] = rowop_profile(twin)["device_us"]
+    return out
 
 
 def _print_vcycle(title: str, v: dict):
@@ -300,32 +418,46 @@ def main(argv=None) -> dict:
            "vcycle": vcycle_profile(bench), "amg_vcycle": vcycle_profile(amg),
            "sweep6_wcycle": vcycle_profile(sweep6),
            "deep_amg_vcycle": vcycle_profile(deep_amg),
-           "rounds": {}, "rowops": {}}
+           "phases": {}, "rowops": {}}
     _print_vcycle("bench-geometric V-cycle", out["vcycle"])
     _print_vcycle("production amg V-cycle", out["amg_vcycle"])
     _print_vcycle("level sweep, 6-level W-cycle", out["sweep6_wcycle"])
     _print_vcycle("level sweep, amg V-cycle", out["deep_amg_vcycle"])
-    levels = [(f"bench_L{i}", op) for i, op in enumerate(bench.ops)]
-    levels += [(f"cli_L{i}", op) for i, op in enumerate(cli.ops) if op.C > 1]
-    levels += [(f"sweep_L{i}", op) for i, op in enumerate(sweep6.ops)
-               if op.C > 1]
-    print(f"{'level':10s} {'C':>4s} {'U':>5s} {'nb':>3s} {'dev us/round':>13s}"
-          f" {'wall us/round':>14s} {'least MB':>9s} {'GB/s':>7s}")
-    for name, op in levels:
-        r = round_profile(op)
-        out["rounds"][name] = r
+    levels = {f"bench_L{i}": op for i, op in enumerate(bench.ops)}
+    levels.update({f"cli_L{i}": op for i, op in enumerate(cli.ops)
+                   if op.C > 1})
+    levels.update({f"sweep_L{i}": op for i, op in enumerate(sweep6.ops)
+                   if op.C > 1})
+    print(f"{'level':10s} {'C':>4s} {'U':>5s} {'nb':>3s} {'tier':>8s} "
+          f"{'dev us/phase':>13s} {'us/round':>9s} {'wall us/phase':>14s} "
+          f"{'least MB':>9s} {'bound us':>9s}")
+    for name, op in levels.items():
+        r = out["phases"][name] = phase_profile(op)
+        # the cost of one more round: phases of 2 and 16 rounds
+        r["device_us_per_round"] = (
+            phase_profile(op, 16)["device_us_per_phase"]
+            - phase_profile(op, 2)["device_us_per_phase"]) / 14
         print(f"{name:10s} {r['C']:4d} {r['U']:5d} {r['nb']:3d} "
-              f"{r['device_us_per_round']:13.2f} "
-              f"{r['wall_us_per_round']:14.2f} {r['least_bytes'] / 1e6:9.2f}"
-              f" {r['effective_GBps']:7.0f}")
-    print(f"{'rowop':12s} {'N':>7s} {'D':>4s} {'S':>7s} {'dev us':>8s}"
-          f" {'least MB':>9s} {'GB/s':>7s}")
+              f"{r['tier']:>8s} {r['device_us_per_phase']:13.2f} "
+              f"{r['device_us_per_round']:9.2f} "
+              f"{r['wall_us_per_phase']:14.2f} {r['least_bytes'] / 1e6:9.2f}"
+              f" {r['bound_us']:9.2f}")
+    print(f"{'rowop':12s} {'N':>7s} {'D':>4s} {'S':>7s} {'variant':>8s} "
+          f"{'dev us':>8s} {'least MB':>9s} {'bound us':>9s} {'lib us':>8s}")
     for name, op in amg.agg.rowops().items():
-        r = rowop_profile(op)
-        out["rowops"][name] = r
+        r = out["rowops"][name] = rowop_profile(op)
         print(f"{name:12s} {r['N']:7d} {r['D']:4d} {r['S']:7d} "
-              f"{r['device_us']:8.2f} {r['least_bytes'] / 1e6:9.2f} "
-              f"{r['effective_GBps']:7.0f}")
+              f"{r['variant']:>8s} {r['device_us']:8.2f} "
+              f"{r['least_bytes'] / 1e6:9.2f} {r['bound_us']:9.2f} "
+              f"{r['library_us']:8.2f}")
+    print("library kernels:", sorted({k for r in out["rowops"].values()
+                                      for k in r["library_kernels"]}))
+    out["choices"] = choices_profile(levels, amg.agg.rowops())
+    for kind, rows in out["choices"].items():
+        for name, row in rows.items():
+            print(f"choice {kind} {name}: " + " ".join(
+                f"{k}={v if isinstance(v, str) else f'{v:.2f}'}"
+                for k, v in row.items()))
     text = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

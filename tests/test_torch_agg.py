@@ -126,12 +126,18 @@ def _banded_rows(n_out, n_src, D, seed=0):
     return np.clip(rows + (cols % 17) - 8, 0, n_src - 1), vals
 
 
+@pytest.mark.parametrize("variant", ["thread", "lanes"])
 @pytest.mark.parametrize("shape", [(96, 96), (48, 96), (96, 48)])
-def test_rowop_reference_matches_jax(shape):
+def test_rowop_reference_matches_jax(shape, variant):
+    """Each K2 layout (D = 5 slots; "lanes" pads them to 8) read by the plain
+    version equals the JAX einsum gather and Pallas SpMV."""
     n_out, n_src = shape
     cols, vals = _banded_rows(n_out, n_src, D=5)
     x = np.random.default_rng(1).normal(size=(3, n_src))
-    op = spmv.RowOp(cols, vals, n_src, torch.float64, "cpu")
+    op = spmv.RowOp(cols, vals, n_src, torch.float64, "cpu", variant)
+    assert op.variant == variant
+    assert op.vals_t.shape == ((5, 3, 3, n_out) if variant == "thread"
+                               else (n_out, 3, 3, 8))
     got = op(torch.tensor(x)).numpy()
     einsum = np.asarray(jagg._rowop_einsum_t(jnp.asarray(cols),
                                              jnp.asarray(vals),

@@ -34,17 +34,32 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n_split", [0, 1, 2, 3, 4, 5])
-def test_k1_matches_plain(cuda, n_split):
-    """f32 sums of ~40 terms taken in another order, compounded over <= 7
-    rounds with intermediate Chebyshev amplification: 1e-4 relative for
-    multi-round phases, 1e-5 for the zero-round apply.  n_split 0 has 3
-    cross slots per child, 1-5 the corner children's 2; n_split 4 and 5
-    (C = 256 and 1024) are the TPU's PhaseOperatorResident regime, counted
-    in launches_deep too."""
+def _k1_matches_plain(op, x, bp, coefs, want_z, rtol, tier=None):
+    """One K1 phase against phase_reference: one launch (in ``tier`` when
+    given), len(coefs) + want_z rounds, and the launch also in
+    launches_deep at C > DEEP_C."""
+    n0, d0, r0 = K.KERNEL.launches, K.KERNEL.launches_deep, K.KERNEL.rounds
+    t0 = dict(K.KERNEL.by_tier)
+    xk, zk = K.phase_on_tier(op, x, bp, coefs, want_z, tier)
+    torch.cuda.synchronize()
+    rounds = len(coefs) + int(want_z)
+    assert K.KERNEL.launches - n0 == -(-rounds // K.MAX_ROUNDS)
+    assert K.KERNEL.rounds - r0 == rounds
+    assert K.KERNEL.launches_deep - d0 == (
+        K.KERNEL.launches - n0 if op.C > K.DEEP_C else 0)
+    used = K.KERNEL.plan(op, tier).tier
+    assert K.KERNEL.by_tier[used] - t0[used] == K.KERNEL.launches - n0
+    xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
+    pairs = [(xk, xr), (zk, zr)] if want_z else [(xk, xr)]
+    for got, ref in pairs:
+        err = float((got - ref).abs().max())
+        assert err <= rtol * float(ref.abs().max())
+    return used
+
+
+def _k1_level(n_split, cuda, mesh=(6, 5, 0.2, 0.25)):
     cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05)
-    L = semi.build_problem(structured.tri_mesh(6, 5, 0.2, 0.25),
-                           cfg).levels[0]
+    L = semi.build_problem(structured.tri_mesh(*mesh), cfg).levels[0]
     data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
     op = stencil.StencilOperator(data, torch.float32, cuda)
     cheb = [1.0 / r for r in smoothers.chebyshev_roots(
@@ -53,21 +68,48 @@ def test_k1_matches_plain(cuda, n_split):
     x, b = (torch.tensor(rng.normal(size=(3, op.C, op.U)),
                          dtype=torch.float32, device=cuda)
             for _ in range(2))
-    for coefs, want_z, bp, rtol in (
-            (cheb, True, op._bp(b, True), 1e-4),
-            ([0.8] * 3, False, op._bp(b, False), 1e-4),
-            ([], True, torch.zeros_like(x), 1e-5)):
-        n0, d0 = K.KERNEL.launches, K.KERNEL.launches_deep
-        xk, zk = K.phase(op, x, bp, coefs, want_z)
-        torch.cuda.synchronize()
-        assert K.KERNEL.launches - n0 == len(coefs) + int(want_z)
-        assert K.KERNEL.launches_deep - d0 == (
-            K.KERNEL.launches - n0 if op.C > K.DEEP_C else 0)
-        xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
-        pairs = [(xk, xr), (zk, zr)] if want_z else [(xk, xr)]
-        for got, ref in pairs:
-            err = float((got - ref).abs().max())
-            assert err <= rtol * float(ref.abs().max())
+    return op, cheb, x, b
+
+
+@pytest.mark.parametrize("n_split", [0, 1, 2, 3, 4, 5])
+def test_k1_matches_plain(cuda, n_split):
+    """f32 sums of ~40 terms taken in another order, compounded over <= 7
+    rounds with intermediate Chebyshev amplification: 1e-4 relative for
+    multi-round phases, 1e-5 for the zero-round apply.  n_split 0 has 3
+    cross slots per child, 1-5 the corner children's 2; n_split 4 and 5
+    (C = 256 and 1024) are the TPU's PhaseOperatorResident regime, counted
+    in launches_deep too.  Each phase is one launch, in the tier phase_plan
+    picks (small up to 1,263 pairs, resident above), and again forced to
+    stream."""
+    op, cheb, x, b = _k1_level(n_split, cuda)
+    for tier in (None, "stream"):
+        for coefs, want_z, bp, rtol in (
+                (cheb, True, op._bp(b, True), 1e-4),
+                ([0.8] * 3, False, op._bp(b, False), 1e-4),
+                ([], True, torch.zeros_like(x), 1e-5)):
+            _k1_matches_plain(op, x, bp, coefs, want_z, rtol, tier)
+
+
+@pytest.mark.parametrize("tier", ["small", "resident", "stream"])
+def test_k1_tiers(cuda, tier):
+    """The resident and streaming tiers on a level too large for the small
+    one (n_split 3 on 12 x 10 macros: 15,360 pairs), and the small tier on
+    a level that fits it (n_split 2 on 6 x 5: 960 pairs)."""
+    big = tier != "small"
+    op, cheb, x, b = _k1_level(3 if big else 2, cuda,
+                               (12, 10, 1 / 12, 0.1) if big else
+                               (6, 5, 0.2, 0.25))
+    assert K.KERNEL.plan(op).tier == ("resident" if big else "small")
+    assert _k1_matches_plain(op, x, op._bp(b, True), cheb, True, 1e-4,
+                             tier) == tier
+
+
+def test_k1_splits_a_long_phase(cuda):
+    """A phase of more than MAX_ROUNDS rounds runs as several launches that
+    hand the state on without overwriting the buffer they read."""
+    op, _, x, b = _k1_level(2, cuda)
+    coefs = [0.3] * (K.MAX_ROUNDS + 5)
+    _k1_matches_plain(op, x, op._bp(b, True), coefs, True, 1e-4)
 
 
 def test_k1_refuses_float64(cuda):
@@ -83,28 +125,32 @@ def test_k1_refuses_float64(cuda):
 
 def _k2_matches_plain(op, x):
     """One K2 launch against rowop_reference: f32 sums of 3*D products
-    (D <= 141) in another order, so 1e-5 of the largest |output|."""
+    (D <= 144) in another order, so 1e-5 of the largest |output|."""
     n0 = spmv.KERNEL.launches
     got = op(x)
     torch.cuda.synchronize()
     assert spmv.KERNEL.launches - n0 == 1
-    want = spmv.rowop_reference(op.cols_t, op.vals_t, x)
+    want = spmv.rowop_reference(*op.tables(), x)
     assert got.shape == want.shape == (3, op.n_out)
     assert bool(torch.isfinite(got).all())
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("variant", ["thread", "lanes"])
 @pytest.mark.parametrize("shape", [(1000, 1000, 13), (300, 1000, 25),
-                                   (1000, 300, 3), (257, 40, 141)])
-def test_k2_matches_plain(cuda, shape):
+                                   (1000, 300, 3), (257, 40, 141),
+                                   (513, 2047, 141)])
+def test_k2_matches_plain(cuda, shape, variant):
     """Square and rectangular random block rows, D up to the stand-in
-    hierarchy's widest restriction."""
+    hierarchy's widest restriction (513 x 141 from 2,047 aggregates), in
+    both variants: one thread a row, and lane groups (4 to 32 lanes)."""
     n_out, n_src, D = shape
     rng = np.random.default_rng(D)
     op = spmv.RowOp(rng.integers(0, n_src, size=(n_out, D)),
                     rng.normal(size=(n_out, D, 3, 3)), n_src,
-                    torch.float32, cuda)
+                    torch.float32, cuda, variant)
+    assert op.variant == variant
     x = torch.tensor(rng.normal(size=(3, n_src)), dtype=torch.float32,
                      device=cuda)
     _k2_matches_plain(op, x)
@@ -122,10 +168,40 @@ def test_k2_on_an_sa_hierarchy(cuda):
         strength=0.5, always=True), torch.float32, cuda)
     assert len(h.levels) >= 2
     rng = np.random.default_rng(0)
+    variants = set()
     for op in h.rowops().values():
         x = torch.tensor(rng.normal(size=(3, op.n_src)),
                          dtype=torch.float32, device=cuda)
         _k2_matches_plain(op, x)
+        variants.add(op.variant)
+    assert variants == {"thread", "lanes"}
+
+
+def test_k2_variants_agree_bit_for_bit(cuda):
+    """The lane-group variant adds each row's slot sums in slot order, as
+    the thread variant does, so the two give the same bits; on every rowop
+    of an SA hierarchy and on the widest random shape."""
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    L = semi.build_problem(mesh, cfg).levels[0]
+    data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+    h = agg.AggHierarchy(agg.build_hierarchy(
+        data, splitting.child_coords(mesh.X, 2), max_dense_dof=256,
+        strength=0.5, always=True), torch.float32, "cpu")
+    rng = np.random.default_rng(1)
+    shapes = []
+    for op in h.rowops().values():
+        cols_t, vals_t = op.tables()
+        shapes.append((cols_t.T.numpy(), vals_t.permute(3, 0, 1, 2).numpy(),
+                       op.n_src))
+    shapes.append((rng.integers(0, 2047, size=(513, 141)),
+                   rng.normal(size=(513, 141, 3, 3)), 2047))
+    for cols, vals, n_src in shapes:
+        x = torch.tensor(rng.normal(size=(3, n_src)), dtype=torch.float32,
+                         device=cuda)
+        got = [spmv.RowOp(cols, vals, n_src, torch.float32, cuda, v)(x)
+               for v in ("thread", "lanes")]
+        assert torch.equal(got[0], got[1])
 
 
 def test_k2_refuses_float64(cuda):

@@ -28,8 +28,50 @@ def test_rowop_least_bytes_counts_tables_and_vectors():
     assert profiling.rowop_least_bytes(op, 4) == tables + (3 * 7 + 3 * 5) * 4
 
 
+def test_bound_is_least_bytes_over_the_h100_memory_rate():
+    """24.0 MB, the fine phase at C = 16, U = 8192, takes 7.2 us at least."""
+    assert profiling.bound_ms(3.35e9) == pytest.approx(1.0)
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    op = semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(4, 4, 0.25, 0.25), cfg), "cpu").ops[0]
+    per_macro = profiling.least_bytes(op) / op.U
+    assert profiling.bound_ms(per_macro * 8192) * 1e3 == pytest.approx(
+        7.16, abs=0.01)
+
+
+@pytest.mark.parametrize("variant", ["thread", "lanes"])
+def test_bsr_matrix_equals_rowop_reference(variant):
+    """The library yardstick's BSR matrix computes the RowOp's product,
+    with rows padded by zero blocks on a repeated column and genuinely
+    repeated columns merged by summing their blocks."""
+    rng = np.random.default_rng(3)
+    n_out, n_src, D = 9, 7, 10
+    cols = rng.integers(0, n_src, size=(n_out, D))
+    cols[:, 5:] = cols[:, :1]                 # zero padding on column 0
+    cols[2, 1] = cols[2, 2]                   # a repeated real column
+    vals = rng.normal(size=(n_out, D, 3, 3))
+    vals[:, 5:] = 0.0
+    op = spmv.RowOp(cols, vals, n_src, torch.float64, "cpu", variant)
+    x = torch.tensor(rng.normal(size=(3, n_src)))
+    A = profiling.bsr_matrix(op)
+    assert A.layout == torch.sparse_bsr and A.shape == (3 * n_out, 3 * n_src)
+    assert A.values().shape[0] < n_out * D    # padding and repeats merged
+    got = (A @ x.T.reshape(-1)).reshape(n_out, 3).T
+    want = spmv.rowop_reference(*op.tables(), x)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    dense = np.zeros((n_out, 3, n_src, 3))
+    for n in range(n_out):
+        for d in range(D):
+            dense[n, :, cols[n, d], :] += vals[n, d]
+    np.testing.assert_allclose(A.to_dense().numpy(),
+                               dense.reshape(3 * n_out, 3 * n_src),
+                               rtol=1e-14, atol=1e-14)
+
+
 def test_kernel_class_and_busy_union():
-    assert profiling.kernel_class("phase_round_kernel") == "k1_phase_round"
+    assert profiling.kernel_class("void (anonymous namespace)::phase_kernel"
+                                  "<1>((anonymous namespace)::Args)") == \
+        "k1_phase"
     assert profiling.kernel_class("(anonymous namespace)::rowop_kernel("
                                   "int const*, float const*)") == "k2_rowop"
     assert profiling.kernel_class("sm90_xmma_gemm_f32f32") == "gemm"
@@ -43,10 +85,13 @@ def test_kernel_class_and_busy_union():
 
 
 def test_check_launches_raises_on_a_short_trace():
-    ks = [("phase_round_kernel", 0.0, 1.0)] * 3 + [("rowop_kernel", 0, 1.0)]
-    profiling._check_launches(ks, {"k1_phase_round": 3, "k2_rowop": 1})
-    with pytest.raises(RuntimeError, match="traced 1 k2_rowop launches"):
-        profiling._check_launches(ks, {"k1_phase_round": 3, "k2_rowop": 2})
+    ks = ([("phase_kernel<0>", 0.0, 1.0)] * 3
+          + [("rowop_lanes_kernel<32>", 0, 1.0)])
+    assert profiling._missing_launches(
+        ks, {"k1_phase": 3, "k2_rowop": 1}) is None
+    assert profiling._missing_launches(
+        ks, {"k1_phase": 3, "k2_rowop": 2}) == \
+        "traced 1 k2_rowop launches, the wrapper counted 2"
 
 
 def test_cli_solver_is_the_cli_build():
