@@ -1,17 +1,26 @@
-"""CLI entry point of the port (mode 9).
+"""CLI entry point of the port (modes 2-10).
 
     python -m p_a_multigrids_tpu_torch --mode 9 --rows 24 --cols 24 \\
         --n-split 3 --levels 4 --ntime 2 --device cuda
     python -m p_a_multigrids_tpu_torch --mode 9 --mesh macro.msh \\
         --n-split 5 --levels 6 --cycle-type w --dt 1e8 --device cuda
+    python -m p_a_multigrids_tpu_torch --mode 10 --rows 128 --cols 32 \\
+        --dt 0.05 --device cuda
 
-The macro mesh is a gmsh 2.x ASCII ``--mesh`` file, else the generated
-``--rows`` x ``--cols`` unit square.  Prints one JSON line with the JAX
-package's keys (mode, residual_history, elements, children, L1_error,
-residual, wall_s), plus krylov_iterations with --krylov.  The other modes,
-``--mesh`` with a ``.geo`` file, output, checkpoints, expressions, the
-sanitizer, the profiler flag and ``--devices`` are not ported yet: each
-exits with a message naming the ROADMAP.md item that will port it.
+Modes mirror the JAX package's CLI: 2-6 the triangular-mesh transport
+solvers (2/4 explicit, 3/5 implicit, 6 advection-diffusion; split depth 0),
+7 semi explicit (theta = 0), 8 semi direct (dense inverse), 9 semi
+multigrid (V-cycles or, with --krylov, PCG / BiCGStab under --u), 10 semi
+assembled (block-Jacobi sweeps over the BSR operator).  The macro mesh is a
+gmsh 2.x ASCII ``--mesh`` file, else the generated ``--rows`` x ``--cols``
+unit square.  Prints one JSON line with the JAX package's keys for the mode
+(modes 2-6: mode, elements, wall_s; 7, 9, 10: also residual_history,
+children, L1_error, residual; 8: the same without residual_history), plus
+krylov_iterations with --krylov in modes 7 and 9.  Mode 1, ``--solver``
+other than chebyshev and block_jacobi (mode 9), ``--mesh`` with a ``.geo``
+file, output, checkpoints, expressions, the sanitizer, the profiler flag and
+``--devices`` are not ported yet: each exits with a message naming the
+ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -53,7 +62,8 @@ def _parser():
                     choices=["jacobi", "richardson", "gauss_seidel",
                              "block_jacobi", "chebyshev", "direct"])
     ap.add_argument("--krylov", action="store_true",
-                    help="V-cycle-preconditioned PCG per step")
+                    help="V-cycle-preconditioned PCG per step (BiCGStab "
+                         "with advection, --u)")
     ap.add_argument("--krylov-tol", type=float, default=1e-8)
     ap.add_argument("--amg", action="store_true",
                     help="strength-filtered smoothed-aggregation correction "
@@ -92,25 +102,23 @@ def _parser():
     return ap
 
 
-def setup(argv=None):
-    """Parse the CLI's arguments and build its mesh and solver, as ``main``
-    runs them: returns (args, mesh, solver)."""
+def _parse(argv):
+    """Parse and check the arguments; returns (args, device)."""
     args = _parser().parse_args(argv)
     for dest, item in UNPORTED_FLAGS.items():
         if getattr(args, dest):
             raise SystemExit(
                 f"--{dest.replace('_', '-')} is not ported to "
                 f"p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: {item})")
-    if args.mode != 9:
+    if args.mode == 1:
         raise SystemExit(
-            f"mode {args.mode} is not ported to p_a_multigrids_tpu_torch yet"
-            " (ROADMAP.md, queue 1); only mode 9 runs")
+            "mode 1 (rectangular DG advection, models/transport_rect.py) is "
+            "not ported to p_a_multigrids_tpu_torch yet (ROADMAP.md, queue "
+            "1: non-stencil paths and the other modes)")
+    if not 2 <= args.mode <= 10:
+        raise SystemExit(f"unknown mode {args.mode}")
 
     import torch
-
-    from .config import Physics, SemiConfig, Solver
-    from .mesh import structured, topology
-    from .models import semi
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -119,17 +127,39 @@ def setup(argv=None):
     if args.f64 and device.type != "cpu":
         raise SystemExit("--f64 runs on --device cpu only: kernels K1 and K2 are "
                          "float32")
-
     if args.mesh and args.mesh.endswith(".geo"):
         raise SystemExit(
             "--mesh with a .geo file is not ported to "
             "p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: CLI, IO and "
             "validation (mesh/geo.py)); give a gmsh .msh file")
+    return args, device
+
+
+def _mesh(args):
+    from .mesh import structured, topology
     if args.mesh:
-        mesh = topology.from_msh(args.mesh)
-    else:
-        mesh = structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
-                                   1.0 / args.cols)
+        return topology.from_msh(args.mesh)
+    return structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
+                               1.0 / args.cols)
+
+
+def _transport_cfg(args):
+    """The TransportConfig of modes 2-6 (3, 5, 6 implicit; 6 with
+    diffusion)."""
+    from .config import TransportConfig
+
+    return TransportConfig(
+        ntime=args.ntime, dt=args.dt, u=tuple(args.u), k=args.k,
+        diffusion=args.mode == 6 or args.k != 0.0,
+        implicit=args.mode in (3, 5, 6), theta=args.theta,
+        dtype="float64" if args.f64 else "float32")
+
+
+def _semi_cfg(args):
+    """The SemiConfig of modes 7-10 (mode 7: the theta = 0 explicit step,
+    one exact block-Jacobi round)."""
+    from .config import Physics, SemiConfig, Solver
+
     cfg = SemiConfig(
         n_split=args.n_split, multi_levels=args.levels,
         ntime=args.ntime, dt=args.dt or 1.25e-5, theta=args.theta,
@@ -148,35 +178,90 @@ def setup(argv=None):
         dtype="float64" if args.f64 else "float32")
     if args.solver:
         cfg = dataclasses.replace(cfg, solver=Solver(args.solver))
+    if args.mode == 7:
+        cfg = dataclasses.replace(
+            cfg, theta=0.0, multi_levels=1, n_multigrid=1, n_smooth=1,
+            omega=1.0, solver=Solver.BLOCK_JACOBI)
+    return cfg
+
+
+def _stepping_solver(args, device):
+    """(mesh, solver) of a time-stepping mode: 7 and 9 a ``SemiSolver``,
+    10 an ``AssembledSemiSolver``."""
+    from .models import semi, semi_assembled
+
+    if args.mode not in (7, 9, 10):
+        raise SystemExit(f"mode {args.mode} builds no stepping solver")
+    mesh = _mesh(args)
+    cls = (semi_assembled.AssembledSemiSolver if args.mode == 10
+           else semi.SemiSolver)
     try:
-        solver = semi.SemiSolver(semi.build_problem(mesh, cfg), device)
+        return mesh, cls(semi.build_problem(mesh, _semi_cfg(args)), device)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from e
-    return args, mesh, solver
+
+
+def setup(argv=None):
+    """Parse the CLI's arguments and build its mesh and the solver of a
+    time-stepping mode (7, 9, 10) as ``main`` runs them: returns (args,
+    mesh, solver)."""
+    args, device = _parse(argv)
+    return (args,) + _stepping_solver(args, device)
+
+
+def run(argv=None):
+    """Run the CLI without printing: returns (the JSON dict, the final
+    state T (U, C, 3) on the run's device, the solver that ran the last
+    steps)."""
+    import torch
+
+    t0 = time.time()
+    args, device = _parse(argv)
+    out = {"mode": args.mode}
+    if args.mode <= 6:
+        from .models import transport
+
+        mesh = _mesh(args)
+        solver, T = transport.solve(mesh, _transport_cfg(args),
+                                    device=device)
+        out["elements"] = mesh.num_elements
+    else:
+        if args.mode == 8:
+            from .models import semi_assembled
+
+            mesh = _mesh(args)
+            solver, T = semi_assembled.direct_solve(mesh, _semi_cfg(args),
+                                                    device)
+        else:
+            mesh, solver = _stepping_solver(args, device)
+            hist = []
+            if args.mode == 10:
+                T = solver.initial_condition()
+                for _ in range(solver.cfg.ntime):
+                    T = solver._step(T)
+                    hist.append(float(solver.convergence(T)))
+            else:
+                from .ops import fused
+                T_t = fused.to_t(solver.initial_condition())
+                for _ in range(solver.cfg.ntime):
+                    T_t = solver._step_t(T_t)
+                    hist.append(float(solver.convergence_t(T_t)))
+                T = fused.from_t(T_t)
+            out["residual_history"] = hist
+        out.update(elements=mesh.num_elements, children=4 ** args.n_split,
+                   L1_error=float(solver.error(T).mean()),
+                   residual=float(solver.convergence(T)))
+        if solver.cfg.krylov and args.mode in (7, 9):
+            out["krylov_iterations"] = list(solver.krylov_iters)
+    if T.device.type == "cuda":
+        torch.cuda.synchronize(T.device)
+    out["wall_s"] = round(time.time() - t0, 3)
+    return out, T, solver
 
 
 def main(argv=None) -> dict:
     """Run the CLI; prints the JSON line and returns it as a dict."""
-    from .ops import fused
-
-    t0 = time.time()
-    args, mesh, solver = setup(argv)
-    cfg = solver.cfg
-    out = {"mode": args.mode}
-    T_t = fused.to_t(solver.initial_condition())
-    hist = []
-    for _ in range(cfg.ntime):
-        T_t = solver._step_t(T_t)
-        hist.append(float(solver.convergence_t(T_t)))
-    out["residual_history"] = hist
-    T = fused.from_t(T_t)
-    err = solver.error(T)
-    out.update(elements=mesh.num_elements, children=4 ** args.n_split,
-               L1_error=float(err.mean()),
-               residual=float(solver.convergence(T)))
-    if cfg.krylov:
-        out["krylov_iterations"] = list(solver.krylov_iters)
-    out["wall_s"] = round(time.time() - t0, 3)
+    out = run(argv)[0]
     print(json.dumps(out))
     return out
 

@@ -1,5 +1,6 @@
-"""Run configuration of the semi-structured solver (mirror of the JAX
-package's ``config.py``, same fields and defaults).
+"""Run configuration of the semi-structured solver and of the triangular-mesh
+transport solvers (mirror of the JAX package's ``config.py``, same fields
+and defaults).
 
 Fields of paths this port does not run yet are left out.  The few kept for
 such a path (``stencil_*``, ``debug``, ...) are the ones
@@ -68,7 +69,7 @@ class SemiConfig:
     coarse_sweeps: int = 15        # coarsest-level smoother iterations
     ntime: int = 2
     dt: float = 1.25e-5
-    theta: float = 1.0             # only 1.0 is ported
+    theta: float = 1.0             # 1 implicit, 1/2 Crank-Nicolson, 0 explicit
     omega: float = 0.8             # block-Jacobi relaxation weight
     solver: Solver = Solver.CHEBYSHEV
     # Chebyshev smoothing interval [cheb_lower*lam_max, lam_max] of the
@@ -96,7 +97,8 @@ class SemiConfig:
     cycle_type: str = "v"          # "w" recurses twice at the top two pairs
     # coarsest level by block-Jacobi PCG instead of stationary sweeps
     coarse_krylov: bool = False
-    # V-cycle-preconditioned PCG per time step (BiCGStab is not ported)
+    # V-cycle-preconditioned Krylov per time step: PCG without advection,
+    # BiCGStab with it
     krylov: bool = False
     krylov_tol: float = 1e-8
     krylov_maxiter: int = 200
@@ -120,3 +122,26 @@ class SemiConfig:
     fns: ProblemFns = dataclasses.field(default_factory=ProblemFns)
     dtype: str = "float32"
     debug: bool = False                  # not ported: raises
+
+
+@dataclasses.dataclass
+class TransportConfig:
+    """Triangular-mesh DG transport (modes 2-6)."""
+    cfl: float = 0.7
+    ntime: int = 2
+    dt: float | None = None        # defaults to cfl*dx
+    dx: float = 0.1
+    nits: int = 2
+    njac_its: int = 10
+    theta: float = 0.5
+    u: tuple[float, float] = (0.1, 0.0)
+    k: float = 0.0                 # diffusion coefficient (mode 6: 1.0)
+    diffusion: bool = False
+    implicit: bool = False
+    direct_solver: bool = False
+    # Rannacher startup: take the first two implicit steps with theta=1
+    # before switching to the configured theta.  Crank-Nicolson (theta=0.5)
+    # is not L-stable, so an initial-data/BC discontinuity rings forever at
+    # the boundary without it.
+    rannacher: bool = True
+    dtype: str = "float32"

@@ -4,7 +4,9 @@
 a JAX ``SemiSolver`` holds — its per-level ``StencilData`` and
 ``levels[i]["_np"]`` tables, ``_lam_max``, ``_coarse_inv_np``,
 ``analytical`` and the SA hierarchy ``_agg`` — given as plain numpy or
-duck-typed objects.  Nothing here
+duck-typed objects (the transport solvers of modes 2-6 are SemiSolvers
+too).  ``assembled_from_numpy`` builds the mode-10 ``AssembledSemiSolver``
+from a JAX one's ``A_bsr``, ``offset`` and level-0 stencil.  Nothing here
 imports JAX.  A state T of shape (U, C, 3) moves both ways as a numpy array
 (``state_to_numpy`` / ``state_from_numpy``).
 """
@@ -18,7 +20,9 @@ import torch
 
 from .config import SemiConfig
 from .models.semi import SemiProblem, SemiSolver
+from .models.semi_assembled import AssembledSemiSolver
 from .ops.agg import HostHierarchy, HostLevel
+from .ops.bsr import BSR
 from .ops.stencil import StencilData
 
 
@@ -43,6 +47,19 @@ def agg_from_numpy(h) -> HostHierarchy:
                          fine=fine)
 
 
+def _stencil_data(d) -> StencilData:
+    return StencilData(**{f.name: (None if getattr(d, f.name, None) is None
+                                   else np.asarray(getattr(d, f.name)))
+                          for f in dataclasses.fields(StencilData)})
+
+
+def _problem(cfg, levels, analytical, grid, coords_fine) -> SemiProblem:
+    lv = [dict(L["_np"], C=int(L["C"]), s=int(L["s"])) for L in levels]
+    return SemiProblem(grid=grid, cfg=cfg, levels=lv,
+                       coords_fine=coords_fine,
+                       analytical=np.asarray(analytical, cfg.dtype))
+
+
 def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
                       coarse_inv, analytical, device, grid=None,
                       coords_fine=None, agg=None) -> SemiSolver:
@@ -63,21 +80,37 @@ def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
                   input); None builds it from ``stencil`` where ``cfg``
                   engages SA.  The level it corrects follows from ``cfg``.
     """
-    lv = [dict(L["_np"], C=int(L["C"]), s=int(L["s"])) for L in levels]
-    datas = [StencilData(**{f.name: (None if getattr(d, f.name, None) is None
-                                     else np.asarray(getattr(d, f.name)))
-                            for f in dataclasses.fields(StencilData)})
-             for d in stencil]
-    problem = SemiProblem(grid=grid, cfg=cfg, levels=lv,
-                          coords_fine=coords_fine,
-                          analytical=np.asarray(analytical, cfg.dtype))
-    host = dict(stencil=datas,
+    problem = _problem(cfg, levels, analytical, grid, coords_fine)
+    host = dict(stencil=[_stencil_data(d) for d in stencil],
                 lam_max=None if lam_max is None else list(lam_max),
                 coarse_inv=(None if coarse_inv is None
                             else np.asarray(coarse_inv)))
     if agg is not None:
         host["agg"] = agg_from_numpy(agg)
     return SemiSolver(problem, device, host=host)
+
+
+def assembled_from_numpy(cfg: SemiConfig, levels, cols, vals, offset,
+                         stencil0, analytical, device, grid=None,
+                         coords_fine=None) -> AssembledSemiSolver:
+    """Port ``AssembledSemiSolver`` (mode 10) on ``device`` from another
+    assembled solver's host arrays.
+
+    Args:
+      cfg:        this port's SemiConfig, set as the other solver's was.
+      levels:     as for ``solver_from_numpy`` (level 0 is used).
+      cols, vals: the assembled BSR matrix, (E, K) and (E, K, 3, 3).
+      offset:     (U, C, 3) affine Dirichlet-ghost offset.
+      stencil0:   level 0's ``StencilData``-like block stencil.
+      analytical, grid, coords_fine: as for ``solver_from_numpy``.
+    """
+    host = dict(stencil0=_stencil_data(stencil0),
+                A_bsr=BSR(cols=np.asarray(cols, np.int32),
+                          vals=np.asarray(vals)),
+                offset=np.asarray(offset))
+    return AssembledSemiSolver(
+        _problem(cfg, levels, analytical, grid, coords_fine), device,
+        host=host)
 
 
 def state_from_numpy(solver: SemiSolver, T: np.ndarray) -> torch.Tensor:

@@ -36,9 +36,11 @@
 // state are read coalesced along u.
 //
 // What bounds it on an H100: bytes, and before this design launches.  A
-// phase must move Fp (27 floats a pair), Xp (9 a slot), x0 and bp in and x
-// and z out at least once: 24.0 MB at C = 16, U = 8192 (7.2 us at 3.35
-// TB/s) and 15.7 MB at C = 1024, U = 96 (4.7 us).  The round kernel this
+// phase must move one 3x3 coupling block a face (Fp inside a macro, Xp
+// across the strips: 27 floats a pair; a strip face's Fp is zero), x0 and
+// bp in and x and z out at least once: 20.4 MB at C = 16, U = 8192 and at
+// C = 1, U = 131,072 (6.1 us at 3.35 TB/s) and 15.3 MB at C = 1024, U = 96
+// (4.6 us).  The kernel reads the zero Fp blocks too.  The round kernel this
 // replaces re-read all of it every round and cost a launch (a ~4.3 us
 // device floor and 9-24 us of host time) per round.
 //

@@ -1,12 +1,19 @@
-"""Semi-structured geometric-multigrid transport solver (mode 9).
+"""Semi-structured geometric-multigrid transport solver (modes 7 and 9;
+modes 2-6 through ``models.transport``).
 
 Port of the stencil path of the JAX package's ``models/semi.py``:
 
 - the host half (``manufactured_*``, ``_face_geometry``, ``_penalty_*``,
   ``build_problem``) is numpy copied from it and yields the same tables bit
   for bit, cast to the run dtype before the stencil is assembled;
+- ``flat_gather``, ``neighbor_trace``, ``apply_spatial``, ``apply_A`` and
+  ``diag_blocks_A`` are the matrix-free operator in plain PyTorch on a
+  level's device tables (``level_tensors``): the theta-scheme's explicit
+  part and the assembled operator of ``models.semi_assembled`` come from
+  them.
 - ``SemiSolver`` is an ``nn.Module`` running the transposed-layout (3, C, U)
-  V-cycle (or V-cycle-preconditioned PCG) on one device.  Every smoothing
+  theta-scheme step by V-cycles or by V-cycle-preconditioned PCG
+  (BiCGStab under advection) on one device.  Every smoothing
   phase, residual and operator apply is a call of the relaxation-phase
   kernel K1 (``ops.phase.phase``); on a CPU tensor that call runs the plain
   PyTorch version.
@@ -20,9 +27,8 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   macro).
 
 What this port does not run raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it: ``theta < 1``, smoothers other than
-Chebyshev and block-Jacobi, the non-stencil operator paths, the sanitizer
-mode and BiCGStab (``krylov`` with advection).
+ROADMAP.md item that will port it: smoothers other than Chebyshev and
+block-Jacobi, the non-stencil operator paths and the sanitizer mode.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import SemiConfig, Solver
+from ..config import Physics, SemiConfig, Solver
 from ..mesh import geometry, semi, splitting
 from ..mesh.topology import MacroMesh
 from ..ops import agg, galerkin, krylov, smoothers
@@ -279,6 +285,163 @@ def build_problem(mesh: MacroMesh, cfg: SemiConfig) -> SemiProblem:
 
 
 # ---------------------------------------------------------------------------
+# operator (plain PyTorch on a level's device tables)
+# ---------------------------------------------------------------------------
+
+# the host tables of a level that the operator functions below read
+OPERATOR_KEYS = ("M", "D", "K", "updown", "neigh_elem", "neigh_perm",
+                 "bc_dense", "neu_mask", "face_sn", "sn", "sdet", "snorm",
+                 "nx1", "inv_dx", "diff_on")
+
+
+def level_tensors(L: dict, device) -> dict:
+    """The tables of one level (``build_problem``'s host arrays, already in
+    the run dtype) that ``apply_spatial``, ``apply_A``, ``diag_blocks_A``
+    and ``models.semi_assembled`` read, as tensors on ``device``; index
+    tables as int64, "s" as an int."""
+    out = {"s": int(L["s"])}
+    for key in OPERATOR_KEYS:
+        a = np.asarray(L[key])
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int64)
+        out[key] = torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return out
+
+
+def flat_gather(L: dict, X: torch.Tensor) -> torch.Tensor:
+    """X (U, C, ...) -> (U, C, 3, ...): entry [u, c, f] is X of the element
+    across face f, or X of (u, c) itself on a domain-boundary face (one
+    index gather; the JAX package's ``structured_gather`` gives the same
+    values)."""
+    U, C = X.shape[:2]
+    flat = X.reshape(U * C, *X.shape[2:])
+    self_flat = torch.arange(U * C, device=X.device).reshape(U, C, 1)
+    safe = torch.where(L["neigh_elem"] >= 0, L["neigh_elem"], self_flat)
+    return flat[safe]
+
+
+def neighbor_trace(L: dict, T: torch.Tensor, with_bc: bool) -> torch.Tensor:
+    """T2 (U, C, 3, 2): for each face f, the neighbor's values at the
+    physical positions of my two face nodes; domain-boundary faces get the
+    Dirichlet ghost values (zero without ``with_bc``), no-flux faces
+    (``neu_mask``) mirror my own trace."""
+    Tn = flat_gather(L, T)                               # (U, C, 3, 3)
+    T2 = torch.gather(Tn, -1, L["neigh_perm"])           # (U, C, 3, 2)
+    interior = (L["neigh_elem"] >= 0)[..., None]
+    bc = (L["bc_dense"] if with_bc
+          else torch.zeros_like(L["bc_dense"])).to(T.dtype)
+    own = T[:, :, torch.as_tensor(splitting.CHILD_FACE_NODES,
+                                  device=T.device)]      # (U, C, 3, 2)
+    bc = torch.where(L["neu_mask"][..., None], own, bc)
+    return torch.where(interior, T2, bc)
+
+
+def _child_geometry(L: dict):
+    """(updown (1, C, 1, 1), outward child normals snorm (U, C, 3, sngi,
+    2), P1 gradients nxc (U, C, 2, nloc)) in the child convention: updown
+    flips the macro geometry of the down children."""
+    ud = L["updown"][None, :, None, None]
+    snorm = L["snorm"][:, None] * ud[..., None]
+    nxc = L["nx1"][:, None] * (2.0 ** L["s"]) * ud
+    return ud, snorm, nxc
+
+
+def apply_spatial(L: dict, phys: Physics, T: torch.Tensor,
+                  with_bc: bool) -> torch.Tensor:
+    """L(T) = D T - updown K T + surface terms (upwind advection flux and
+    symmetric interior penalty diffusion), T (U, C, 3)."""
+    ein = torch.einsum
+    out = torch.zeros_like(T)
+    if phys.diffusion:
+        out = out + ein("uij,ucj->uci", L["D"], T)
+    if phys.advection:
+        Kt = ein("uij,ucj->uci", L["K"], T)
+        out = out - L["updown"][None, :, None] * Kt
+    if phys.surface_terms:
+        _, snorm, nxc = _child_geometry(L)
+        T2 = neighbor_trace(L, T, with_bc)               # (U, C, 3, 2)
+        # traces at the surface quadrature points
+        t_sgi = ein("fgi,uci->ucfg", L["face_sn"], T)
+        t2_sgi = ein("gk,ucfk->ucfg", L["sn"], T2)
+        sdet = L["sdet"][:, None]                        # (U, 1, 3, sngi)
+        if phys.diffusion:
+            k = phys.k
+            # no diffusive surface terms on no-flux faces (the advective
+            # flux below keeps the plain sdet)
+            sdet_d = sdet * L["diff_on"][..., None]
+            jump = (t_sgi - t2_sgi) * sdet_d             # (U, C, 3, sngi)
+            out = out + ein("fgi,ucf,ucfg->uci", L["face_sn"],
+                            phys.penalty_factor * k * L["inv_dx"], jump)
+            if phys.sip_consistency:
+                # piecewise-constant P1 gradients, the neighbor's by gather
+                G = ein("ucdl,ucl->ucd", nxc, T)         # (U, C, 2)
+                G2 = flat_gather(L, G)                   # (U, C, 3, 2)
+                gavg_n = 0.5 * ein("ucfd,ucfgd->ucfg", G[:, :, None] + G2,
+                                   snorm)
+                # consistency: -sum_g face_sn_i k {grad t . n} sdet
+                out = out - k * ein("fgi,ucfg->uci", L["face_sn"],
+                                    gavg_n * sdet_d)
+                # symmetry: -w k (grad N_i . n) sum_g (t - t2) sdet, w = 1/2
+                # on interior faces, 1 on boundary faces (Nitsche)
+                w_face = torch.where(L["neigh_elem"] < 0, 1.0,
+                                     0.5).to(T.dtype)
+                nxn = ein("ucdi,ucfgd->ucfgi", nxc, snorm)
+                out = out - k * ein("ucf,ucfgi,ucfg->uci", w_face, nxn,
+                                    jump)
+        if phys.advection:
+            un = ein("ucfgd,d->ucfg", snorm,
+                     torch.as_tensor(phys.u, dtype=T.dtype, device=T.device))
+            # upwind switch: sign(0) = 0 gives a face tangent to u 1/2 of
+            # each side, as in the JAX package
+            income = 0.5 + 0.5 * torch.sign(-un)
+            s_cont = un * sdet * ((1.0 - income) * t_sgi + income * t2_sgi)
+            out = out + ein("fgi,ucfg->uci", L["face_sn"], s_cont)
+    return out
+
+
+def apply_A(L: dict, phys: Physics, dt: float, theta: float,
+            T: torch.Tensor, with_bc: bool) -> torch.Tensor:
+    """A(T) = M T / dt + theta L(T)."""
+    Mt = torch.einsum("uij,ucj->uci", L["M"], T) / dt
+    return Mt + theta * apply_spatial(L, phys, T, with_bc)
+
+
+def diag_blocks_A(L: dict, phys: Physics, dt: float, theta: float
+                  ) -> torch.Tensor:
+    """The exact per-element diagonal blocks of A, (U, C, 3, 3): mass/dt,
+    the volume terms and the element's own side of the surface terms."""
+    ein = torch.einsum
+    U, C = L["M"].shape[0], L["updown"].shape[0]
+    A = (L["M"][:, None] / dt).expand(U, C, 3, 3)
+    ud, snorm, nxc = _child_geometry(L)
+    if phys.diffusion:
+        A = A + theta * L["D"][:, None]
+    if phys.advection:
+        A = A - theta * ud * L["K"][:, None]
+    if phys.surface_terms and phys.diffusion:
+        k = phys.k
+        S0 = ein("fgi,fgj,ufg->ufij", L["face_sn"], L["face_sn"], L["sdet"])
+        A = A + (theta * phys.penalty_factor * k
+                 * ein("ucf,ufij->ucij", L["inv_dx"] * L["diff_on"], S0))
+        if phys.sip_consistency:
+            nn_ = ein("ucfgd,ucdj->ucfgj", snorm, nxc)
+            w_face = (torch.where(L["neigh_elem"] < 0, 1.0, 0.5).to(A.dtype)
+                      * L["diff_on"])
+            cons = ein("fgi,ufg,ucfgj,ucf->ucij", L["face_sn"], L["sdet"],
+                       nn_, w_face)
+            A = A - theta * k * (cons + cons.transpose(-1, -2))
+    if phys.surface_terms and phys.advection:
+        un = ein("ucfgd,d->ucfg", snorm,
+                 torch.as_tensor(phys.u, dtype=A.dtype, device=A.device))
+        income = 0.5 + 0.5 * torch.sign(-un)
+        sdet = L["sdet"][:, None].expand(un.shape)
+        # my-side upwind flux: sum_f,g face_sn_i un sdet (1-income) face_sn_j
+        A = A + theta * ein("fgi,ucfg,fgj->ucij", L["face_sn"],
+                            un * sdet * (1.0 - income), L["face_sn"])
+    return A.contiguous()
+
+
+# ---------------------------------------------------------------------------
 # multigrid transfer
 # ---------------------------------------------------------------------------
 
@@ -345,9 +508,6 @@ def _not_ported(what: str, item: str):
 
 def _check_config(cfg: SemiConfig):
     """Raise for every setting whose path this port does not run."""
-    if cfg.theta < 1.0:
-        raise _not_ported("theta < 1", "non-stencil paths and the other "
-                                       "modes (apply_spatial)")
     if cfg.coarse_operator not in ("geometric", "galerkin"):
         raise ValueError(f"unknown coarse_operator {cfg.coarse_operator!r}")
     if cfg.restrictor not in ("linear", "corner_average"):
@@ -361,9 +521,6 @@ def _check_config(cfg: SemiConfig):
                           "non-stencil paths and the other modes")
     if cfg.debug:
         raise _not_ported("debug (sanitizer) mode", "CLI, IO and validation")
-    if cfg.krylov and cfg.physics.advection:
-        raise _not_ported("krylov with advection (BiCGStab)",
-                          "Krylov and the implicit path")
     if cfg.coarse_krylov:
         # an inner CG makes the V-cycle a nonlinear preconditioner
         if cfg.krylov:
@@ -379,7 +536,7 @@ def _check_config(cfg: SemiConfig):
 
 
 class SemiSolver(nn.Module):
-    """Mode-9 V-cycle / PCG transport solver on one device.
+    """Theta-scheme V-cycle / Krylov transport solver on one device.
 
     Args:
       problem: ``build_problem``'s host tables.
@@ -481,10 +638,21 @@ class SemiSolver(nn.Module):
             perm = np.argsort(old_to_new)
             buf("coarse_inv_t", coarse_inv[perm][:, perm])
 
-        L0 = problem.levels[0]
-        buf("M_t", L0["M"].transpose(1, 2, 0))              # (3, 3, U)
-        buf("source_t", L0["source"].transpose(2, 1, 0))    # (3, C, U)
-        buf("analytical", problem.analytical)               # (U, C, 3)
+        self._fine_tables()
+
+    def _fine_tables(self):
+        """The finest level's buffers of the right-hand side and the error:
+        M_t (3, 3, U), source_t (3, C, U), analytical (U, C, 3), and for a
+        theta < 1 step the level's tables of its explicit part."""
+        cfg, L0 = self.cfg, self.p.levels[0]
+        for name, a in (("M_t", L0["M"].transpose(1, 2, 0)),
+                        ("source_t", L0["source"].transpose(2, 1, 0)),
+                        ("analytical", self.p.analytical)):
+            self.register_buffer(name, torch.tensor(
+                np.ascontiguousarray(np.asarray(a, cfg.dtype)),
+                device=self.device))
+        self._L0 = (level_tensors(L0, self.device) if cfg.theta < 1.0
+                    else None)
 
     def _build_coarse_inverse(self, datas):
         """Dense inverse of the coarsest level (host numpy) when it has at
@@ -632,28 +800,36 @@ class SemiSolver(nn.Module):
 
     # -- time stepping -------------------------------------------------------
     def _rhs_t(self, told_t):
-        """b = M told/dt + M s (theta = 1) in transposed layout."""
+        """b = M told/dt + M s - (1 - theta) L(told) (Dirichlet ghosts in
+        L) in transposed layout."""
+        cfg = self.cfg
+
         def mul_M(v_t):
             return (self.M_t[:, :, None, :] * v_t[None]).sum(dim=1)
-        return mul_M(told_t) / self.cfg.dt + mul_M(self.source_t)
+        b_t = mul_M(told_t) / cfg.dt + mul_M(self.source_t)
+        if cfg.theta < 1.0:
+            spat = apply_spatial(self._L0, cfg.physics, from_t(told_t), True)
+            b_t = b_t - (1.0 - cfg.theta) * to_t(spat)
+        return b_t
 
     def _solve_system_t(self, b_t, x0_t):
         """A x = b (Dirichlet ghosts folded in) by V-cycle-preconditioned
-        PCG; the iteration count is appended to ``krylov_iters``."""
+        PCG, or BiCGStab under advection (a nonsymmetric operator); the
+        iteration count is appended to ``krylov_iters``."""
         cfg = self.cfg
         A_lin = lambda x_t: self._apply_t(0, x_t, False)
         c = self._apply_t(0, torch.zeros_like(b_t), True)   # = c_aff
         b_lin = b_t - c
         precond = lambda r: self._vcycle_t(0, torch.zeros_like(r), r,
                                            hom=True)
-        x_t, it, _ = krylov.pcg(A_lin, b_lin, x0_t, precond=precond,
-                                tol=cfg.krylov_tol,
-                                maxiter=cfg.krylov_maxiter)
+        method = krylov.bicgstab if cfg.physics.advection else krylov.pcg
+        x_t, it, _ = method(A_lin, b_lin, x0_t, precond=precond,
+                            tol=cfg.krylov_tol, maxiter=cfg.krylov_maxiter)
         self.krylov_iters.append(it)
         return x_t
 
     def _step_t(self, T_t):
-        """One implicit time step of the transposed state."""
+        """One theta-scheme time step of the transposed state."""
         b_t = self._rhs_t(T_t)
         if self.cfg.krylov:
             return self._solve_system_t(b_t, T_t)

@@ -1,10 +1,12 @@
-"""Preconditioned conjugate gradients (port of ``pcg`` in the JAX package's
-``ops/krylov.py``).
+"""Preconditioned Krylov solvers (port of ``pcg`` and ``bicgstab`` in the
+JAX package's ``ops/krylov.py``).
 
-The iteration, the stopping rule ``||r|| > tol * max(||b||, 1e-30)``, the
-breakdown flag ``ok`` and ``_safe_div`` are those of the JAX version, so the
-two take the same number of iterations.  The loop runs on the host: the
-stop condition is read back from the device once per iteration.
+The iterations, the stopping rules (``||r|| > tol * max(||b||, 1e-30)``),
+PCG's breakdown flag ``ok``, BiCGStab's Lanczos restart, step rejection and
+best-iterate bookkeeping, and ``_safe_div`` are those of the JAX versions,
+so the two packages take the same number of iterations.  The loops run on
+the host: the stop condition is read back from the device once per
+iteration; everything else stays in device scalars (``torch.where``).
 """
 
 from __future__ import annotations
@@ -59,3 +61,67 @@ def pcg(apply_A: Callable, b, x0, precond: Callable | None = None,
         rz = rz_new
         it += 1
     return x, it, torch.sqrt(_dot(r, r))
+
+
+def bicgstab(apply_A: Callable, b, x0, precond: Callable | None = None,
+             tol: float = 1e-8, maxiter: int = 200):
+    """Preconditioned BiCGStab for nonsymmetric (advective) systems.
+
+    When the shadow product rho = <rhat, r> degenerates (|rho| < 1e-12
+    |<r, r>|) the shadow residual is re-anchored at r (a restart); a step
+    whose residual is non-finite or above 1e4 x the best one so far is
+    rejected and forces a restart.  Returns (x_best, iterations, rn_best):
+    the iterate of smallest residual norm, not the last one."""
+    M = precond or (lambda r: r)
+    bnorm = torch.sqrt(_dot(b, b))
+    atol = tol * torch.clamp(bnorm, min=1e-30)
+
+    r = b - apply_A(x0)
+    x, rhat = x0, r
+    rn_best = torch.sqrt(_dot(r, r))
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho = alpha = omega = one
+    v = p = torch.zeros_like(b)
+    x_best = x0
+    it = 0
+    while it < maxiter and bool((rn_best > atol)
+                                & (torch.sqrt(_dot(r, r)) > atol)):
+        rho_new = _dot(rhat, r)
+        rr = _dot(r, r)
+        # Lanczos breakdown (|<rhat, r>| << |r|^2): restart with rhat = r
+        restart = rho_new.abs() < 1e-12 * rr.abs()
+        rhat = torch.where(restart, r, rhat)
+        rho_new = torch.where(restart, rr, rho_new)
+        beta = torch.where(restart, torch.zeros_like(rho_new),
+                           _safe_div(rho_new, rho) * _safe_div(alpha, omega))
+        v = torch.where(restart, torch.zeros_like(v), v)
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = apply_A(phat)
+        alpha = _safe_div(rho_new, _dot(rhat, v))
+        s = r - alpha * v
+        shat = M(s)
+        t = apply_A(shat)
+        omega = _safe_div(_dot(t, s), _dot(t, t))
+        x_n = x + alpha * phat + omega * shat
+        r_n = s - omega * t
+        rn_n = torch.sqrt(_dot(r_n, r_n))
+        # step rejection: a non-finite or exploding step (> 1e4 x the best
+        # residual so far, far beyond BiCGStab's normal nonmonotonicity)
+        # keeps the previous iterate and forces a clean restart next round
+        bad = ~torch.isfinite(rn_n) | (rn_n > 1e4 * torch.maximum(rn_best,
+                                                                   atol))
+        x = torch.where(bad, x, x_n)
+        r = torch.where(bad, r, r_n)
+        v = torch.where(bad, torch.zeros_like(v), v)
+        p = torch.where(bad, torch.zeros_like(p), p)
+        rhat = torch.where(bad, r, rhat)
+        alpha = torch.where(bad, one, alpha)
+        omega = torch.where(bad, one, omega)
+        rho = torch.where(bad, one, rho_new)
+        rn_cur = torch.where(bad, torch.sqrt(_dot(r, r)), rn_n)
+        better = rn_cur < rn_best
+        x_best = torch.where(better, x, x_best)
+        rn_best = torch.where(better, rn_cur, rn_best)
+        it += 1
+    return x_best, it, rn_best

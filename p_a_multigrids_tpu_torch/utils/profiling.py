@@ -3,7 +3,8 @@
     python -m p_a_multigrids_tpu_torch.utils.profiling [--out FILE]
 
 Seven measurements, each printed as a table and gathered into one JSON
-object (printed last, and written to FILE when given):
+object (printed last, and written to FILE when given); with ``--steps``
+only the eighth, ``steps``:
 
 - ``vcycle`` and ``amg_vcycle``: where one V-cycle spends its device time,
   by kernel class, with launches per cycle, the wall time per cycle by
@@ -18,18 +19,26 @@ object (printed last, and written to FILE when given):
 - ``phases``: the device time of one K1 launch (a 7-round phase with z,
   the fine degree-6 phase's shape) at each level K1 runs on in the
   bench-geometric configuration, in the CLI main path
-  (``tri_mesh(24, 24, 1/24, 1/24)``, n_split 3, 4 levels) and in the
-  6-level sweep (C = 1024 to 4), with its tier and the cost of one more
-  round, beside the least bytes a phase must move and the bound they give.
+  (``tri_mesh(24, 24, 1/24, 1/24)``, n_split 3, 4 levels), in the
+  6-level sweep (C = 1024 to 4) and in mode 6 at n_split 0 (C = 1, U =
+  131,072), with its tier and the cost of one more round, beside the least
+  bytes a phase must move and the bound they give.
 - ``choices``: the same phase in every K1 tier that fits each of those
   levels, and each rowop below in both K2 variants, beside the plans'
   choices.
 - ``rowops``: the device time of one K2 launch for every block-row
-  operator of the amg configuration's SA hierarchy, with its variant,
+  operator of the amg configuration's SA hierarchy and for mode 10's
+  assembled operator (131,072 x 4), with its variant,
   beside its least bytes, its bound and the device time of the library
   call that computes the same product (``bsr_matrix``: a
   ``torch.sparse_bsr_tensor`` times a dense vector), with the names of the
   kernels that call ran.
+
+- ``steps`` (``--steps``): the same for one time step of each of the
+  other modes' paths (``step_profiles``): mode 10's assembled sweeps and
+  mode 7's explicit step at 393,216 DOF, mode 6 at n_split 0 (131,072
+  elements), mode 9 with BiCGStab and with Crank-Nicolson at 221,184 DOF,
+  and mode 8's dense matrix-vector product at 38,400 DOF.
 
 Device times come from ``torch.profiler`` kernel events, traced in windows
 of at most ``WINDOW`` cycles; a window whose trace misses a K1 or K2
@@ -63,11 +72,13 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 def least_bytes(op: StencilOperator, itemsize: int = 4) -> int:
-    """Bytes one K1 phase must move at least, whatever its rounds: the
-    premultiplied face planes Fp (27 per child), the slot blocks Xp (9 per
-    slot), and the four state planes x0, bp in and x, z out (3 per child);
-    index tables not counted."""
-    return (27 * op.C * op.U + 9 * op.nb * op.U + 12 * op.C * op.U) * itemsize
+    """Bytes one K1 phase must move at least, whatever its rounds: one
+    premultiplied 3x3 coupling block a face, Fp across the 3C - nb faces
+    inside a macro and Xp across the nb strip faces (27 values a child; Fp
+    of a strip face is zero and not counted, so at C = 1, where every face
+    is a strip face, only Xp), and the four state planes x0, bp in and x, z
+    out (3 per child); index tables not counted."""
+    return (27 + 12) * op.C * op.U * itemsize
 
 
 def rowop_least_bytes(op: RowOp, itemsize: int = 4) -> int:
@@ -271,51 +282,142 @@ def cli_solver(device, argv=CLI_MAIN) -> semi.SemiSolver:
     return cli.setup(list(argv) + ["--device", str(device)])[2]
 
 
+# The time-stepping paths of the other modes on the card, as CLI arguments
+# (no --device): mode 10's assembled operator (K2 at 131,072 x 4) and mode
+# 7's explicit step at 393,216 DOF (dt 5e-8: stable, the residual falls
+# step by step, where 2e-7 grows 3x a step), mode 8 at the CLI defaults
+# (38,400 DOF, a 5.9 GB dense inverse in float32), and mode 9 with
+# BiCGStab (advection) and with Crank-Nicolson on the geometric CLI path
+MODE10_ARGS = ["--mode", "10", "--rows", "128", "--cols", "32",
+               "--n-split", "2", "--dt", "0.05", "--ntime", "2"]
+MODE7_ARGS = ["--mode", "7", "--rows", "128", "--cols", "32", "--n-split",
+              "2", "--dt", "5e-8", "--ntime", "10"]
+MODE8_ARGS = ["--mode", "8"]
+BICGSTAB_ARGS = CLI_MAIN + ["--u", "1", "0.5", "--krylov", "--krylov-tol",
+                            "1e-6", "--dt", "0.01"]
+THETA_ARGS = CLI_MAIN + ["--theta", "0.5"]
+# mode 6 (n_split 0, one child an element) on painted_mesh(MODE6_N) as a
+# gmsh file: Crank-Nicolson advection-diffusion through BiCGStab
+MODE6_N = 256
+MODE6_ARGS = ["--mode", "6", "--u", "1", "0", "--theta", "0.5", "--ntime",
+              "2"]
+
+
+def painted_mesh(n: int):
+    """tri_mesh(n, n) on the unit square with the macros whose centroid
+    lies in [0.2, 0.45] x [0.3, 0.7] in region 4, where the CLI's initial
+    condition is 1 (0 elsewhere)."""
+    mesh = structured.tri_mesh(n, n, 1.0 / n, 1.0 / n)
+    x, y = mesh.X.mean(axis=2).T
+    mesh.region_id = np.where((x > 0.2) & (x < 0.45) & (y > 0.3)
+                              & (y < 0.7), 4, 1).astype(np.int32)
+    return mesh
+
+
+def transport_solver(device, mesh, argv=MODE6_ARGS) -> semi.SemiSolver:
+    """The solver of a transport mode (2-6) that the CLI runs from ``argv``
+    (no --device) on ``mesh``, on ``device`` (its steps after a Rannacher
+    start)."""
+    from .. import __main__ as cli
+    from ..config import ProblemFns
+    from ..models import transport
+    args, _ = cli._parse(list(argv) + ["--device", str(device)])
+    return semi.SemiSolver(semi.build_problem(mesh, transport._semi_cfg(
+        cli._transport_cfg(args), ProblemFns())), device)
+
+
+def direct_solver(device, argv=MODE8_ARGS):
+    """Mode 8's solver (with its dense inverse ``Ainv``) as the CLI builds
+    and runs it from ``argv`` (no --device), on ``device``."""
+    from .. import __main__ as cli
+    return cli.run(list(argv) + ["--device", str(device)])[2]
+
+
 # cycles a trace window holds at most: longer windows lost kernel events
 # on the deep W-cycles (14 of 3,500 at 20 cycles of the 4-level sweep)
 WINDOW = 5
 
 
+def window_profile(fn, calls: int, window: int = WINDOW) -> dict:
+    """Device time of ``calls`` calls of fn by kernel class, traced in
+    windows of at most ``window`` calls and summed, with launches per call,
+    the wall time per call by CUDA events and the host's enqueue time per
+    call; busy and span are summed over the windows, so the idle share
+    leaves out the gaps between them.  fn is called 3 times first."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = event_ms(fn, calls)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    kernels, busy, span = [], 0.0, 0.0
+    for w in range(0, calls, window):
+        traced = _trace(fn, min(window, calls - w))
+        kernels += traced
+        busy += _busy_us(traced)
+        span += (max(s + d for _, s, d in traced)
+                 - min(s for _, s, _ in traced))
+    by_class: dict[str, dict] = {}
+    for name, _, d in kernels:
+        c = by_class.setdefault(kernel_class(name),
+                                {"device_us": 0.0, "launches": 0})
+        c["device_us"] += d / calls
+        c["launches"] += 1
+    for c in by_class.values():
+        c["launches"] /= calls
+    return {"cycles": calls, "by_class": by_class,
+            "device_busy_us": busy / calls,
+            "device_span_us": span / calls,
+            "device_idle_share": 1.0 - busy / span,
+            "wall_ms_cuda_events": wall_ms,
+            "host_enqueue_ms": enqueue_ms}
+
+
 def vcycle_profile(solver: semi.SemiSolver, cycles: int = 20) -> dict:
-    """Device time of ``cycles`` cycles by kernel class, traced in windows
-    of at most WINDOW cycles and summed; busy and span are summed over the
-    windows, so the idle share leaves out the gaps between them."""
+    """``window_profile`` of ``cycles`` cycles of solver from T0."""
     b_t = solver._rhs_t(to_t(solver.initial_condition()))
     state = {"x": to_t(solver.initial_condition())}
 
     def cycle():
         state["x"] = solver._vcycle_t(0, state["x"], b_t)
 
-    for _ in range(3):
-        cycle()
-    torch.cuda.synchronize()
-    wall_ms = event_ms(cycle, cycles)
-    t0 = time.perf_counter()
-    for _ in range(cycles):
-        cycle()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / cycles
-    torch.cuda.synchronize()
-    kernels, busy, span = [], 0.0, 0.0
-    for w in range(0, cycles, WINDOW):
-        window = _trace(cycle, min(WINDOW, cycles - w))
-        kernels += window
-        busy += _busy_us(window)
-        span += (max(s + d for _, s, d in window)
-                 - min(s for _, s, _ in window))
-    by_class: dict[str, dict] = {}
-    for name, _, d in kernels:
-        c = by_class.setdefault(kernel_class(name),
-                                {"device_us": 0.0, "launches": 0})
-        c["device_us"] += d / cycles
-        c["launches"] += 1
-    for c in by_class.values():
-        c["launches"] /= cycles
-    return {"cycles": cycles, "by_class": by_class,
-            "device_busy_us": busy / cycles,
-            "device_span_us": span / cycles,
-            "device_idle_share": 1.0 - busy / span,
-            "wall_ms_cuda_events": wall_ms,
-            "host_enqueue_ms": enqueue_ms}
+    return window_profile(cycle, cycles)
+
+
+def step_profiles(device, steps: int = 3) -> dict:
+    """``window_profile`` of one time step, repeated from the initial
+    condition, of each stepping path beside the V-cycles: modes 6, 7, 8, 10
+    and mode 9 with BiCGStab and with Crank-Nicolson, one step a trace
+    window, with the Krylov iterations a step where there are any."""
+    from ..models import semi_assembled
+    out = {}
+    makers = {
+        "mode10": lambda: cli_solver(device, MODE10_ARGS),
+        "mode7": lambda: cli_solver(device, MODE7_ARGS),
+        "mode9_bicgstab": lambda: cli_solver(device, BICGSTAB_ARGS),
+        "mode9_theta_half": lambda: cli_solver(device, THETA_ARGS),
+        "mode6": lambda: transport_solver(device, painted_mesh(MODE6_N))}
+    for name, make in makers.items():
+        sv = make()
+        T0 = sv.initial_condition()
+        if name == "mode10":
+            fn = lambda: sv._step(T0)
+        else:
+            T0_t = to_t(T0)
+            fn = lambda: sv._step_t(T0_t)
+        out[name] = window_profile(fn, steps, window=1)
+        out[name].update(dof=3 * sv.ops[0].C * sv.ops[0].U,
+                         krylov_iterations=sorted(set(sv.krylov_iters)))
+    solver = direct_solver(device)
+    T0 = solver.initial_condition()
+    out["mode8"] = window_profile(
+        lambda: semi_assembled.direct_step(solver, T0), steps, window=1)
+    out["mode8"].update(dof=3 * solver.ops[0].C * solver.ops[0].U,
+                        krylov_iterations=[])
+    return out
 
 
 def phase_profile(op: StencilOperator, rounds: int = 7, reps: int = 20,
@@ -408,10 +510,20 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         prog="p_a_multigrids_tpu_torch.utils.profiling")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--steps", action="store_true",
+                    help="profile only the time steps of modes 6-10 "
+                         "(step_profiles)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device is available")
     dev = torch.device("cuda", 0)
+    if args.steps:
+        out = {"device": torch.cuda.get_device_name(0),
+               "steps": step_profiles(dev)}
+        for name, v in out["steps"].items():
+            _print_vcycle(f"{name} step ({v['dof']} DOF, Krylov iterations "
+                          f"{v['krylov_iterations']})", v)
+        return _emit(out, args.out)
     bench, cli, amg = bench_solver(dev), cli_solver(dev), amg_solver(dev)
     sweep6, deep_amg = sweep_solver(dev, 6), deep_amg_solver(dev)
     out = {"device": torch.cuda.get_device_name(0),
@@ -423,11 +535,14 @@ def main(argv=None) -> dict:
     _print_vcycle("production amg V-cycle", out["amg_vcycle"])
     _print_vcycle("level sweep, 6-level W-cycle", out["sweep6_wcycle"])
     _print_vcycle("level sweep, amg V-cycle", out["deep_amg_vcycle"])
+    mode6 = transport_solver(dev, painted_mesh(MODE6_N))
+    rowops = dict(amg.agg.rowops(), mode10_A=cli_solver(dev, MODE10_ARGS).A)
     levels = {f"bench_L{i}": op for i, op in enumerate(bench.ops)}
     levels.update({f"cli_L{i}": op for i, op in enumerate(cli.ops)
                    if op.C > 1})
     levels.update({f"sweep_L{i}": op for i, op in enumerate(sweep6.ops)
                    if op.C > 1})
+    levels["mode6_L0"] = mode6.ops[0]
     print(f"{'level':10s} {'C':>4s} {'U':>5s} {'nb':>3s} {'tier':>8s} "
           f"{'dev us/phase':>13s} {'us/round':>9s} {'wall us/phase':>14s} "
           f"{'least MB':>9s} {'bound us':>9s}")
@@ -444,7 +559,7 @@ def main(argv=None) -> dict:
               f" {r['bound_us']:9.2f}")
     print(f"{'rowop':12s} {'N':>7s} {'D':>4s} {'S':>7s} {'variant':>8s} "
           f"{'dev us':>8s} {'least MB':>9s} {'bound us':>9s} {'lib us':>8s}")
-    for name, op in amg.agg.rowops().items():
+    for name, op in rowops.items():
         r = out["rowops"][name] = rowop_profile(op)
         print(f"{name:12s} {r['N']:7d} {r['D']:4d} {r['S']:7d} "
               f"{r['variant']:>8s} {r['device_us']:8.2f} "
@@ -452,15 +567,20 @@ def main(argv=None) -> dict:
               f"{r['library_us']:8.2f}")
     print("library kernels:", sorted({k for r in out["rowops"].values()
                                       for k in r["library_kernels"]}))
-    out["choices"] = choices_profile(levels, amg.agg.rowops())
+    out["choices"] = choices_profile(levels, rowops)
     for kind, rows in out["choices"].items():
         for name, row in rows.items():
             print(f"choice {kind} {name}: " + " ".join(
                 f"{k}={v if isinstance(v, str) else f'{v:.2f}'}"
                 for k, v in row.items()))
+    return _emit(out, args.out)
+
+
+def _emit(out: dict, path: str | None) -> dict:
+    """Print the JSON object (and write it to path when given)."""
     text = json.dumps(out)
-    if args.out:
-        with open(args.out, "w") as f:
+    if path:
+        with open(path, "w") as f:
             f.write(text + "\n")
     print(text)
     return out

@@ -1,5 +1,6 @@
 """Kernels K1 and K2 on the GPU == their plain PyTorch versions
-(phase_reference, rowop_reference).
+(phase_reference, rowop_reference), and the mode-10 and BiCGStab steps that
+run through them == the same steps on the CPU.
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -223,3 +224,60 @@ def test_build_without_compiler_raises(monkeypatch, tmp_path):
     for name in ("phase", "spmv"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             cuda_build.load(name)
+
+
+def _mode10(device, dtype="float32", **kw):
+    from p_a_multigrids_tpu_torch.models import semi_assembled
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05, dtype=dtype, **kw)
+    return semi_assembled.AssembledSemiSolver(semi.build_problem(
+        structured.tri_mesh(12, 10, 1 / 12, 1 / 10), cfg), device)
+
+
+def test_k2_on_a_mode10_operator(cuda):
+    """The assembled DG operator (self + 3 faces, the thread variant) of
+    mode 10, against rowop_reference."""
+    op = _mode10(cuda).A
+    assert (op.D, op.variant) == (4, "thread")
+    x = torch.tensor(np.random.default_rng(3).normal(size=(3, op.n_src)),
+                     dtype=torch.float32, device=cuda)
+    _k2_matches_plain(op, x)
+
+
+def test_mode10_step_on_the_card_matches_cpu(cuda):
+    """One mode-10 step (8 sweeps, one K2 launch each) on the card against
+    the same step on the CPU, both float32: 1e-5 of the largest value."""
+    gpu, cpu = _mode10(cuda), _mode10("cpu")
+    T = cpu.initial_condition() + torch.tensor(np.random.default_rng(4).normal(
+        size=tuple(cpu.analytical.shape)), dtype=torch.float32)
+    n0 = spmv.KERNEL.launches
+    got = gpu._step(T.to(cuda))
+    torch.cuda.synchronize()
+    assert spmv.KERNEL.launches - n0 == gpu.sweeps() == 8
+    want = cpu._step(T)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_bicgstab_step_on_the_card_matches_cpu(cuda):
+    """A V-cycle-preconditioned BiCGStab step (advection, --krylov) on the
+    card against the same step on the CPU, both float32: iteration counts
+    within one (f32 evaluation order at the stop), states within 1e-4 of
+    the largest value."""
+    from p_a_multigrids_tpu_torch.config import Physics
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.01, krylov=True,
+                     krylov_tol=1e-6,
+                     physics=Physics(advection=True, u=(1.0, 0.5)))
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    gpu, cpu = (semi.SemiSolver(semi.build_problem(mesh, cfg), d)
+                for d in (cuda, "cpu"))
+    T_t = to_t(cpu.initial_condition())
+    n0 = K.KERNEL.launches
+    got = gpu._step_t(T_t.to(cuda))
+    torch.cuda.synchronize()
+    assert K.KERNEL.launches > n0
+    want = cpu._step_t(T_t)
+    assert gpu.krylov_iters[0] > 2
+    assert abs(gpu.krylov_iters[0] - cpu.krylov_iters[0]) <= 1
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())

@@ -13,12 +13,29 @@ from p_a_multigrids_tpu_torch.utils import profiling
 
 @pytest.mark.parametrize("n_split", [1, 2])
 def test_least_bytes_counts_the_round_operands(n_split):
+    """One coupling block a face (the nonzero Fp blocks of the faces inside
+    a macro, the Xp blocks of the strip faces) and four state planes."""
     cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05)
     op = semi.SemiSolver(semi.build_problem(
         structured.tri_mesh(4, 4, 0.25, 0.25), cfg), "cpu").ops[0]
     state = torch.empty((3, op.C, op.U))
-    want = (op.Fp_t.numel() + op.Xp_t.numel() + 4 * state.numel()) * 4
+    inner = int((op.Fp_t.abs().sum(dim=(1, 2)) > 0).sum())    # (f, c, u)
+    assert inner == (3 * op.C - op.nb) * op.U
+    want = (9 * inner + op.Xp_t.numel() + 4 * state.numel()) * 4
     assert profiling.least_bytes(op, 4) == want
+
+
+def test_least_bytes_at_one_child_counts_no_fp():
+    """At n_split 0 every face is a strip face: Fp is zero, Xp carries all
+    the coupling (20.45 MB at U = 131,072, 6.10 us)."""
+    cfg = SemiConfig(n_split=0, multi_levels=1, dt=0.05)
+    op = semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(4, 4, 0.25, 0.25), cfg), "cpu").ops[0]
+    assert op.C == 1 and op.nb == 3 and not bool(op.Fp_t.any())
+    assert profiling.least_bytes(op, 4) == (op.Xp_t.numel() + 12 * op.U) * 4
+    per_macro = profiling.least_bytes(op) / op.U
+    assert profiling.bound_ms(per_macro * 131072) * 1e3 == pytest.approx(
+        6.10, abs=0.01)
 
 
 def test_rowop_least_bytes_counts_tables_and_vectors():
@@ -29,14 +46,14 @@ def test_rowop_least_bytes_counts_tables_and_vectors():
 
 
 def test_bound_is_least_bytes_over_the_h100_memory_rate():
-    """24.0 MB, the fine phase at C = 16, U = 8192, takes 7.2 us at least."""
+    """20.4 MB, the fine phase at C = 16, U = 8192, takes 6.1 us at least."""
     assert profiling.bound_ms(3.35e9) == pytest.approx(1.0)
     cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
     op = semi.SemiSolver(semi.build_problem(
         structured.tri_mesh(4, 4, 0.25, 0.25), cfg), "cpu").ops[0]
     per_macro = profiling.least_bytes(op) / op.U
     assert profiling.bound_ms(per_macro * 8192) * 1e3 == pytest.approx(
-        7.16, abs=0.01)
+        6.10, abs=0.01)
 
 
 @pytest.mark.parametrize("variant", ["thread", "lanes"])
@@ -127,3 +144,30 @@ def test_needs_a_cuda_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="no CUDA device"):
         profiling.main([])
+
+
+def test_step_paths_are_the_cli_builds(tmp_path):
+    """The profiler's mode-6 solver on a painted mesh runs the steps the
+    CLI runs on the same mesh written as a gmsh file, and its mode-8
+    solver carries the CLI run's inverse."""
+    from p_a_multigrids_tpu_torch import __main__ as cli
+    from p_a_multigrids_tpu_torch.mesh import gmsh
+    from p_a_multigrids_tpu_torch.models import semi_assembled
+
+    mesh = profiling.painted_mesh(8)
+    assert set(np.unique(mesh.region_id)) == {1, 4}
+    path = str(tmp_path / "painted.msh")
+    gmsh.write_msh(path, mesh)
+    argv = profiling.MODE6_ARGS + ["--mesh", path]
+    sv = profiling.transport_solver("cpu", mesh, argv)
+    assert sv.ops[0].C == 1 and sv.cfg.krylov and sv.cfg.theta == 0.5
+    T = sv.run()
+    out, T_cli, _ = cli.run(argv + ["--device", "cpu"])
+    assert out["elements"] == 128
+    torch.testing.assert_close(T, T_cli, rtol=0, atol=0)
+    small = ["--mode", "8", "--rows", "4", "--cols", "4"]
+    s8 = profiling.direct_solver("cpu", small)
+    T0 = s8.initial_condition()
+    T1 = semi_assembled.direct_step(s8, T0)
+    _, T_cli, _ = cli.run(small + ["--ntime", "1", "--device", "cpu"])
+    torch.testing.assert_close(T1, T_cli, rtol=0, atol=0)

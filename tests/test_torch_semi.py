@@ -2,8 +2,9 @@
 
 The JAX side runs its XLA stencil path (pallas_phase=False); the port runs
 its phase formulation (phase_reference on CPU tensors) and its SA levels
-through rowop_reference.  Steps agree to 1e-11; PCG takes the same number
-of iterations and reaches the same solution to 1e-9.
+through rowop_reference.  Steps agree to 1e-11 (theta-schemes and BiCGStab
+included); PCG takes the same number of iterations and reaches the same
+solution to 1e-9.
 """
 
 import dataclasses
@@ -51,6 +52,17 @@ CASES = {
     # inverse does not take
     "coarse_agg": dict(n_split=2, multi_levels=2, coarse_direct_max_dof=0,
                        agg_dense_max_dof=96),
+    # theta-schemes: Crank-Nicolson's explicit half through apply_spatial
+    "theta_half": dict(n_split=2, multi_levels=2, theta=0.5),
+    "theta_half_advection": dict(n_split=2, multi_levels=2, theta=0.5,
+                                 advect=True),
+    # explicit (mode 7): A = M/dt, one exact block-Jacobi round
+    "theta_zero": dict(n_split=2, multi_levels=1, theta=0.0, n_multigrid=1,
+                       n_smooth=1, omega=1.0, solver="block_jacobi"),
+    # BiCGStab: krylov under advection, V-cycle preconditioned
+    "bicgstab": dict(n_split=2, multi_levels=2, advect=True, krylov=True),
+    "bicgstab_theta_half": dict(n_split=2, multi_levels=2, advect=True,
+                                krylov=True, theta=0.5),
 }
 
 
@@ -201,12 +213,12 @@ def test_solver_from_numpy_carries_agg(case):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(theta=0.5),
+    dict(solver=tcfg.Solver.RICHARDSON),
     dict(solver=tcfg.Solver.JACOBI),
-    dict(krylov=True, physics=tcfg.Physics(advection=True, u=(1.0, 0.0))),
+    dict(solver=tcfg.Solver.GAUSS_SEIDEL),
     dict(stencil_operator=False),
     dict(debug=True),
-], ids=["theta", "jacobi", "bicgstab", "non_stencil",
+], ids=["richardson", "jacobi", "gauss_seidel", "non_stencil",
         "debug"])
 def test_unported_paths_raise(kw):
     cfg = tcfg.SemiConfig(n_split=1, multi_levels=2, dt=0.05, **kw)
