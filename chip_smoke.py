@@ -35,8 +35,23 @@ explicit theta = 0 step), mode 9 with BiCGStab and with Crank-Nicolson,
 mode 6 at n_split 0 on a 256 x 256 gmsh file (K1 at C = 1, U = 131,072
 against its plain version and timed) and the erfc breakthrough gate, each
 held to the same command on the host CPU or to the JAX package's f32
-values where they are recorded.  Every phase prints its numbers; any
-failure raises and the script exits non-zero.  The last line is
+values where they are recorded.
+
+Then the solver menu, the non-stencil path and mode 1: (a) the reference's
+active mode-9 configuration (point Jacobi, no surface terms, the
+corner-average restrictor) at 393,216 DOF, its operator applies through K1
+and the SA levels below its 98,304-DOF coarsest through K2; (b) colored
+Gauss-Seidel and Richardson on the geometric CLI path, and --solver direct
+against --solver jacobi bit for bit; (c) Chebyshev through the fused
+operator at n_split 7 (393,216 DOF), which launches neither kernel; (d)
+the stencil probed from apply_A at the bench size, its blocks against the
+closed form and one V-cycle through K1 against the analytic one; (e) mode
+1 at the reference's 200 x 1 quads and at 200 x 1024 (819,200 DOF), with
+the moving box's centre of mass and mass.  Each path prints its launches
+by kernel, ms a step by CUDA events and its history beside the JAX
+package's f32 values and the port's CPU run.  Every phase prints its
+numbers; any failure raises and the script exits non-zero.  The last line
+is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -177,6 +192,38 @@ THETA_HISTORY = [2.6587281227111816, 2.079700231552124]
 # (the full width, 256 x 256, takes ~80 s there)
 MODE6_SMALL_N = 64
 
+# The solver menu, the non-stencil path and mode 1 (utils.profiling's
+# REFERENCE9_ARGS, GS_ARGS, RICHARDSON_ARGS, NSPLIT7_ARGS, MODE1_ARGS).
+# JAX package on CPU, f32: the same commands with --cpu, as they print.
+# (a) the reference's active mode-9 configuration, 393,216 DOF
+REFERENCE9_CLI = {"residual_history": [5.097284883959219e-06,
+                                       5.099435838928912e-06],
+                  "L1_error": 0.7736029028892517}
+# (b) colored Gauss-Seidel (omega 0.5) and Richardson (omega 0.01) with
+# surface terms on the geometric CLI path, 221,184 DOF
+GS_CLI = {"residual_history": [0.2821063995361328, 0.08501909673213959],
+          "L1_error": 0.7583239078521729}
+RICHARDSON_CLI = {"residual_history": [0.6225383281707764,
+                                       0.22281049191951752],
+                  "L1_error": 0.7546142935752869}
+# --solver direct against --solver jacobi, on the card, at a small size
+DIRECT_SMALL_ARGS = ["--mode", "9", "--rows", "8", "--cols", "8",
+                     "--omega", "0.5", "--ntime", "2"]
+# (c) Chebyshev through the fused operator at n_split 7 (48.9 s there)
+NSPLIT7_CLI = {"residual_history": [0.17043468356132507, 0.0470312163233757],
+               "L1_error": 0.758652925491333}
+# (e) mode 1: the same t_range at 200 x 1 (3.1 s) and 200 x 1024 (103 s)
+MODE1_REF_ARGS = ["--mode", "1", "--rows", "200", "--cols", "1"]
+MODE1_CLI = {"ntime": 714, "dt": 0.35,
+             "t_range": [-0.047208886593580246, 1.0472097396850586]}
+# The moving box's centre of mass moves by u*t and its mass stays: exact to
+# 1e-15 in float64; in float32 on the CPU the JAX package ends 9.7e-7
+# (centre) and 5.1e-7 (mass) off, the port 1.19e-6 and 4.8e-7 (714 steps
+# of f32 rounding), so 5e-6 relative
+MODE1_GATE = 5e-6
+# steps of the width run held to the port's plain path on the CPU
+MODE1_CPU_STEPS = 20
+
 
 def check(cond: bool, what: str):
     if not cond:
@@ -226,13 +273,17 @@ def main():
     from p_a_multigrids_tpu_torch.mesh import gmsh, splitting, structured
     from p_a_multigrids_tpu_torch.mesh.topology import from_msh as gmsh_mesh
     from p_a_multigrids_tpu_torch.ops import galerkin
-    from p_a_multigrids_tpu_torch.models import semi_assembled, transport
+    from p_a_multigrids_tpu_torch.config import RectConfig
+    from p_a_multigrids_tpu_torch.models import (semi_assembled, transport,
+                                                 transport_rect)
+    from p_a_multigrids_tpu_torch.ops import stencil
     from p_a_multigrids_tpu_torch.utils.profiling import (
-        BICGSTAB_ARGS, MODE6_ARGS, MODE6_N, MODE7_ARGS, MODE8_ARGS,
-        MODE10_ARGS, SWEEP_MESH, THETA_ARGS, amg_solver, bench_solver,
+        BICGSTAB_ARGS, GS_ARGS, MODE1_ARGS, MODE6_ARGS, MODE6_N, MODE7_ARGS,
+        MODE8_ARGS, MODE10_ARGS, NSPLIT7_ARGS, REFERENCE9_ARGS,
+        RICHARDSON_ARGS, SWEEP_MESH, THETA_ARGS, amg_solver, bench_solver,
         cli_solver, deep_amg_solver, bound_ms, bsr_matrix, event_ms,
-        least_bytes, painted_mesh, rowop_least_bytes, sweep_solver,
-        transport_solver, _trace)
+        least_bytes, painted_mesh, rect_step, rowop_least_bytes,
+        stencil_bsr_matrix, sweep_solver, transport_solver, _trace)
     from p_a_multigrids_tpu_torch.validation import analytical, gates, probe
 
     dev = torch.device("cuda", 0)
@@ -302,17 +353,18 @@ def main():
         return torch.as_tensor(
             rng.normal(size=(3, op.C, op.U)).astype(np.float32), device=dev)
 
-    def solver_cases(path, sv):
-        """A phase with sv's smoothing coefficients and z, and the
-        zero-round apply, on each K1 level of sv."""
+    def solver_cases(path, sv, phases=True):
+        """A phase with sv's smoothing coefficients and z (when phases), and
+        the zero-round apply, on each K1 level of sv."""
         out = []
         for li, op in enumerate(o for o in sv.ops if o.C > 1):
             x, b = rand(op), rand(op)
             coefs = sv._phase_coefs(li, sv.cfg.n_smooth)
-            out += [(f"{path}_l{li}_cheb{len(coefs)}_z", op, x,
-                     op._bp(b, li == 0), coefs, True, 1e-4),
-                    (f"{path}_apply_l{li}", op, x, torch.zeros_like(x), [],
-                     True, 1e-5)]
+            if phases:
+                out.append((f"{path}_l{li}_cheb{len(coefs)}_z", op, x,
+                            op._bp(b, li == 0), coefs, True, 1e-4))
+            out.append((f"{path}_apply_l{li}", op, x, torch.zeros_like(x),
+                        [], True, 1e-5))
         return out
 
     def k1_parity(name, op, x, bp, coefs, want_z, rtol, tier=None):
@@ -1093,9 +1145,246 @@ def main():
     check(g.passed and abs(sampled[0] - 1.0) < 0.01,
           f"erfc gate on the card: {g}, inlet {sampled[0]}")
 
+    # 22. (a) the reference's active mode-9 configuration at 393,216 DOF:
+    # point Jacobi (omega 0.8), no surface terms, the corner-average
+    # restrictor, 6 V-cycles a step.  Every operator apply is a zero-round
+    # K1 launch; the 98,304-DOF coarsest continues into SA levels (K2) ---
+    def step_ms(sv, reps=3):
+        """ms a time step of sv from T0 by CUDA events (after one step),
+        and the K1 / K2 launches and K1 rounds of one step."""
+        T0_t = to_t(sv.initial_condition())
+        sv._step_t(T0_t)
+        counts_zero()
+        sv._step_t(T0_t)
+        torch.cuda.synchronize()
+        c = read_counts()
+        return event_ms(lambda: sv._step_t(T0_t), reps), c
+
+    a_out, a_counts, _, a_sv = drive_state(REFERENCE9_ARGS)
+    a_cpu = cli.main(REFERENCE9_ARGS + ["--device", "cpu"])
+    check([(op.C, op.U) for op in a_sv.ops] == [(16, 8192), (4, 8192)]
+          and a_sv.agg is not None and a_sv._agg_li == 1
+          and not a_sv.phase_cycle,
+          "reference mode 9: not point Jacobi on 2 levels with SA below")
+    # the menu smoothers' operator: the zero-round apply on each level
+    apply_err = max(k1_parity(*case)
+                    for case in solver_cases("ref9", a_sv, phases=False))
+    k2_err = max(k2_err, k2_parity("ref9", a_sv.agg.rowops()))
+    a_ms, a_step = step_ms(a_sv)
+    say("main", path="mode9_reference_jacobi", launches=a_counts,
+        step_launches=a_step, ms_per_step=f"{a_ms:.4f}",
+        sa_levels=[lv.n for lv in a_sv.agg.levels],
+        residual_history=a_out["residual_history"],
+        cpu=a_cpu["residual_history"],
+        jax_cpu=REFERENCE9_CLI["residual_history"],
+        L1_error=a_out["L1_error"], cpu_L1_error=a_cpu["L1_error"],
+        jax_L1_error=REFERENCE9_CLI["L1_error"], wall_s=a_out["wall_s"],
+        cpu_wall_s=a_cpu["wall_s"], card=repr(card))
+    check(a_counts["k1_phase"] > 0 and a_counts["k2_rowop"] > 0,
+          f"reference mode 9 did not launch both kernels: {a_counts}")
+    check(a_counts["k1_rounds"] == a_counts["k1_phase"],
+          "reference mode 9: a K1 launch that was not a zero-round apply")
+    # the residual (5.1e-6) is no f32 floor: f64 gives the same to 1e-6,
+    # and the port's CPU run and JAX (f32) agree to 1.2e-6 relative
+    for ref_name, ref in (("plain CPU", a_cpu), ("JAX CPU", REFERENCE9_CLI)):
+        hold_to("reference mode 9", a_out, ref, ref_name, 0.02,
+                "residual_history")
+        hold_to("reference mode 9", a_out, ref, ref_name, 1e-4, "L1_error")
+    # the zero-round apply (the menu's operator) on both levels, timed
+    # against its plain version and against the library call that computes
+    # the same z = -D^-1 A x (cuSPARSE's BSR product over the premultiplied
+    # blocks); its bound counts the coupling blocks, x in and z out
+    ka = []
+    for li, op in enumerate(a_sv.ops):
+        x = rand(op)
+        zeros = torch.zeros_like(x)
+        n_before = K.KERNEL.launches
+        ms, plain_ms, times = time_pair(
+            lambda: K.phase(op, x, zeros, [], True),
+            lambda: K.phase_reference(op, x, zeros, [], True), 50)
+        check(K.KERNEL.launches - n_before == 103,
+              "timed zero-round applies did not launch K1 once each")
+        A, xv = stencil_bsr_matrix(op), x.reshape(3, -1).T.reshape(-1)
+        lib_z = (A @ xv).reshape(-1, 3).T.reshape(x.shape)
+        lib_err = float((lib_z - K.phase(op, x, zeros, [], True)[1])
+                        .abs().max())
+        check(lib_err <= 1e-5 * float(lib_z.abs().max()),
+              f"ref9_apply_l{li}: the BSR yardstick differs from K1 by "
+              f"{lib_err:.3e}")
+        for _ in range(3):
+            A @ xv
+        lib_ms = event_ms(lambda: A @ xv, 50)
+        backend = sorted({k for k, _, _ in _trace(lambda: A @ xv, 1)})
+        nbytes = least_bytes(op, planes=2)
+        ka.append((ms, plain_ms, bound_ms(nbytes), lib_ms))
+        say("time", phase=f"ref9_apply_l{li}", C=op.C, U=op.U,
+            tier=K.KERNEL.plan(op).tier, k1_ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{ka[li][2]:.5f}",
+            least_MB=f"{nbytes / 1e6:.2f}", library_ms=f"{lib_ms:.5f}",
+            library_kernels=backend, library_max_abs_err=f"{lib_err:.3e}",
+            k1_runs=[f"{v:.5f}" for v in times["kernel"]],
+            plain_runs=[f"{v:.5f}" for v in times["plain"]], card=repr(card))
+    del a_sv, op, A
+
+    # 23. (b) colored Gauss-Seidel and Richardson with surface terms on the
+    # geometric CLI path (221,184 DOF); GS makes two zero-round applies a
+    # sweep, one a color ---------------------------------------------------
+    menu_ms = {}
+    for name, argv, want in (("gauss_seidel", GS_ARGS, GS_CLI),
+                             ("richardson", RICHARDSON_ARGS,
+                              RICHARDSON_CLI)):
+        m_out, m_counts, _, m_sv = drive_state(argv)
+        menu_ms[name], m_step = step_ms(m_sv)
+        say("main", path=f"mode9_{name}", launches=m_counts,
+            step_launches=m_step, ms_per_step=f"{menu_ms[name]:.4f}",
+            residual_history=m_out["residual_history"],
+            jax_cpu=want["residual_history"], L1_error=m_out["L1_error"],
+            jax_L1_error=want["L1_error"], wall_s=m_out["wall_s"],
+            card=repr(card))
+        check(m_counts["k1_phase"] > 0 and m_counts["k2_rowop"] == 0
+              and m_counts["k1_rounds"] == m_counts["k1_phase"],
+              f"{name}: not zero-round K1 applies alone: {m_counts}")
+        hold_to(name, m_out, want, "JAX CPU", 0.02, "residual_history")
+        hold_to(name, m_out, want, "JAX CPU", 1e-4, "L1_error")
+        del m_sv
+    states = {}
+    for name in ("jacobi", "direct"):
+        states[name] = cli.run(DIRECT_SMALL_ARGS + [
+            "--solver", name, "--device", "cuda"])[1]
+    say("main", path="mode9_direct_vs_jacobi",
+        equal=bool(torch.equal(states["jacobi"], states["direct"])))
+    check(torch.equal(states["jacobi"], states["direct"]),
+          "--solver direct differs from --solver jacobi on the card")
+
+    # 24. (c) the non-stencil path at n_split 7: 8 macros of C = 16,384
+    # (393,216 DOF), Chebyshev through the fused operator, the 24,576-DOF
+    # coarsest by coarse sweeps.  On the TPU this path ran XLA alone: no K1
+    # and no K2 launch here either --------------------------------------
+    t0 = time.time()
+    ns_sv = cli_solver(dev, NSPLIT7_ARGS)
+    torch.cuda.synchronize()
+    ns_setup = time.time() - t0
+    check(not ns_sv.stencil and ns_sv.fused is not None
+          and [lv["C"] for lv in ns_sv.p.levels] == [16384, 4096, 1024]
+          and ns_sv.coarse_inv_t is None and ns_sv.agg is None,
+          "n_split 7: not the fused three-level path with coarse sweeps")
+    ns_ms, ns_step = step_ms(ns_sv)
+    del ns_sv
+    ns_out, ns_counts = drive(NSPLIT7_ARGS)
+    ns_cpu = cli.main(NSPLIT7_ARGS + ["--device", "cpu"])
+    say("main", path="mode9_n_split7", launches=ns_counts,
+        step_launches=ns_step, setup_seconds=f"{ns_setup:.2f}",
+        ms_per_step=f"{ns_ms:.4f}",
+        residual_history=ns_out["residual_history"],
+        cpu=ns_cpu["residual_history"],
+        jax_cpu=NSPLIT7_CLI["residual_history"],
+        L1_error=ns_out["L1_error"], cpu_L1_error=ns_cpu["L1_error"],
+        jax_L1_error=NSPLIT7_CLI["L1_error"], wall_s=ns_out["wall_s"],
+        cpu_wall_s=ns_cpu["wall_s"], card=repr(card))
+    check(ns_counts["k1_phase"] == 0 and ns_counts["k2_rowop"] == 0,
+          f"n_split 7 launched a kernel: {ns_counts}")
+    for ref_name, ref in (("plain CPU", ns_cpu), ("JAX CPU", NSPLIT7_CLI)):
+        hold_to("n_split 7", ns_out, ref, ref_name, 0.02,
+                "residual_history")
+        hold_to("n_split 7", ns_out, ref, ref_name, 1e-4, "L1_error")
+
+    # 25. (d) the stencil probed from apply_A (float64, on the host) at the
+    # bench size: its blocks against the closed form on the same tables in
+    # float64, its K1 phases against the plain version, and one V-cycle
+    # through K1 against the analytic stencil's ---------------------------
+    t0 = time.time()
+    probed = bench_solver(dev, stencil_probe=True)
+    probe_s = time.time() - t0
+    fields = ("self_blocks", "face_blocks", "cross_blocks", "c_aff")
+    probe_err = 0.0
+    for li, (op, L) in enumerate(zip(probed.ops, probed.p.levels)):
+        L64 = {k: (v.astype(np.float64) if isinstance(v, np.ndarray)
+                   and v.dtype.kind == "f" else v) for k, v in L.items()}
+        exact = stencil.build_stencil(L64, probed.cfg.physics,
+                                      probed.cfg.dt, probed.cfg.theta)
+        for f in fields:
+            want = getattr(exact, f)
+            err = float(np.abs(getattr(op._data, f) - want).max())
+            probe_err = max(probe_err, err / max(float(np.abs(want).max()),
+                                                 1e-300))
+    check(probe_err <= 1e-10, f"probed blocks differ from the closed form "
+          f"by {probe_err:.3e} relative")
+    x_p = to_t(probed.initial_condition())
+    b_p = probed._rhs_t(x_p)
+    probe_k1 = max(k1_parity(*case)
+                   for case in solver_cases("probe", probed))
+    max_abs_err = max(max_abs_err, probe_k1)
+    counts_zero()
+    cyc_p = probed._vcycle_t(0, x_p, b_p)
+    torch.cuda.synchronize()
+    p_counts = read_counts()
+    cyc_a = solver._vcycle_t(0, x_p, solver._rhs_t(x_p))
+    cyc_diff = float((cyc_p - cyc_a).abs().max())
+    cyc_scale = float(cyc_a.abs().max())
+    say("main", path="stencil_probe", probe_seconds=f"{probe_s:.2f}",
+        levels=[(op.C, op.U) for op in probed.ops],
+        blocks_rel_err=f"{probe_err:.3e}", cycle_launches=p_counts,
+        cycle_max_abs_diff=f"{cyc_diff:.3e}", cycle_max=f"{cyc_scale:.3e}",
+        lam_max=[f"{v:.6g}" for v in probed._lam_max],
+        analytic_lam_max=[f"{v:.6g}" for v in solver._lam_max])
+    check(p_counts["k1_phase"] > 0, "the probed V-cycle launched K1 no time")
+    # f32 blocks rounded from the probe and from the closed form, and
+    # lam_max from each: one cycle agrees to f32 rounding
+    check(cyc_diff <= 1e-5 * cyc_scale, f"probed V-cycle differs from the "
+          f"analytic one by {cyc_diff:.3e} (max {cyc_scale:.3e})")
+    del probed
+
+    # 26. (e) mode 1 (plain PyTorch, no kernel): the reference's 200 x 1
+    # quads and 200 x 1024 at width, 714 steps each, against JAX's t_range,
+    # the moving box's centre of mass and mass, and at width the first
+    # MODE1_CPU_STEPS steps against the port's plain path on the CPU -----
+    def box_gates(name, out, problem, T):
+        """t_range against JAX; the centre of mass moved by u*t and the
+        mass kept, within MODE1_GATE relative (float64 sums)."""
+        cfg = problem.cfg
+        T = T.double().cpu().numpy()
+        T0 = transport_rect.initial_condition(problem).double().cpu().numpy()
+        xs = problem.x_all[:, 0, :]
+        shift = cfg.u[0] * out["dt"] * out["ntime"]
+        com_err = ((xs * T).sum() / T.sum() - (xs * T0).sum() / T0.sum()
+                   - shift) / shift
+        mass_err = (T.sum() - T0.sum()) / T0.sum()
+        say("main", path=name, com_rel_err=f"{com_err:.3e}",
+            mass_rel_err=f"{mass_err:.3e}", ntime=out["ntime"], dt=out["dt"],
+            t_range=out["t_range"], jax_t_range=MODE1_CLI["t_range"],
+            wall_s=out["wall_s"])
+        check(out["ntime"] == MODE1_CLI["ntime"]
+              and out["dt"] == MODE1_CLI["dt"], f"{name}: ntime / dt")
+        hold_to(name, out, MODE1_CLI, "JAX CPU", 1e-5, "t_range")
+        check(abs(com_err) <= MODE1_GATE and abs(mass_err) <= MODE1_GATE,
+              f"{name}: centre of mass {com_err:.3e}, mass {mass_err:.3e}")
+
+    r_out, r_counts, T_r, p_r = drive_state(MODE1_REF_ARGS)
+    box_gates("mode1_reference", r_out, p_r, T_r)
+    w_out, w_counts, T_w, p_w = drive_state(MODE1_ARGS)
+    box_gates("mode1_width", w_out, p_w, T_w)
+    check(r_counts["k1_phase"] == r_counts["k2_rowop"] == 0
+          and w_counts["k1_phase"] == w_counts["k2_rowop"] == 0,
+          f"mode 1 launched a kernel: {r_counts}, {w_counts}")
+    del T_w, p_w
+    cfg_w = RectConfig(no_ele_row=200, no_ele_col=1024)
+    T_gpu = transport_rect.solve(cfg_w, dev, ntime=MODE1_CPU_STEPS)[1]
+    T_cpu = transport_rect.solve(cfg_w, "cpu", ntime=MODE1_CPU_STEPS)[1]
+    m1_diff = float((T_gpu.cpu() - T_cpu).abs().max())
+    step1, T1_0 = rect_step(dev)
+    step1(T1_0)
+    m1_ms = event_ms(lambda: step1(T1_0), 20)
+    say("main", path="mode1_width_cpu", steps=MODE1_CPU_STEPS,
+        max_abs_diff_cpu=f"{m1_diff:.3e}", max_T=float(T_cpu.abs().max()),
+        dof=T1_0.numel(), ms_per_step=f"{m1_ms:.4f}", card=repr(card))
+    check(m1_diff <= 1e-5 * float(T_cpu.abs().max()),
+          f"mode 1 width: {m1_diff:.3e} from the plain CPU path")
+    del T_gpu, T_cpu
+
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
-    # blocks, x0, bp, x and z; a rowop's tables and vectors); K1 has no
-    # library call
+    # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x
+    # and z; a rowop's tables and vectors); a K1 phase has no library call,
+    # the zero-round apply and K2 have cuSPARSE's BSR product
     print(json.dumps({"kernels": [{
         "name": "k1_phase", "route": "cuda",
         "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
@@ -1127,7 +1416,13 @@ def main():
         "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:176",
         "launches": m6_counts["k1_phase"], "max_abs_err": k1_dg_err,
         "ms": k1_dg_ms, "plain_ms": k1_dg_plain_ms, "bound_ms": k1_dg_bound,
-        "bound_by": "bytes", "library_ms": None}]}),
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "k1_phase_apply", "route": "cuda",
+        "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
+        "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:176",
+        "launches": a_counts["k1_phase"], "max_abs_err": apply_err,
+        "ms": ka[0][0], "plain_ms": ka[0][1], "bound_ms": ka[0][2],
+        "bound_by": "bytes", "library_ms": ka[0][3]}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

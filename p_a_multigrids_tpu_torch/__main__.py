@@ -1,26 +1,32 @@
-"""CLI entry point of the port (modes 2-10).
+"""CLI entry point of the port (modes 1-10).
 
     python -m p_a_multigrids_tpu_torch --mode 9 --rows 24 --cols 24 \\
         --n-split 3 --levels 4 --ntime 2 --device cuda
+    python -m p_a_multigrids_tpu_torch --mode 9 --rows 128 --cols 32 \\
+        --solver jacobi --omega 0.8 --no-surface-terms \\
+        --restrictor corner_average --n-multigrid 6 --device cuda
     python -m p_a_multigrids_tpu_torch --mode 9 --mesh macro.msh \\
         --n-split 5 --levels 6 --cycle-type w --dt 1e8 --device cuda
-    python -m p_a_multigrids_tpu_torch --mode 10 --rows 128 --cols 32 \\
-        --dt 0.05 --device cuda
+    python -m p_a_multigrids_tpu_torch --mode 1 --rows 200 --cols 1024
 
-Modes mirror the JAX package's CLI: 2-6 the triangular-mesh transport
-solvers (2/4 explicit, 3/5 implicit, 6 advection-diffusion; split depth 0),
-7 semi explicit (theta = 0), 8 semi direct (dense inverse), 9 semi
-multigrid (V-cycles or, with --krylov, PCG / BiCGStab under --u), 10 semi
-assembled (block-Jacobi sweeps over the BSR operator).  The macro mesh is a
-gmsh 2.x ASCII ``--mesh`` file, else the generated ``--rows`` x ``--cols``
-unit square.  Prints one JSON line with the JAX package's keys for the mode
-(modes 2-6: mode, elements, wall_s; 7, 9, 10: also residual_history,
-children, L1_error, residual; 8: the same without residual_history), plus
-krylov_iterations with --krylov in modes 7 and 9.  Mode 1, ``--solver``
-other than chebyshev and block_jacobi (mode 9), ``--mesh`` with a ``.geo``
-file, output, checkpoints, expressions, the sanitizer, the profiler flag and
+Modes mirror the JAX package's CLI: 1 rectangular DG advection (the moving
+box), 2-6 the triangular-mesh transport solvers (2/4 explicit, 3/5
+implicit, 6 advection-diffusion; split depth 0), 7 semi explicit (theta =
+0), 8 semi direct (dense inverse), 9 semi multigrid (V-cycles or, with
+--krylov, PCG / BiCGStab under --u; any --solver; at n_split >= 7 the
+non-stencil operator), 10 semi assembled (block-Jacobi sweeps over the BSR
+operator).  The macro mesh is a gmsh 2.x ASCII ``--mesh`` file, else the
+generated ``--rows`` x ``--cols`` unit square.  Prints one JSON line with
+the JAX package's keys for the mode (mode 1: mode, ntime, dt, t_range and
+with --curves the files; modes 2-6: mode, elements, wall_s; 7, 9, 10: also
+residual_history, children, L1_error, residual; 8: the same without
+residual_history), plus krylov_iterations with --krylov in modes 7 and 9.
+``--cpu`` is ``--device cpu``.  ``--mesh`` with a ``.geo`` file, VTU
+output, checkpoints, expressions, the sanitizer, the profiler flag and
 ``--devices`` are not ported yet: each exits with a message naming the
-ROADMAP.md item that will port it.
+ROADMAP.md item that will port it (``--checkpoint-every`` and
+``--dist-ghost-frac`` are parsed, and matter only beside ``--checkpoint``
+and ``--devices``).
 """
 
 from __future__ import annotations
@@ -34,7 +40,6 @@ import time
 UNPORTED_FLAGS = {
     "vtu": "CLI, IO and validation",
     "vtk_interval": "CLI, IO and validation",
-    "curves": "non-stencil paths and the other modes (mode 1)",
     "checkpoint": "CLI, IO and validation",
     "ic": "CLI, IO and validation (expressions)",
     "bc": "CLI, IO and validation (expressions)",
@@ -89,15 +94,24 @@ def _parser():
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device: cuda runs kernel K1, cpu its plain "
                          "PyTorch version")
+    ap.add_argument("--cpu", action="store_true",
+                    help="the same as --device cpu (the JAX CLI's flag)")
+    ap.add_argument("--curves", type=str, default=None, metavar="PREFIX",
+                    help="mode 1: write the curve files PREFIX and "
+                         "PREFIX_analytical (x value per DG node)")
     ap.add_argument("--mesh", type=str, default=None,
                     help="gmsh 2.x ASCII macro mesh (.msh); default: the "
                          "generated --rows x --cols unit square")
     # not ported yet: each exits with a message (UNPORTED_FLAGS)
-    for flag in ("--vtu", "--curves", "--checkpoint", "--ic",
-                 "--bc", "--source", "--analytical", "--profile"):
+    for flag in ("--vtu", "--checkpoint", "--ic", "--bc", "--source",
+                 "--analytical", "--profile"):
         ap.add_argument(flag, type=str, default=None)
     ap.add_argument("--vtk-interval", type=int, default=0)
     ap.add_argument("--devices", type=int, default=0)
+    # the JAX CLI's defaults; each matters only beside --checkpoint or
+    # --devices, which exit above
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--dist-ghost-frac", type=float, default=0.25)
     ap.add_argument("--debug", action="store_true")
     return ap
 
@@ -110,17 +124,12 @@ def _parse(argv):
             raise SystemExit(
                 f"--{dest.replace('_', '-')} is not ported to "
                 f"p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: {item})")
-    if args.mode == 1:
-        raise SystemExit(
-            "mode 1 (rectangular DG advection, models/transport_rect.py) is "
-            "not ported to p_a_multigrids_tpu_torch yet (ROADMAP.md, queue "
-            "1: non-stencil paths and the other modes)")
-    if not 2 <= args.mode <= 10:
+    if not 1 <= args.mode <= 10:
         raise SystemExit(f"unknown mode {args.mode}")
 
     import torch
 
-    device = torch.device(args.device)
+    device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(use --device cpu for the plain PyTorch path)")
@@ -209,16 +218,46 @@ def setup(argv=None):
     return (args,) + _stepping_solver(args, device)
 
 
+def _rect(args, device, out):
+    """Mode 1: the moving box on the --rows x --cols quad mesh; fills out
+    with ntime, dt, t_range (and the curve files with --curves) and
+    returns (T (E, 4), the problem)."""
+    import numpy as np
+
+    from .config import RectConfig
+    from .models import transport_rect
+
+    cfg = RectConfig(no_ele_row=args.rows, no_ele_col=args.cols,
+                     u=tuple(args.u) if any(args.u)
+                     else (2 * 0.01428571, 0.0),
+                     dtype="float64" if args.f64 else "float32")
+    problem, T, dt, ntime = transport_rect.solve(cfg, device)
+    vals = T.cpu().numpy()
+    out.update(ntime=ntime, dt=dt,
+               t_range=[float(vals.min()), float(vals.max())])
+    if args.curves:
+        from .io import curves
+
+        curves.write_curve(args.curves, problem.x_all, vals, two_d=False)
+        ana = transport_rect.analytical_comparison(problem, dt, ntime)
+        curves.write_curve(f"{args.curves}_analytical", problem.x_all,
+                           np.asarray(ana), two_d=False)
+        out["curves"] = [args.curves, f"{args.curves}_analytical"]
+    return T, problem
+
+
 def run(argv=None):
     """Run the CLI without printing: returns (the JSON dict, the final
     state T (U, C, 3) on the run's device, the solver that ran the last
-    steps)."""
+    steps); in mode 1, T (E, 4) and the ``RectProblem``."""
     import torch
 
     t0 = time.time()
     args, device = _parse(argv)
     out = {"mode": args.mode}
-    if args.mode <= 6:
+    if args.mode == 1:
+        T, solver = _rect(args, device, out)
+    elif args.mode <= 6:
         from .models import transport
 
         mesh = _mesh(args)

@@ -2,10 +2,9 @@
 transport solvers (mirror of the JAX package's ``config.py``, same fields
 and defaults).
 
-Fields of paths this port does not run yet are left out.  The few kept for
-such a path (``stencil_*``, ``debug``, ...) are the ones
-``models.semi.SemiSolver`` reads: it raises ``NotImplementedError`` for any
-value that would engage the path.
+Fields of paths this port does not run yet are left out.  Of those kept,
+only ``debug`` still names such a path: ``models.semi.SemiSolver`` raises
+``NotImplementedError`` when it is set.
 """
 
 from __future__ import annotations
@@ -102,8 +101,13 @@ class SemiConfig:
     krylov: bool = False
     krylov_tol: float = 1e-8
     krylov_maxiter: int = 200
-    # the port runs only the stencil operator: any value that would select
-    # the JAX package's non-stencil path raises
+    # transposed-layout term-by-term operator (ops/fused.py) on the
+    # non-stencil path; False applies models.semi.apply_A instead
+    fast_operator: bool = True
+    # exact block-stencil operator (ops/stencil.py), built when 4**n_split
+    # <= stencil_max_children; above it (n_split >= 7) the non-stencil path
+    # runs.  stencil_probe builds the blocks by basis probing of apply_A
+    # instead of the closed form
     stencil_operator: bool = True
     stencil_probe: bool = False
     stencil_max_children: int = 4096
@@ -122,6 +126,22 @@ class SemiConfig:
     fns: ProblemFns = dataclasses.field(default_factory=ProblemFns)
     dtype: str = "float32"
     debug: bool = False                  # not ported: raises
+
+
+@dataclasses.dataclass
+class RectConfig:
+    """Structured rectangular DG advection (mode 1)."""
+    no_ele_row: int = 200
+    no_ele_col: int = 1
+    x_length: float = 100.0
+    y_length: float = 100.0
+    cfl: float = 0.7
+    time: float = 250.0
+    nits: int = 2                  # nonlinearity iterations
+    njac_its: int = 10
+    u: tuple[float, float] = (2 * 0.01428571, 0.0)
+    direct_solver: bool = False
+    dtype: str = "float32"
 
 
 @dataclasses.dataclass

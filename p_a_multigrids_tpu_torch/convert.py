@@ -5,9 +5,12 @@ a JAX ``SemiSolver`` holds — its per-level ``StencilData`` and
 ``levels[i]["_np"]`` tables, ``_lam_max``, ``_coarse_inv_np``,
 ``analytical`` and the SA hierarchy ``_agg`` — given as plain numpy or
 duck-typed objects (the transport solvers of modes 2-6 are SemiSolvers
-too).  ``assembled_from_numpy`` builds the mode-10 ``AssembledSemiSolver``
-from a JAX one's ``A_bsr``, ``offset`` and level-0 stencil.  Nothing here
-imports JAX.  A state T of shape (U, C, 3) moves both ways as a numpy array
+too).  On the non-stencil path (no stencil given) it takes ``_lam_max``,
+``_block_inv`` and the dense coarse inverse ``_coarse_inv`` instead.
+``assembled_from_numpy`` builds the mode-10 ``AssembledSemiSolver`` from a
+JAX one's ``A_bsr``, ``offset`` and level-0 stencil, and
+``rect_from_numpy`` mode 1's ``RectProblem`` from a JAX one's mesh and
+``tables``.  Nothing here imports JAX.  A state T of shape (U, C, 3) moves both ways as a numpy array
 (``state_to_numpy`` / ``state_from_numpy``).
 """
 
@@ -18,7 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .config import SemiConfig
+from .config import RectConfig, SemiConfig
+from .models import transport_rect
 from .models.semi import SemiProblem, SemiSolver
 from .models.semi_assembled import AssembledSemiSolver
 from .ops.agg import HostHierarchy, HostLevel
@@ -62,7 +66,8 @@ def _problem(cfg, levels, analytical, grid, coords_fine) -> SemiProblem:
 
 def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
                       coarse_inv, analytical, device, grid=None,
-                      coords_fine=None, agg=None) -> SemiSolver:
+                      coords_fine=None, agg=None,
+                      block_inv=None) -> SemiSolver:
     """Port ``SemiSolver`` on ``device`` from another solver's host arrays.
 
     Args:
@@ -70,9 +75,12 @@ def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
       levels:     per level a mapping with "s", "C" and "_np" (the host
                   tables ``build_problem`` made, level 0 with "source").
       stencil:    per level an object with the fields of ``StencilData``
-                  (unpacked levels only).
-      lam_max:    per-level spectral bounds, or None (block-Jacobi).
+                  (unpacked levels only); None on the non-stencil path.
+      lam_max:    per-level spectral bounds, or None (not Chebyshev).
       coarse_inv: the dense coarsest-level inverse, or None.
+      block_inv:  the non-stencil path's per-level exact diagonal-block
+                  inverses (U, C, 3, 3), or None (built from ``levels``;
+                  only Chebyshev and block-Jacobi use them).
       analytical: (U, C, 3) exact solution.
       grid, coords_fine: the numpy grid and finest child coordinates, used
                   only by ``initial_condition``.
@@ -81,13 +89,28 @@ def solver_from_numpy(cfg: SemiConfig, levels, stencil, lam_max,
                   engages SA.  The level it corrects follows from ``cfg``.
     """
     problem = _problem(cfg, levels, analytical, grid, coords_fine)
-    host = dict(stencil=[_stencil_data(d) for d in stencil],
-                lam_max=None if lam_max is None else list(lam_max),
+    host = dict(lam_max=None if lam_max is None else list(lam_max),
                 coarse_inv=(None if coarse_inv is None
                             else np.asarray(coarse_inv)))
+    if stencil is None:
+        host["block_inv"] = (None if block_inv is None
+                             else [np.asarray(B) for B in block_inv])
+    else:
+        host["stencil"] = [_stencil_data(d) for d in stencil]
     if agg is not None:
         host["agg"] = agg_from_numpy(agg)
     return SemiSolver(problem, device, host=host)
+
+
+def rect_from_numpy(cfg: RectConfig, x_all, face_ele, tables, device
+                    ) -> transport_rect.RectProblem:
+    """Port mode 1's ``RectProblem`` on ``device`` from another one's mesh
+    (x_all (E, 2, 4), face_ele (E, 4)) and step tables (a mapping with
+    ``transport_rect.TABLE_KEYS``, arrays of any array type)."""
+    host = {k: np.asarray(tables[k]) for k in transport_rect.TABLE_KEYS}
+    return transport_rect.RectProblem(
+        cfg=cfg, x_all=np.asarray(x_all), face_ele=np.asarray(face_ele),
+        tables=transport_rect.tables_on(host, cfg.dtype, device))
 
 
 def assembled_from_numpy(cfg: SemiConfig, levels, cols, vals, offset,

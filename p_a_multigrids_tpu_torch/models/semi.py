@@ -13,10 +13,15 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   them.
 - ``SemiSolver`` is an ``nn.Module`` running the transposed-layout (3, C, U)
   theta-scheme step by V-cycles or by V-cycle-preconditioned PCG
-  (BiCGStab under advection) on one device.  Every smoothing
-  phase, residual and operator apply is a call of the relaxation-phase
-  kernel K1 (``ops.phase.phase``); on a CPU tensor that call runs the plain
-  PyTorch version.
+  (BiCGStab under advection) on one device.  On the stencil path every
+  Chebyshev or block-Jacobi smoothing phase, residual and operator apply is
+  a call of the relaxation-phase kernel K1 (``ops.phase.phase``); the point
+  smoothers (Jacobi, Richardson, colored Gauss-Seidel, direct) run
+  ``ops.smoothers`` over K1's zero-round apply.  On a CPU tensor a K1 call
+  runs the plain PyTorch version.
+- Above ``stencil_max_children`` children a macro (n_split >= 7), or with
+  ``stencil_operator=False``, the operator is ``ops.fused.FusedOperator``
+  (or ``apply_A``) in plain PyTorch, as it was XLA on the TPU.
 - The smoothed-aggregation hierarchy (``ops.agg``) corrects the finest
   level (``amg=True``) or continues below a geometric coarsest too large
   for the dense inverse (``coarse_agg``); each of its block-row operators is
@@ -26,9 +31,8 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   split depth (the level sweep runs n_split 5: C = 1024 children per
   macro).
 
-What this port does not run raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it: smoothers other than Chebyshev and
-block-Jacobi, the non-stencil operator paths and the sanitizer mode.
+The sanitizer mode (``debug``) is not ported: it raises
+``NotImplementedError`` naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -46,10 +50,10 @@ from ..mesh import geometry, semi, splitting
 from ..mesh.topology import MacroMesh
 from ..ops import agg, galerkin, krylov, smoothers
 from ..ops import local_matrices as lm
-from ..ops.fused import from_t, to_t
+from ..ops.fused import FusedOperator, from_t, to_t
 from ..ops.phase import phase
 from ..ops.stencil import (StencilOperator, build_stencil, lam_max_estimate,
-                           to_dense)
+                           probe_stencil, to_dense)
 from ..utils import shape_functions
 
 
@@ -289,16 +293,16 @@ def build_problem(mesh: MacroMesh, cfg: SemiConfig) -> SemiProblem:
 # ---------------------------------------------------------------------------
 
 # the host tables of a level that the operator functions below read
-OPERATOR_KEYS = ("M", "D", "K", "updown", "neigh_elem", "neigh_perm",
+OPERATOR_KEYS = ("M", "ml", "D", "K", "updown", "neigh_elem", "neigh_perm",
                  "bc_dense", "neu_mask", "face_sn", "sn", "sdet", "snorm",
                  "nx1", "inv_dx", "diff_on")
 
 
 def level_tensors(L: dict, device) -> dict:
     """The tables of one level (``build_problem``'s host arrays, already in
-    the run dtype) that ``apply_spatial``, ``apply_A``, ``diag_blocks_A``
-    and ``models.semi_assembled`` read, as tensors on ``device``; index
-    tables as int64, "s" as an int."""
+    the run dtype) that ``apply_spatial``, ``apply_A``, ``diag_A``,
+    ``diag_blocks_A`` and ``models.semi_assembled`` read, as tensors on
+    ``device``; index tables as int64, "s" as an int."""
     out = {"s": int(L["s"])}
     for key in OPERATOR_KEYS:
         a = np.asarray(L[key])
@@ -320,12 +324,14 @@ def flat_gather(L: dict, X: torch.Tensor) -> torch.Tensor:
     return flat[safe]
 
 
-def neighbor_trace(L: dict, T: torch.Tensor, with_bc: bool) -> torch.Tensor:
+def neighbor_trace(L: dict, T: torch.Tensor, with_bc: bool,
+                   gather=flat_gather) -> torch.Tensor:
     """T2 (U, C, 3, 2): for each face f, the neighbor's values at the
     physical positions of my two face nodes; domain-boundary faces get the
     Dirichlet ghost values (zero without ``with_bc``), no-flux faces
-    (``neu_mask``) mirror my own trace."""
-    Tn = flat_gather(L, T)                               # (U, C, 3, 3)
+    (``neu_mask``) mirror my own trace.  ``gather`` is ``flat_gather`` or a
+    masked version of it (``ops.stencil.probe_stencil``)."""
+    Tn = gather(L, T)                                    # (U, C, 3, 3)
     T2 = torch.gather(Tn, -1, L["neigh_perm"])           # (U, C, 3, 2)
     interior = (L["neigh_elem"] >= 0)[..., None]
     bc = (L["bc_dense"] if with_bc
@@ -347,7 +353,7 @@ def _child_geometry(L: dict):
 
 
 def apply_spatial(L: dict, phys: Physics, T: torch.Tensor,
-                  with_bc: bool) -> torch.Tensor:
+                  with_bc: bool, gather=flat_gather) -> torch.Tensor:
     """L(T) = D T - updown K T + surface terms (upwind advection flux and
     symmetric interior penalty diffusion), T (U, C, 3)."""
     ein = torch.einsum
@@ -359,7 +365,7 @@ def apply_spatial(L: dict, phys: Physics, T: torch.Tensor,
         out = out - L["updown"][None, :, None] * Kt
     if phys.surface_terms:
         _, snorm, nxc = _child_geometry(L)
-        T2 = neighbor_trace(L, T, with_bc)               # (U, C, 3, 2)
+        T2 = neighbor_trace(L, T, with_bc, gather)       # (U, C, 3, 2)
         # traces at the surface quadrature points
         t_sgi = ein("fgi,uci->ucfg", L["face_sn"], T)
         t2_sgi = ein("gk,ucfk->ucfg", L["sn"], T2)
@@ -375,7 +381,7 @@ def apply_spatial(L: dict, phys: Physics, T: torch.Tensor,
             if phys.sip_consistency:
                 # piecewise-constant P1 gradients, the neighbor's by gather
                 G = ein("ucdl,ucl->ucd", nxc, T)         # (U, C, 2)
-                G2 = flat_gather(L, G)                   # (U, C, 3, 2)
+                G2 = gather(L, G)                        # (U, C, 3, 2)
                 gavg_n = 0.5 * ein("ucfd,ucfgd->ucfg", G[:, :, None] + G2,
                                    snorm)
                 # consistency: -sum_g face_sn_i k {grad t . n} sdet
@@ -400,10 +406,27 @@ def apply_spatial(L: dict, phys: Physics, T: torch.Tensor,
 
 
 def apply_A(L: dict, phys: Physics, dt: float, theta: float,
-            T: torch.Tensor, with_bc: bool) -> torch.Tensor:
+            T: torch.Tensor, with_bc: bool, gather=flat_gather
+            ) -> torch.Tensor:
     """A(T) = M T / dt + theta L(T)."""
     Mt = torch.einsum("uij,ucj->uci", L["M"], T) / dt
-    return Mt + theta * apply_spatial(L, phys, T, with_bc)
+    return Mt + theta * apply_spatial(L, phys, T, with_bc, gather)
+
+
+def diag_A(L: dict, phys: Physics, dt: float, theta: float) -> torch.Tensor:
+    """The point-relaxation diagonal (U, C, 3): lumped mass / dt + theta *
+    (diag(D) + the penalty diagonal)."""
+    U, C = L["M"].shape[0], L["updown"].shape[0]
+    d = (L["ml"][:, None] / dt).expand(U, C, 3).to(L["M"].dtype)
+    if phys.diffusion:
+        d = d + theta * torch.diagonal(L["D"], dim1=-2, dim2=-1)[:, None]
+    if phys.surface_terms and phys.diffusion:
+        pen_diag = torch.einsum("fgi,fgi,ufg->ufi", L["face_sn"],
+                                L["face_sn"], L["sdet"])  # (U, 3f, nloc)
+        d = d + (theta * phys.penalty_factor * phys.k
+                 * torch.einsum("ucf,ufi->uci", L["inv_dx"] * L["diff_on"],
+                                pen_diag))
+    return d.contiguous()
 
 
 def diag_blocks_A(L: dict, phys: Physics, dt: float, theta: float
@@ -512,13 +535,6 @@ def _check_config(cfg: SemiConfig):
         raise ValueError(f"unknown coarse_operator {cfg.coarse_operator!r}")
     if cfg.restrictor not in ("linear", "corner_average"):
         raise ValueError(f"unknown restrictor {cfg.restrictor!r}")
-    if cfg.solver not in (Solver.CHEBYSHEV, Solver.BLOCK_JACOBI):
-        raise _not_ported(f"solver={cfg.solver.value}",
-                          "non-stencil paths and the other modes")
-    if (not cfg.stencil_operator or cfg.stencil_probe
-            or 4 ** cfg.n_split > cfg.stencil_max_children):
-        raise _not_ported("the non-stencil operator path",
-                          "non-stencil paths and the other modes")
     if cfg.debug:
         raise _not_ported("debug (sanitizer) mode", "CLI, IO and validation")
     if cfg.coarse_krylov:
@@ -535,18 +551,43 @@ def _check_config(cfg: SemiConfig):
                 " sweeps here", stacklevel=3)
 
 
+# solvers whose smoothing phases run as whole K1 phases on the stencil path
+_PHASE_SOLVERS = (Solver.CHEBYSHEV, Solver.BLOCK_JACOBI)
+# identity columns apply_A takes at once when the non-stencil path builds
+# its dense coarse matrix
+COARSE_COLUMNS = 256
+
+
 class SemiSolver(nn.Module):
     """Theta-scheme V-cycle / Krylov transport solver on one device.
+
+    Three paths, chosen from the configuration as the JAX package chooses
+    them:
+
+    - the stencil path with Chebyshev or block-Jacobi smoothing: every
+      smoothing phase is one K1 phase;
+    - the stencil path with point Jacobi, Richardson, colored Gauss-Seidel
+      or direct (which relaxes as Jacobi): the smoothers of
+      ``ops.smoothers`` over the operator, each apply a zero-round K1
+      phase (``_smooth_t``);
+    - the non-stencil path (``stencil_operator=False``, or 4**n_split above
+      ``stencil_max_children``: n_split >= 7): the same cycle over
+      ``ops.fused.FusedOperator`` (``fast_operator``) or ``apply_A``, with
+      exact block inverses for Chebyshev and block-Jacobi.  It builds no
+      SA hierarchy and launches no kernel.
 
     Args:
       problem: ``build_problem``'s host tables.
       device:  where the state and all operator buffers live; a CUDA device
-        runs every phase through kernel K1 (float32 only).
-      host:    optional precomputed host parts {"stencil": [StencilData],
-        "lam_max": [float] or None, "coarse_inv": array or None, and
-        optionally "agg": ``agg.HostHierarchy`` or None}, as
-        ``convert.solver_from_numpy`` passes them; what is not given is
-        built from ``problem``.
+        runs every stencil-path operator apply and phase through kernel K1
+        (float32 only).
+      host:    optional precomputed host parts, as
+        ``convert.solver_from_numpy`` passes them: on the stencil path
+        {"stencil": [StencilData], "lam_max": [float] or None,
+        "coarse_inv": array or None, and optionally "agg":
+        ``agg.HostHierarchy`` or None}; on the non-stencil path {"lam_max",
+        "coarse_inv" and "block_inv": [(U, C, 3, 3) arrays] or None}.  What
+        is not given is built from ``problem``.
     """
 
     def __init__(self, problem: SemiProblem, device, host: dict | None = None):
@@ -558,8 +599,71 @@ class SemiSolver(nn.Module):
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         nl = len(problem.levels)
+        self.stencil = (cfg.stencil_operator
+                        and 4 ** cfg.n_split <= cfg.stencil_max_children)
+        self.phase_cycle = self.stencil and cfg.solver in _PHASE_SOLVERS
+        self.krylov_iters: list[int] = []
+        self.fused = None
+        self._levels_t = None
+        self._block_inv = None
+        self.agg = None
+        self._agg_li = None
+
+        def buf(name, a):
+            self.register_buffer(name, torch.tensor(
+                np.ascontiguousarray(np.asarray(a, cfg.dtype)),
+                device=self.device))
+
+        if self.stencil:
+            coarse_inv = self._stencil_setup(host)
+        else:
+            coarse_inv = self._fused_setup(host)
+        self._coarse_inv_np = coarse_inv
+
+        # point-relaxation diagonal (3, C, U) and, for colored Gauss-Seidel,
+        # the up-children color (1, C, 1) of each level
+        if cfg.solver in (Solver.JACOBI, Solver.GAUSS_SEIDEL, Solver.DIRECT):
+            for li, L in enumerate(problem.levels):
+                Lt = (self._levels_t[li] if self._levels_t is not None
+                      else level_tensors(L, "cpu"))
+                d = diag_A(Lt, cfg.physics, cfg.dt, cfg.theta)
+                self.register_buffer(f"diag_t_{li}",
+                                     to_t(d).to(self.device))
+                self.register_buffer(f"up_{li}", torch.as_tensor(
+                    np.asarray(L["updown"]) > 0,
+                    device=self.device)[None, :, None])
+
+        # transfer tables between level li-1 (fine) and li (coarse)
+        for li in range(1, nl):
+            fine_of, parent, pweights = _transfer_tables(
+                problem.levels[li]["s"])
+            buf(f"pweights_{li}", pweights)
+            for name, idx in (("fine_of", fine_of), ("parent", parent)):
+                self.register_buffer(f"{name}_{li}", torch.as_tensor(
+                    idx.astype(np.int64), device=self.device))
+
+        # dense coarse inverse permuted into transposed flat order
+        # (i, c, u), so the in-cycle coarse solve needs no transposes
+        self.register_buffer("coarse_inv_t", None)
+        if coarse_inv is not None:
+            Lc = problem.levels[-1]
+            Uc, Cc = Lc["M"].shape[0], Lc["updown"].shape[0]
+            u_, c_, i_ = np.meshgrid(np.arange(Uc), np.arange(Cc),
+                                     np.arange(3), indexing="ij")
+            old_to_new = (i_ * Cc * Uc + c_ * Uc + u_).reshape(-1)
+            perm = np.argsort(old_to_new)
+            buf("coarse_inv_t", coarse_inv[perm][:, perm])
+
+        self._fine_tables()
+
+    def _stencil_setup(self, host):
+        """The stencil path's operators (``ops``), spectral bounds and SA
+        hierarchy; returns the dense coarse inverse or None."""
+        problem, cfg = self.p, self.cfg
+        nl = len(problem.levels)
         if host is None:
-            datas = [build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+            build = probe_stencil if cfg.stencil_probe else build_stencil
+            datas = [build(L, cfg.physics, cfg.dt, cfg.theta)
                      for L in problem.levels]
             if cfg.coarse_operator == "galerkin":
                 # variational P^T A P coarse blocks instead of the
@@ -574,21 +678,12 @@ class SemiSolver(nn.Module):
             datas, lam_max = host["stencil"], host["lam_max"]
             coarse_inv = host["coarse_inv"]
         self._lam_max = lam_max
-        self._coarse_inv_np = coarse_inv
         self.ops = nn.ModuleList(
             StencilOperator(d, self.dtype, self.device) for d in datas)
-        self.krylov_iters: list[int] = []
-
-        def buf(name, a):
-            self.register_buffer(name, torch.tensor(
-                np.ascontiguousarray(np.asarray(a, cfg.dtype)),
-                device=self.device))
 
         # SA hierarchy: in amg mode it corrects the finest level (the
         # geometric levels are bypassed); otherwise it continues below a
         # geometric coarsest that the dense inverse does not take
-        self.agg = None
-        self._agg_li = None
         li = None
         if cfg.amg:
             li = 0
@@ -616,29 +711,44 @@ class SemiSolver(nn.Module):
                     self.register_buffer(
                         "agg_fine_dinv_t", self.agg.fine_dinv_t.reshape(
                             3, op.U, op.C).transpose(1, 2).contiguous())
+        return coarse_inv
 
-        # transfer tables between level li-1 (fine) and li (coarse)
-        for li in range(1, nl):
-            fine_of, parent, pweights = _transfer_tables(
-                problem.levels[li]["s"])
-            buf(f"pweights_{li}", pweights)
-            for name, idx in (("fine_of", fine_of), ("parent", parent)):
-                self.register_buffer(f"{name}_{li}", torch.as_tensor(
-                    idx.astype(np.int64), device=self.device))
-
-        # dense coarse inverse permuted into transposed flat order
-        # (i, c, u), so the in-cycle coarse solve needs no transposes
-        self.register_buffer("coarse_inv_t", None)
-        if coarse_inv is not None:
-            Lc = problem.levels[-1]
-            Uc, Cc = Lc["M"].shape[0], Lc["updown"].shape[0]
-            u_, c_, i_ = np.meshgrid(np.arange(Uc), np.arange(Cc),
-                                     np.arange(3), indexing="ij")
-            old_to_new = (i_ * Cc * Uc + c_ * Uc + u_).reshape(-1)
-            perm = np.argsort(old_to_new)
-            buf("coarse_inv_t", coarse_inv[perm][:, perm])
-
-        self._fine_tables()
+    def _fused_setup(self, host):
+        """The non-stencil path: the level tables on the device, the
+        transposed-layout operators (``fused``, with ``fast_operator``), the
+        exact block inverses and spectral bounds of Chebyshev and
+        block-Jacobi; returns the dense coarse inverse or None."""
+        problem, cfg = self.p, self.cfg
+        phys = cfg.physics
+        self.ops = nn.ModuleList()
+        self._levels_t = [level_tensors(L, self.device)
+                          for L in problem.levels]
+        if cfg.fast_operator:
+            self.fused = nn.ModuleList(
+                FusedOperator(L, phys, cfg.dt, cfg.theta, self.device)
+                for L in problem.levels)
+        if cfg.solver in _PHASE_SOLVERS:
+            if host is not None and host.get("block_inv") is not None:
+                self._block_inv = [
+                    torch.tensor(np.asarray(B), device=self.device)
+                    for B in host["block_inv"]]
+            else:
+                self._block_inv = [
+                    torch.linalg.inv(diag_blocks_A(Lt, phys, cfg.dt,
+                                                   cfg.theta))
+                    for Lt in self._levels_t]
+            for li, B in enumerate(self._block_inv):
+                self.register_buffer(f"binv_t_{li}",
+                                     B.permute(2, 3, 1, 0).contiguous())
+        if host is not None and host.get("lam_max") is not None:
+            self._lam_max = list(host["lam_max"])
+        else:
+            self._lam_max = ([self._estimate_lam_max(li)
+                              for li in range(len(problem.levels))]
+                             if cfg.solver == Solver.CHEBYSHEV else None)
+        if host is not None:
+            return host["coarse_inv"]
+        return self._build_coarse_inverse(None)
 
     def _fine_tables(self):
         """The finest level's buffers of the right-hand side and the error:
@@ -651,19 +761,54 @@ class SemiSolver(nn.Module):
             self.register_buffer(name, torch.tensor(
                 np.ascontiguousarray(np.asarray(a, cfg.dtype)),
                 device=self.device))
-        self._L0 = (level_tensors(L0, self.device) if cfg.theta < 1.0
-                    else None)
+        self._L0 = None
+        if cfg.theta < 1.0:
+            self._L0 = (self._levels_t[0] if self._levels_t is not None
+                        else level_tensors(L0, self.device))
 
     def _build_coarse_inverse(self, datas):
-        """Dense inverse of the coarsest level (host numpy) when it has at
-        most coarse_direct_max_dof DOF, else None."""
-        if len(datas) == 1:
+        """Dense inverse of the coarsest level (host numpy, the run dtype)
+        when it has at most coarse_direct_max_dof DOF, else None: of the
+        block stencil's matrix on the stencil path, else of apply_A's,
+        which it applies to the identity in batches of columns."""
+        if len(self.p.levels) == 1:
             return None
+        cfg = self.cfg
         L = self.p.levels[-1]
         U, C = L["M"].shape[0], L["updown"].shape[0]
-        if U * C * 3 > self.cfg.coarse_direct_max_dof:
+        N = U * C * 3
+        if N > cfg.coarse_direct_max_dof:
             return None
-        return np.linalg.inv(to_dense(datas[-1])).astype(L["M"].dtype)
+        if datas is not None:
+            return np.linalg.inv(to_dense(datas[-1])).astype(L["M"].dtype)
+        Lt = level_tensors(L, "cpu")
+        eye = torch.eye(N, dtype=self.dtype).reshape(N, U, C, 3)
+        cols = torch.func.vmap(
+            lambda v: apply_A(Lt, cfg.physics, cfg.dt, cfg.theta, v, False),
+            chunk_size=COARSE_COLUMNS)(eye)
+        return torch.linalg.inv(cols.reshape(N, N).T).numpy()
+
+    def _estimate_lam_max(self, li: int) -> float:
+        """Power iteration on D^-1 A (homogeneous, D the exact diagonal
+        blocks) from the seeded normal vector of the JAX package: 30
+        normalized applies and a last one, with a 1.2 safety factor."""
+        cfg = self.cfg
+        Lt = self._levels_t[li]
+        U, C = Lt["M"].shape[0], Lt["updown"].shape[0]
+        Ainv = self._block_inv[li]
+        v = torch.as_tensor(np.random.default_rng(li).normal(size=(U, C, 3)),
+                            dtype=self.dtype, device=self.device)
+
+        def it(v):
+            return torch.einsum("ucij,ucj->uci", Ainv, apply_A(
+                Lt, cfg.physics, cfg.dt, cfg.theta, v, False))
+
+        for _ in range(30):
+            w = it(v)
+            v = w / torch.linalg.vector_norm(w)
+        # Chebyshev amplifies any eigenvalue beyond the interval: an
+        # overestimate is cheap, an underestimate fatal
+        return 1.2 * float(torch.linalg.vector_norm(it(v)))
 
     # -- schedules -----------------------------------------------------------
     def _coarse_cheb_override(self, li: int) -> bool:
@@ -698,12 +843,19 @@ class SemiSolver(nn.Module):
 
     # -- operator ------------------------------------------------------------
     def _apply_t(self, li: int, x_t, with_bc: bool = False):
-        """A x in transposed layout by a zero-round phase: z = -D^-1 A x,
-        so A x = -D z."""
-        op = self.ops[li]
-        _, z_t = phase(op, x_t, torch.zeros_like(x_t), [])
-        ax = -op.mul_self(z_t)
-        return ax + op.c_aff_t if with_bc else ax
+        """A x in transposed layout.  On the stencil path a zero-round
+        phase: z = -D^-1 A x, so A x = -D z (one K1 launch on the card);
+        otherwise the fused operator or apply_A."""
+        if self.stencil:
+            op = self.ops[li]
+            _, z_t = phase(op, x_t, torch.zeros_like(x_t), [])
+            ax = -op.mul_self(z_t)
+            return ax + op.c_aff_t if with_bc else ax
+        if self.fused is not None:
+            return self.fused[li].apply(x_t, with_bc)
+        cfg = self.cfg
+        return to_t(apply_A(self._levels_t[li], cfg.physics, cfg.dt,
+                            cfg.theta, from_t(x_t), with_bc))
 
     def residual(self, li: int, x, b, with_bc: bool):
         """b - A x in the standard (U, C, 3) layout."""
@@ -720,25 +872,41 @@ class SemiSolver(nn.Module):
         return prolong_t(e_t, getattr(self, f"parent_{li_coarse}"),
                          getattr(self, f"pweights_{li_coarse}"))
 
+    def _solve_blocks_t(self, li: int):
+        """r -> B^-1 r with the exact diagonal-block inverses of level li
+        (non-stencil path), transposed layout, or None without them."""
+        if self._block_inv is None:
+            return None
+        B = getattr(self, f"binv_t_{li}")                # (3, 3, C, U)
+        return lambda r: torch.stack([
+            B[i, 0] * r[0] + B[i, 1] * r[1] + B[i, 2] * r[2]
+            for i in range(3)])
+
     def _coarse_cg_t(self, li: int, x_t, b_t):
-        """Coarsest-level solve by `coarse_sweeps` block-Jacobi PCG
-        iterations (coarse_krylov=True)."""
-        op = self.ops[li]
+        """Coarsest-level solve by `coarse_sweeps` PCG iterations
+        (coarse_krylov=True), preconditioned by the diagonal blocks: the
+        stencil's on the phase path, the exact inverses on the non-stencil
+        path with Chebyshev or block-Jacobi, none otherwise (as in the JAX
+        package)."""
+        if self.phase_cycle:
+            precond = self.ops[li].solve_diag
+        else:
+            precond = self._solve_blocks_t(li) or (lambda r: r)
         x_sol, _, _ = krylov.pcg(
             lambda v: self._apply_t(li, v, False), b_t, x_t,
-            precond=op.solve_diag, tol=0.0,
-            maxiter=self.cfg.coarse_sweeps)
+            precond=precond, tol=0.0, maxiter=self.cfg.coarse_sweeps)
         return x_sol
 
     def _agg_correct_t(self, li: int, x_t, r_t):
         """SA correction of level li from its residual r_t (3, C, U):
         restrict into the SA hierarchy, V-cycle there, prolong back.
 
-        With the factored fine transfers P = (I - w D^-1 A) P_tent and a
-        symmetric operator (no advection), P^T r = P_tent^T (r - w A D^-1 r)
-        and P e = (I - w D^-1 A) P_tent e: the smoothing factor runs as one
-        zero-round K1 apply on each side.  Otherwise the stored smoothed
-        transfers run."""
+        On the phase path, with the factored fine transfers P = (I - w D^-1
+        A) P_tent and a symmetric operator (no advection), P^T r = P_tent^T
+        (r - w A D^-1 r) and P e = (I - w D^-1 A) P_tent e: the smoothing
+        factor runs as one zero-round K1 apply on each side.  Otherwise the
+        stored smoothed transfers run, as the JAX package's standard-layout
+        cycle runs them."""
         h = self.agg
         cfg = self.cfg
         C, U = r_t.shape[1], r_t.shape[2]
@@ -749,7 +917,8 @@ class SemiSolver(nn.Module):
         def from_flat(v):
             return v.reshape(3, U, C).transpose(1, 2).contiguous()
 
-        if h.tent_r is not None and not cfg.physics.advection:
+        if (self.phase_cycle and h.tent_r is not None
+                and not cfg.physics.advection):
             w = h.w
             dinv = self.agg_fine_dinv_t
             y_t = r_t - w * self._apply_t(li, dinv * r_t)
@@ -760,43 +929,92 @@ class SemiSolver(nn.Module):
         return x_t + from_flat(agg.correct_t(h, to_flat(r_t),
                                              cfg.agg_cycles))
 
+    def _coarse_direct_t(self, x_t, b_t):
+        return (self.coarse_inv_t @ b_t.reshape(-1)).reshape(x_t.shape)
+
     # -- V-cycle -------------------------------------------------------------
+    def _smoother_t(self, li: int, b_t, with_bc: bool):
+        """Level li's smoothing step for right-hand side b_t, as
+        ``smooth(x_t, sweeps, want_r) -> (x_t, r_t)``, r_t = b - A x at the
+        new x when want_r, else None.  On the phase cycle one K1 phase over
+        the premultiplied b, whose z gives r = D z; otherwise ``_smooth_t``
+        followed by b - A x."""
+        if self.phase_cycle:
+            op = self.ops[li]
+            bp = op._bp(b_t, with_bc)
+
+            def smooth(x_t, sweeps, want_r):
+                x_t, z_t = phase(op, x_t, bp, self._phase_coefs(li, sweeps),
+                                 want_z=want_r)
+                return x_t, (op.mul_self(z_t) if want_r else None)
+            return smooth
+
+        def smooth(x_t, sweeps, want_r):
+            x_t = self._smooth_t(li, x_t, b_t, sweeps, with_bc)
+            return x_t, (b_t - self._apply_t(li, x_t, with_bc) if want_r
+                         else None)
+        return smooth
+
     def _vcycle_t(self, li: int, x_t, b_t, hom: bool = False):
-        """Level-li V-cycle in the transposed layout.  hom=True solves the
-        homogeneous-BC (linear) problem, as a Krylov preconditioner does."""
+        """Level-li V-cycle in the transposed layout: smooth, residual,
+        restrict, coarse cycle, prolong, smooth; at the SA level smooth,
+        residual, SA correction, smooth (the fine level in amg mode, else
+        the geometric coarsest); the coarsest geometric level solves by the
+        dense inverse, coarse CG or sweeps.  This is the JAX package's
+        standard-layout ``_vcycle`` and, with K1 phases as the smoother, its
+        transposed-layout cycle.  hom=True solves the homogeneous-BC
+        (linear) problem, as a Krylov preconditioner does."""
         cfg = self.cfg
         nl = len(self.p.levels)
         with_bc = li == 0 and not hom
-        op = self.ops[li]
-        if self.agg is not None and li == self._agg_li:
-            # smooth - SA-correct - smooth (the fine level in amg mode,
-            # else the geometric coarsest); the post-smooth skips z
-            bp = op._bp(b_t, with_bc)
-            coefs = self._phase_coefs(li, cfg.n_smooth)
-            x_t, z_t = phase(op, x_t, bp, coefs)
-            x_t = self._agg_correct_t(li, x_t, op.mul_self(z_t))
-            return phase(op, x_t, bp, coefs, want_z=False)[0]
-        if li == nl - 1:
-            if nl > 1 and self.coarse_inv_t is not None:
-                return (self.coarse_inv_t
-                        @ b_t.reshape(-1)).reshape(x_t.shape)
-            if cfg.coarse_krylov and nl > 1:
-                return self._coarse_cg_t(li, x_t, b_t)
+        sa_level = self.agg is not None and li == self._agg_li
+        coarsest = li == nl - 1 and not sa_level
+        if coarsest and nl > 1 and self.coarse_inv_t is not None:
+            return self._coarse_direct_t(x_t, b_t)
+        if coarsest and nl > 1 and cfg.coarse_krylov:
+            return self._coarse_cg_t(li, x_t, b_t)
+        smooth = self._smoother_t(li, b_t, with_bc)
+        if coarsest:
             sweeps = cfg.coarse_sweeps if nl > 1 else cfg.n_smooth
-            return phase(op, x_t, op._bp(b_t, with_bc),
-                         self._phase_coefs(li, sweeps), want_z=False)[0]
-        bp = op._bp(b_t, with_bc)
-        coefs = self._phase_coefs(li, cfg.n_smooth)
-        x_t, z_t = phase(op, x_t, bp, coefs)
-        r_t = op.mul_self(z_t)                 # r = D z = b - A x
-        bc_ = self._restrict_t(r_t, li + 1)
-        e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
-        if cfg.cycle_type == "w" and li < 2:
-            # W only near the top: the coarse systems below are solved
-            # accurately enough by one visit
-            e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
-        x_t = x_t + self._prolong_t(e_t, li + 1)
-        return phase(op, x_t, bp, coefs, want_z=False)[0]
+            return smooth(x_t, sweeps, False)[0]
+        x_t, r_t = smooth(x_t, cfg.n_smooth, True)
+        if sa_level:
+            x_t = self._agg_correct_t(li, x_t, r_t)
+        else:
+            bc_ = self._restrict_t(r_t, li + 1)
+            e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
+            if cfg.cycle_type == "w" and li < 2:
+                # W only near the top: the coarse systems below are solved
+                # accurately enough by one visit
+                e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
+            x_t = x_t + self._prolong_t(e_t, li + 1)
+        return smooth(x_t, cfg.n_smooth, False)[0]
+
+    def _smooth_t(self, li: int, x_t, b_t, sweeps: int, with_bc: bool):
+        """``sweeps`` sweeps of the configured smoother over ``_apply_t``
+        (every path but the phase cycle): Chebyshev and block-Jacobi with
+        the exact block inverses, Richardson, two-color Gauss-Seidel with
+        surface terms (the colors are the up children and the rest; without
+        surface terms no element couples to another and it is Jacobi), and
+        Jacobi, which ``direct`` also relaxes with."""
+        cfg = self.cfg
+        A = lambda v: self._apply_t(li, v, with_bc)
+        if cfg.solver == Solver.CHEBYSHEV:
+            roots = self._cheb_roots(li)
+            return smoothers.chebyshev(
+                A, b_t, x_t, self._solve_blocks_t(li), roots,
+                self._cheb_reps(li, sweeps, len(roots)))
+        if cfg.solver == Solver.RICHARDSON:
+            return smoothers.richardson(A, b_t, x_t, cfg.omega, sweeps)
+        if cfg.solver == Solver.BLOCK_JACOBI:
+            return smoothers.block_jacobi_solve(
+                A, b_t, x_t, self._solve_blocks_t(li), cfg.omega, sweeps)
+        d = getattr(self, f"diag_t_{li}")
+        if cfg.solver == Solver.GAUSS_SEIDEL and cfg.physics.surface_terms:
+            up = getattr(self, f"up_{li}")
+            return smoothers.colored_gs(A, b_t, x_t, d, (up, ~up),
+                                        cfg.omega, sweeps)
+        return smoothers.jacobi(A, b_t, x_t, d, cfg.omega, sweeps)
 
     # -- time stepping -------------------------------------------------------
     def _rhs_t(self, told_t):

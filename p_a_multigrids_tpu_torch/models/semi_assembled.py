@@ -164,6 +164,8 @@ class AssembledSemiSolver(semi.SemiSolver):
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.krylov_iters: list[int] = []
+        # the residual's operator apply is level 0's stencil through K1
+        self.stencil, self.phase_cycle, self._levels_t = True, False, None
         L0 = problem.levels[0]
         args = (L0, cfg.physics, cfg.dt, cfg.theta)
         data0 = host.get("stencil0")

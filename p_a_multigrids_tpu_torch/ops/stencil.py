@@ -8,7 +8,10 @@ through dense 3x3 blocks, so ``A = M/dt + theta*L`` is
 
 The host half (``StencilData``, ``build_stencil``, ``to_dense``,
 ``inv3x3``, ``lam_max_estimate``) is numpy copied from the JAX package's
-``ops/stencil.py`` and yields the same arrays bit for bit.  The device half
+``ops/stencil.py`` and yields the same arrays bit for bit.
+``probe_stencil`` extracts the same blocks numerically instead, by probing
+the port's own ``models.semi.apply_A`` (float64, on the CPU) with basis
+fields: the self-validating cross-check of the closed form.  The device half
 is ``StencilOperator``, an ``nn.Module`` whose coefficient planes and index
 tables are registered buffers; its plain PyTorch ``_z`` is one round of the
 relaxation phase that kernel K1 (``ops/phase.py``) runs on the GPU.
@@ -56,6 +59,117 @@ def slot_groups(data: StencilData):
         F = 3
     groups = [np.nonzero(mf_of == mf)[0] for mf in range(F)]
     return mf_of, groups, F
+
+
+def _distance2_coloring(cn: np.ndarray) -> np.ndarray:
+    """Greedy distance-2 coloring of the child adjacency graph: children of
+    one color are pairwise non-adjacent and share no neighbor, so a probe
+    can light a whole color class and every response entry still has one
+    source."""
+    C = cn.shape[0]
+    adj = [set() for _ in range(C)]
+    for c in range(C):
+        for f in range(3):
+            if cn[c, f] >= 0:
+                adj[c].add(int(cn[c, f]))
+    color = -np.ones(C, np.int64)
+    for c in range(C):
+        banned = set()
+        # distance-1 and distance-2 neighbors
+        for n1 in adj[c] | {c}:
+            for n2 in adj[n1] | {n1}:
+                if color[n2] >= 0:
+                    banned.add(int(color[n2]))
+        k = 0
+        while k in banned:
+            k += 1
+        color[c] = k
+    return color
+
+
+def probe_stencil(L: dict, phys, dt: float, theta: float) -> StencilData:
+    """The exact block stencil of ``models.semi.apply_A`` by basis probing
+    in float64 on the CPU: one probe per (color, dof) of a distance-2
+    coloring, each applied with the intra-macro couplings only, with none,
+    and with the cross-macro couplings of one face at a time."""
+    from ..models import semi as msemi
+
+    U = int(L["M"].shape[0])
+    C = int(L["updown"].shape[0])
+    cn = splitting.child_neighbors(L["s"])                  # (C, 3)
+    intra_mask = cn >= 0
+    bnd_c, bnd_f = np.nonzero(~intra_mask)
+    nb = len(bnd_c)
+    neigh = np.asarray(L["neigh_elem"])                     # (U, C, 3)
+    cross_mask = torch.as_tensor((~intra_mask)[None] & (neigh >= 0))
+    color = _distance2_coloring(cn)
+    ncol = int(color.max()) + 1
+
+    # float64 CPU copies of the level tables (probing accuracy)
+    Lp = msemi.level_tensors(
+        {key: (np.asarray(L[key], np.float64)
+               if np.asarray(L[key]).dtype.kind == "f" else L[key])
+         for key in msemi.OPERATOR_KEYS + ("s",)}, "cpu")
+    zero = torch.zeros((), dtype=torch.float64)
+
+    def keep_only(mask):
+        def gather(Ld, X):
+            full = msemi.flat_gather(Ld, X)
+            m = mask.reshape(mask.shape + (1,) * (full.ndim - 3))
+            return torch.where(m, full, zero)
+        return gather
+
+    faces = torch.arange(3).reshape(1, 1, 3)
+    gathers = [keep_only(~cross_mask), keep_only(torch.zeros_like(
+        cross_mask))] + [keep_only(cross_mask & (faces == f))
+                         for f in range(3)]
+
+    probes = np.zeros((3 * ncol, U, C, 3))
+    for c0 in range(C):
+        for j in range(3):
+            probes[color[c0] * 3 + j, :, c0, j] = 1.0
+
+    def responses(gather):
+        return np.stack([msemi.apply_A(Lp, phys, dt, theta,
+                                       torch.as_tensor(p), False,
+                                       gather).numpy() for p in probes])
+
+    resp_intra, resp_zero = responses(gathers[0]), responses(gathers[1])
+    resp_cross = [responses(g) - resp_zero for g in gathers[2:]]
+    c_aff = msemi.apply_A(Lp, phys, dt, theta,
+                          torch.zeros((U, C, 3), dtype=torch.float64), True,
+                          gathers[0]).numpy()
+
+    # -- extraction ----------------------------------------------------------
+    self_blocks = np.zeros((U, C, 3, 3))
+    face_blocks = np.zeros((U, C, 3, 3, 3))
+    for c0 in range(C):
+        for j in range(3):
+            r = resp_intra[color[c0] * 3 + j]               # (U, C, 3)
+            self_blocks[:, c0, :, j] = r[:, c0]
+            for f in range(3):
+                for c in np.nonzero(cn[:, f] == c0)[0]:
+                    face_blocks[:, c, f, :, j] = r[:, c]
+
+    # cross: slot (c, f) sources element halo_src with child id src_c;
+    # domain-boundary slots carry no linear cross coupling
+    halo_src = np.asarray(L["halo_src"])                    # (U, nb)
+    src_c = halo_src % C                                    # (U, nb)
+    cross_blocks = np.zeros((U, nb, 3, 3))
+    u_all = np.arange(U)
+    for slot in range(nb):
+        c, f = int(bnd_c[slot]), int(bnd_f[slot])
+        r = resp_cross[f][:, :, c, :]                       # (3*ncol, U, 3)
+        for j in range(3):
+            cross_blocks[:, slot, :, j] = r[color[src_c[:, slot]] * 3 + j,
+                                            u_all]
+
+    _, _, _, _, _, _, intra_onehot, cross_onehot = _static_tables(L)
+    return StencilData(
+        self_blocks=self_blocks, face_blocks=face_blocks,
+        cross_blocks=cross_blocks, c_aff=c_aff, halo_src=halo_src,
+        bnd_c=bnd_c.astype(np.int32), bnd_f=bnd_f.astype(np.int32),
+        intra_onehot=intra_onehot, cross_onehot=cross_onehot)
 
 
 def _static_tables(L: dict):

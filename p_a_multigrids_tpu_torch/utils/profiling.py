@@ -4,7 +4,7 @@
 
 Seven measurements, each printed as a table and gathered into one JSON
 object (printed last, and written to FILE when given); with ``--steps``
-only the eighth, ``steps``:
+only the last two, ``steps`` and ``applies``:
 
 - ``vcycle`` and ``amg_vcycle``: where one V-cycle spends its device time,
   by kernel class, with launches per cycle, the wall time per cycle by
@@ -34,11 +34,18 @@ only the eighth, ``steps``:
   ``torch.sparse_bsr_tensor`` times a dense vector), with the names of the
   kernels that call ran.
 
-- ``steps`` (``--steps``): the same for one time step of each of the
+- ``steps`` and ``applies`` (``--steps``): the same for one time step of
+  each of the
   other modes' paths (``step_profiles``): mode 10's assembled sweeps and
   mode 7's explicit step at 393,216 DOF, mode 6 at n_split 0 (131,072
   elements), mode 9 with BiCGStab and with Crank-Nicolson at 221,184 DOF,
-  and mode 8's dense matrix-vector product at 38,400 DOF.
+  mode 8's dense matrix-vector product at 38,400 DOF, the solver menu
+  (the reference's Jacobi configuration at 393,216 DOF, colored
+  Gauss-Seidel and Richardson at 221,184 DOF), the non-stencil path at
+  n_split 7 (393,216 DOF) and mode 1 at 819,200 DOF; and the device time
+  of one zero-round K1 apply on each level of the reference's Jacobi
+  configuration, beside its bound and its library call
+  (``apply_profiles``).
 
 Device times come from ``torch.profiler`` kernel events, traced in windows
 of at most ``WINDOW`` cycles; a window whose trace misses a K1 or K2
@@ -71,14 +78,18 @@ from ..ops.stencil import StencilOperator
 HBM_BYTES_PER_S = 3.35e12
 
 
-def least_bytes(op: StencilOperator, itemsize: int = 4) -> int:
-    """Bytes one K1 phase must move at least, whatever its rounds: one
-    premultiplied 3x3 coupling block a face, Fp across the 3C - nb faces
-    inside a macro and Xp across the nb strip faces (27 values a child; Fp
-    of a strip face is zero and not counted, so at C = 1, where every face
-    is a strip face, only Xp), and the four state planes x0, bp in and x, z
-    out (3 per child); index tables not counted."""
-    return (27 + 12) * op.C * op.U * itemsize
+def least_bytes(op: StencilOperator, itemsize: int = 4,
+                planes: int = 4) -> int:
+    """Bytes one K1 launch on op must move at least, whatever its rounds:
+    one premultiplied 3x3 coupling block a face, Fp across the 3C - nb
+    faces inside a macro and Xp across the nb strip faces (27 values a
+    child; Fp of a strip face is zero and not counted, so at C = 1, where
+    every face is a strip face, only Xp), and ``planes`` state planes of 3
+    values a child: a phase reads x0 and bp and writes x and z (4); the
+    zero-round apply z = -D^-1 A x needs only x in and z out (2), so the
+    bp it reads and the x it writes are its waste, not its bound.  Index
+    tables not counted."""
+    return (27 + 3 * planes) * op.C * op.U * itemsize
 
 
 def rowop_least_bytes(op: RowOp, itemsize: int = 4) -> int:
@@ -94,31 +105,68 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def _bsr_tensor(rows, cols, blocks, n_rows: int, n_cols: int, device):
+    """3x3 ``blocks`` at block positions (rows, cols) as a
+    ``torch.sparse_bsr_tensor`` of shape (3 n_rows, 3 n_cols) on device.
+    BSR wants sorted, unique columns in a row, so the blocks of a repeated
+    position are summed."""
+    keys, inv = np.unique(np.asarray(rows, np.int64) * n_cols + cols,
+                          return_inverse=True)
+    summed = np.zeros((len(keys), 3, 3), blocks.dtype)
+    np.add.at(summed, inv.reshape(-1), blocks)
+    crow = np.concatenate([[0], np.cumsum(np.bincount(keys // n_cols,
+                                                      minlength=n_rows))])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # BSR support is "beta"
+        return torch.sparse_bsr_tensor(
+            torch.tensor(crow), torch.tensor(keys % n_cols),
+            torch.tensor(summed), size=(3 * n_rows, 3 * n_cols),
+            device=device, check_invariants=True)
+
+
 def bsr_matrix(op: RowOp):
     """op as a ``torch.sparse_bsr_tensor`` of shape (3N, 3S) with 3x3
     blocks, on op's device: the library call that computes K2's product,
     ``bsr_matrix(op) @ x_t.T.reshape(3S)``, is K2's yardstick and nothing
     else (the port never calls it).  With a vector PyTorch dispatches to
     cuSPARSE's BSR matrix-vector product; a (3S, 1) matrix operand takes a
-    slower gather and cuBLAS GEMV path instead.  BSR wants sorted, unique columns in a
-    row, so the blocks of repeated columns (RowOp's zero padding repeats a
-    valid one) are summed."""
+    slower gather and cuBLAS GEMV path instead.  RowOp's zero padding
+    repeats a valid column, and is summed into it."""
     cols, vals = op.tables()
     cols = cols.T.cpu().numpy().astype(np.int64)            # (N, D)
     vals = vals.permute(3, 0, 1, 2).cpu().numpy()           # (N, D, 3, 3)
-    N, S = op.n_out, op.n_src
-    keys, inv = np.unique((np.arange(N)[:, None] * S + cols).ravel(),
-                          return_inverse=True)
-    blocks = np.zeros((len(keys), 3, 3), vals.dtype)
-    np.add.at(blocks, inv, vals.reshape(-1, 3, 3))
-    crow = np.concatenate([[0], np.cumsum(np.bincount(keys // S,
-                                                      minlength=N))])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")          # BSR support is "beta"
-        return torch.sparse_bsr_tensor(
-            torch.tensor(crow), torch.tensor(keys % S), torch.tensor(blocks),
-            size=(3 * N, 3 * S), device=op.vals_t.device,
-            check_invariants=True)
+    N, D = cols.shape
+    return _bsr_tensor(np.repeat(np.arange(N), D), cols.reshape(-1),
+                       vals.reshape(-1, 3, 3), N, op.n_src,
+                       op.vals_t.device)
+
+
+def stencil_bsr_matrix(op: StencilOperator):
+    """The function of K1's zero-round apply on op, z = -(D^-1 A) x, as a
+    ``torch.sparse_bsr_tensor`` of shape (3E, 3E), E = C U, on op's device:
+    the premultiplied blocks, negated (-I on the diagonal, -Fp across the
+    faces inside a macro, -Xp across the strips), in the flat order
+    (c U + u) 3 + i of ``x_t.reshape(3, E).T``.  The library call
+    ``stencil_bsr_matrix(op) @ x`` (cuSPARSE's BSR matrix-vector product)
+    is the zero-round apply's yardstick and nothing else (the port never
+    calls it)."""
+    C, U, E = op.C, op.U, op.C * op.U
+    Fp = op.Fp_t.cpu().numpy()                              # (3f,3i,3j,C,U)
+    child_rows = np.arange(E).reshape(C, U)                 # e = c U + u
+    face_cols = (op.intra_rows.cpu().numpy().astype(np.int64)[:, :, None]
+                 * U + np.arange(U))                        # (3f, C, U)
+    rows = [np.arange(E), np.broadcast_to(child_rows, (3, C, U)).reshape(-1)]
+    cols = [np.arange(E), face_cols.reshape(-1)]
+    blocks = [np.broadcast_to(np.eye(3, dtype=Fp.dtype), (E, 3, 3)),
+              Fp.transpose(0, 3, 4, 1, 2).reshape(-1, 3, 3)]
+    if op.nb:
+        bnd_c = op.bnd_c.cpu().numpy().astype(np.int64)     # (nb,)
+        rows.append((bnd_c[:, None] * U + np.arange(U)).reshape(-1))
+        cols.append(op.src_cu.cpu().numpy().astype(np.int64).reshape(-1))
+        blocks.append(op.Xp_t.cpu().numpy().transpose(2, 3, 0, 1)
+                      .reshape(-1, 3, 3))
+    return _bsr_tensor(np.concatenate(rows), np.concatenate(cols),
+                       -np.concatenate(blocks), E, E, op.Fp_t.device)
 
 
 def kernel_class(name: str) -> str:
@@ -225,10 +273,14 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_solver(device) -> semi.SemiSolver:
-    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.05, ntime=1,
-                     n_multigrid=1, coarse_agg=False, coarse_cheb_degree=8,
-                     coarse_cheb_lower=0.02, coarse_pack=4)
+def bench_solver(device, **kw) -> semi.SemiSolver:
+    """``bench.py``'s geometric configuration on its stand-in mesh
+    (393,216 DOF); ``kw`` overrides SemiConfig fields (``stencil_probe``:
+    the blocks probed from apply_A)."""
+    cfg = SemiConfig(**{**dict(
+        n_split=2, multi_levels=2, dt=0.05, ntime=1, n_multigrid=1,
+        coarse_agg=False, coarse_cheb_degree=8, coarse_cheb_lower=0.02,
+        coarse_pack=4), **kw})
     return semi.SemiSolver(semi.build_problem(
         structured.tri_mesh(128, 32, 3 / 128, 1 / 128), cfg), device)
 
@@ -301,6 +353,24 @@ THETA_ARGS = CLI_MAIN + ["--theta", "0.5"]
 MODE6_N = 256
 MODE6_ARGS = ["--mode", "6", "--u", "1", "0", "--theta", "0.5", "--ntime",
               "2"]
+
+
+# The solver menu and the non-stencil path (modes 9): the reference's
+# active configuration (point Jacobi, omega 0.8, no surface terms, the
+# corner-average restrictor) at 393,216 DOF; colored Gauss-Seidel and
+# Richardson with surface terms on the geometric CLI path, at the omegas
+# of the JAX package's tests/test_semi.py; Chebyshev through the fused
+# operator at n_split 7 (8 macros of C = 16,384, 393,216 DOF)
+REFERENCE9_ARGS = ["--mode", "9", "--rows", "128", "--cols", "32",
+                   "--n-split", "2", "--levels", "2", "--solver", "jacobi",
+                   "--omega", "0.8", "--no-surface-terms", "--restrictor",
+                   "corner_average", "--n-multigrid", "6", "--ntime", "2"]
+GS_ARGS = CLI_MAIN + ["--solver", "gauss_seidel", "--omega", "0.5"]
+RICHARDSON_ARGS = CLI_MAIN + ["--solver", "richardson", "--omega", "0.01"]
+NSPLIT7_ARGS = ["--mode", "9", "--rows", "2", "--cols", "2", "--n-split",
+                "7", "--levels", "3", "--ntime", "2"]
+# mode 1 at width: 200 x 1024 quads (819,200 DOF), 714 steps
+MODE1_ARGS = ["--mode", "1", "--rows", "200", "--cols", "1024"]
 
 
 def painted_mesh(n: int):
@@ -399,7 +469,12 @@ def step_profiles(device, steps: int = 3) -> dict:
         "mode7": lambda: cli_solver(device, MODE7_ARGS),
         "mode9_bicgstab": lambda: cli_solver(device, BICGSTAB_ARGS),
         "mode9_theta_half": lambda: cli_solver(device, THETA_ARGS),
-        "mode6": lambda: transport_solver(device, painted_mesh(MODE6_N))}
+        "mode6": lambda: transport_solver(device, painted_mesh(MODE6_N)),
+        "mode9_reference_jacobi": lambda: cli_solver(device,
+                                                     REFERENCE9_ARGS),
+        "mode9_gauss_seidel": lambda: cli_solver(device, GS_ARGS),
+        "mode9_richardson": lambda: cli_solver(device, RICHARDSON_ARGS),
+        "mode9_n_split7": lambda: cli_solver(device, NSPLIT7_ARGS)}
     for name, make in makers.items():
         sv = make()
         T0 = sv.initial_condition()
@@ -409,7 +484,7 @@ def step_profiles(device, steps: int = 3) -> dict:
             T0_t = to_t(T0)
             fn = lambda: sv._step_t(T0_t)
         out[name] = window_profile(fn, steps, window=1)
-        out[name].update(dof=3 * sv.ops[0].C * sv.ops[0].U,
+        out[name].update(dof=3 * sv.p.levels[0]["C"] * sv.p.num_macro,
                          krylov_iterations=sorted(set(sv.krylov_iters)))
     solver = direct_solver(device)
     T0 = solver.initial_condition()
@@ -417,14 +492,49 @@ def step_profiles(device, steps: int = 3) -> dict:
         lambda: semi_assembled.direct_step(solver, T0), steps, window=1)
     out["mode8"].update(dof=3 * solver.ops[0].C * solver.ops[0].U,
                         krylov_iterations=[])
+    step, T0 = rect_step(device)
+    out["mode1"] = window_profile(lambda: step(T0), steps, window=1)
+    out["mode1"].update(dof=T0.numel(), krylov_iterations=[])
     return out
 
 
+def apply_profiles(device, reps: int = 50) -> dict:
+    """``phase_profile`` of the zero-round K1 apply (one round: z) on each
+    level of the reference's Jacobi configuration (REFERENCE9_ARGS: C = 16
+    and 4, U = 8192), the operator apply of the point smoothers, with the
+    apply's own least bytes (x in, z out) and the device time of the
+    library call that computes the same z, ``stencil_bsr_matrix(op) @ x``."""
+    sv = cli_solver(device, REFERENCE9_ARGS)
+    out = {}
+    for li, op in enumerate(sv.ops):
+        r = out[f"ref9_L{li}"] = phase_profile(op, rounds=1, planes=2)
+        A = stencil_bsr_matrix(op)
+        xv = torch.randn(A.shape[1], generator=torch.Generator().manual_seed(
+            0)).to(device)
+        lib = _trace(lambda: A @ xv, reps)
+        r.update(library_us=sum(d for _, _, d in lib) / reps,
+                 library_kernels=sorted({name for name, _, _ in lib}))
+    return out
+
+
+def rect_step(device, argv=MODE1_ARGS):
+    """(step, T0): mode 1's step on the problem the CLI builds from
+    ``argv`` (no --device), on ``device``, and its initial box."""
+    from .. import __main__ as cli
+    from ..config import RectConfig
+    from ..models import transport_rect
+    args, _ = cli._parse(list(argv) + ["--device", str(device)])
+    problem = transport_rect.build_problem(RectConfig(
+        no_ele_row=args.rows, no_ele_col=args.cols), device)
+    step, _ = transport_rect.make_step(problem)
+    return step, transport_rect.initial_condition(problem)
+
+
 def phase_profile(op: StencilOperator, rounds: int = 7, reps: int = 20,
-                  tier: str | None = None) -> dict:
+                  tier: str | None = None, planes: int = 4) -> dict:
     """Device time of one K1 launch on op, in ``tier`` when given: a phase
     of ``rounds`` rounds with z (coef 0, so the state stays finite), beside
-    its least bytes and bound."""
+    its least bytes (``least_bytes`` with ``planes``) and bound."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn((3, op.C, op.U), generator=g).to(op.Fp_t.device)
     bp = torch.randn((3, op.C, op.U), generator=g).to(op.Fp_t.device)
@@ -436,7 +546,7 @@ def phase_profile(op: StencilOperator, rounds: int = 7, reps: int = 20,
     kernels = [k for k in _trace(run, reps)
                if kernel_class(k[0]) == "k1_phase"]
     dev_us = sum(d for _, _, d in kernels) / reps
-    nbytes = least_bytes(op, x.element_size())
+    nbytes = least_bytes(op, x.element_size(), planes)
     return {"C": op.C, "U": op.U, "nb": op.nb, "rounds": rounds,
             "tier": K.KERNEL.plan(op, tier).tier,
             "device_us_per_phase": dev_us,
@@ -519,10 +629,17 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     if args.steps:
         out = {"device": torch.cuda.get_device_name(0),
-               "steps": step_profiles(dev)}
+               "steps": step_profiles(dev),
+               "applies": apply_profiles(dev)}
         for name, v in out["steps"].items():
             _print_vcycle(f"{name} step ({v['dof']} DOF, Krylov iterations "
                           f"{v['krylov_iterations']})", v)
+        for name, r in out["applies"].items():
+            print(f"zero-round apply {name}: C {r['C']} U {r['U']} "
+                  f"{r['tier']} {r['device_us_per_phase']:.2f} us device, "
+                  f"{r['wall_us_per_phase']:.2f} us wall, bound "
+                  f"{r['bound_us']:.2f} us, library {r['library_us']:.2f} "
+                  f"us {r['library_kernels']}")
         return _emit(out, args.out)
     bench, cli, amg = bench_solver(dev), cli_solver(dev), amg_solver(dev)
     sweep6, deep_amg = sweep_solver(dev, 6), deep_amg_solver(dev)

@@ -1,9 +1,10 @@
 """Quadrature tables for triangles and edges (host-side numpy).
 
-Copy of the JAX package's ``utils/quadrature.py`` rules that the slice
+Copy of the JAX package's ``utils/quadrature.py`` rules that the port
 uses: triangle rules return barycentric points ``(ngi, 3)`` and weights
 summing to 1; the edge rule is Gauss-Legendre on ``[-1, 1]`` with weights
-summing to 2.
+summing to 2; ``gauss_01`` is Gauss-Legendre on ``[0, 1]`` (the quads of
+mode 1).
 """
 
 from __future__ import annotations
@@ -67,3 +68,9 @@ def edge_rule(sngi: int) -> tuple[np.ndarray, np.ndarray]:
     """Gauss-Legendre points (sngi,) on [-1,1] and weights summing to 2."""
     x, w = np.polynomial.legendre.leggauss(sngi)
     return x.astype(_F), w.astype(_F)
+
+
+def gauss_01(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Gauss-Legendre on [0,1] (tensor-product quad elements)."""
+    x, w = np.polynomial.legendre.leggauss(n)
+    return (0.5 * (x + 1.0)).astype(_F), (0.5 * w).astype(_F)

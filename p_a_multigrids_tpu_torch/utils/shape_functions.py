@@ -1,7 +1,8 @@
-"""P1 triangle and edge shape-function tables (host-side numpy).
+"""P1 triangle, edge and bilinear quad shape-function tables (host-side
+numpy).
 
 Copy of the JAX package's ``utils/shape_functions.py`` for the triangle
-element.  Face f of a triangle is the edge ``TRI_FACE_NODES[f] = (a, b)``:
+element and the quad of mode 1.  Face f of a triangle is the edge ``TRI_FACE_NODES[f] = (a, b)``:
 face0 = (0, 2), face1 = (2, 1), face2 = (1, 0), 0-based volume nodes.
 """
 
@@ -55,3 +56,46 @@ def tri_face_tables(ngi: int = 3, sngi: int = 2):
         face_sn2[f, :, b] = sn[:, 1]
     return {"face_sn": face_sn, "face_sn2": face_sn2, "sweight": sw,
             "sn_orig": sn}
+
+
+def quad_bilinear(ngi_1d: int = 2):
+    """Bilinear quad by tensor-product Gauss, local nodes at (0,0), (1,0),
+    (0,1), (1,1) of the unit square.
+
+    Returns (n (ngi, 4), nlx (ngi, 2, 4), weight (ngi,), face_tables) with
+    face_tables: face_sn / face_sn2 (4, sngi, 4), sweight and face_nodes
+    (faces 0=bottom, 1=right, 2=top, 3=left, endpoints counter-clockwise).
+    """
+    x, w = quadrature.gauss_01(ngi_1d)
+    ngi = ngi_1d * ngi_1d
+
+    def n1(x):                                          # 1-D P1 on [0,1]
+        return np.stack([1.0 - x, x], axis=-1)
+
+    def d1(x):
+        return np.stack([-np.ones_like(x), np.ones_like(x)], axis=-1)
+
+    gx, gy = np.meshgrid(x, x, indexing="ij")
+    gx, gy = gx.ravel(), gy.ravel()
+    wx, wy = np.meshgrid(w, w, indexing="ij")
+    weight = (wx * wy).ravel()
+    nx_, ny_, dx_, dy_ = n1(gx), n1(gy), d1(gx), d1(gy)
+    order = [(0, 0), (1, 0), (0, 1), (1, 1)]
+    n = np.zeros((ngi, 4), _F)
+    nlx = np.zeros((ngi, 2, 4), _F)
+    for k, (i, j) in enumerate(order):
+        n[:, k] = nx_[:, i] * ny_[:, j]
+        nlx[:, 0, k] = dx_[:, i] * ny_[:, j]
+        nlx[:, 1, k] = nx_[:, i] * dy_[:, j]
+
+    face_nodes = np.asarray([[0, 1], [1, 3], [3, 2], [2, 0]], np.int32)
+    sx, sw = quadrature.gauss_01(ngi_1d)
+    sn1 = n1(sx)                                        # (sngi, 2)
+    face_sn = np.zeros((4, ngi_1d, 4), _F)
+    for f in range(4):
+        a, b = face_nodes[f]
+        face_sn[f, :, a] = sn1[:, 0]
+        face_sn[f, :, b] = sn1[:, 1]
+    ft = {"face_sn": face_sn, "face_sn2": face_sn.copy(),
+          "sweight": 2.0 * sw, "face_nodes": face_nodes}
+    return n, nlx, weight, ft

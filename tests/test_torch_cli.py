@@ -1,6 +1,6 @@
-"""The port's CLI == the JAX package's CLI (float64, CPU) in modes 2-10;
-flags and modes the port lacks exit with a message; the port runs with jax
-blocked."""
+"""The port's CLI == the JAX package's CLI (float64, CPU) in modes 1-10
+and with every --solver; flags the port lacks exit with a message; the
+port runs with jax blocked."""
 
 import json
 import pathlib
@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,6 +43,12 @@ def _cli_matches_jax(argv, capsys):
     return got
 
 
+# the reference's active mode-9 configuration
+REFERENCE_MODE9 = ["--solver", "jacobi", "--omega", "0.8",
+                   "--no-surface-terms", "--restrictor", "corner_average",
+                   "--n-multigrid", "6"]
+
+
 @pytest.mark.parametrize("extra", [[], ["--krylov", "--dt", "1e8"]],
                          ids=["vcycle", "pcg"])
 def test_cli_matches_jax(extra, capsys):
@@ -74,20 +81,56 @@ def test_sa_cli_matches_jax(argv, capsys):
     ["--mode", "10", "--rows", "4", "--cols", "4", "--dt", "0.05"],
     SMALL + ["--theta", "0.5"],
     SMALL + ["--krylov", "--u", "1", "0", "--dt", "0.01"],
+    # mode 1 (the moving box) and the solver menu of mode 9
+    ["--mode", "1", "--rows", "40", "--cols", "2"],
+    SMALL + REFERENCE_MODE9,
+    SMALL + ["--solver", "gauss_seidel", "--omega", "0.5"],
 ], ids=["mode2", "mode3", "mode6_u", "mode7", "mode8", "mode10",
-        "mode9_theta", "mode9_bicgstab"])
+        "mode9_theta", "mode9_bicgstab", "mode1", "mode9_reference",
+        "mode9_gauss_seidel"])
 def test_modes_cli_matches_jax(argv, capsys):
     got = _cli_matches_jax(argv, capsys)
     if "--u" in argv and "--krylov" in argv:
         assert all(it > 0 for it in got["krylov_iterations"])
 
 
+def test_n_split7_cli_matches_recorded_jax():
+    """The non-stencil path at n_split 7 (2 macros of C = 16,384, 98,304
+    DOF) on the port's CLI == the JAX CLI's values, recorded from
+    ``python -m p_a_multigrids_tpu --mode 9 --n-split 7 --rows 1 --cols 1
+    --levels 2 --ntime 1 --cpu --f64`` (it takes about 25 s there, too long
+    to rerun here; tests/test_torch_semi.py holds the same code at n_split
+    2 through stencil_operator=False against the live JAX package)."""
+    got = tcli.main(["--mode", "9", "--n-split", "7", "--rows", "1",
+                     "--cols", "1", "--levels", "2", "--ntime", "1",
+                     "--cpu", "--f64"])
+    assert got["children"] == 16384 and got["elements"] == 2
+    assert got["residual_history"] == pytest.approx([0.5774056933010983],
+                                                    rel=1e-9)
+    assert got["L1_error"] == pytest.approx(0.7638581222497288, rel=1e-9)
+
+
+def test_jax_only_flags_parse(capsys):
+    """--cpu is --device cpu; --checkpoint-every and --dist-ghost-frac
+    parse (they matter only beside --checkpoint and --devices): a JAX
+    command line that uses them runs and prints the same keys."""
+    plain = tcli.main(SMALL + ["--device", "cpu"])
+    got = tcli.main(SMALL + ["--cpu", "--checkpoint-every", "5",
+                             "--dist-ghost-frac", "0.3"])
+    capsys.readouterr()
+    assert set(got) == set(plain)
+    assert got["residual_history"] == plain["residual_history"]
+
+
 @pytest.mark.parametrize("argv", [
-    ["--mode", "1"], ["--solver", "richardson"], ["--mesh", "m.geo"],
+    ["--mesh", "m.geo"],
     ["--vtu", "o.vtu"], ["--vtk-interval", "2"], ["--checkpoint", "c.npz"],
     ["--ic", "x"], ["--bc", "x"], ["--source", "x"], ["--debug"],
-    ["--devices", "2"], ["--solver", "gauss_seidel"],
-    ["--solver", "jacobi"], ["--analytical", "x"],
+    ["--devices", "2"], ["--analytical", "x"],
+    ["--profile", "p.json"], ["--checkpoint", "c.npz", "--checkpoint-every",
+                              "2"],
+    ["--devices", "2", "--dist-ghost-frac", "0.5"],
+    ["--mode", "10", "--vtu", "o.vtu"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_unported_flags_exit_with_message(argv):
     with pytest.raises(SystemExit) as exc:
@@ -102,21 +145,27 @@ def test_cuda_device_without_card_exits():
         tcli.main(SMALL)
 
 
-def test_runs_with_jax_blocked():
+@pytest.mark.parametrize("extra,mode", [
+    ([], 9), (["--solver", "jacobi"], 9), (["--mode", "1"], 1)],
+    ids=["mode9", "mode9_jacobi", "mode1"])
+def test_runs_with_jax_blocked(extra, mode):
     """Importing and running the port never touches jax or the JAX
     package."""
+    argv = ["--rows", "2", "--cols", "2", "--n-split", "1", "--levels", "2",
+            "--ntime", "1", "--device", "cpu"] + extra
     code = (
         "import sys, json\n"
         "sys.modules['jax'] = None\n"
         "from p_a_multigrids_tpu_torch import __main__ as cli\n"
-        "out = cli.main(['--rows', '2', '--cols', '2', '--n-split', '1',"
-        " '--levels', '2', '--ntime', '1', '--device', 'cpu'])\n"
-        "assert 'p_a_multigrids_tpu' not in sys.modules\n"
-        "assert out['L1_error'] == out['L1_error']\n")
+        f"out = cli.main({argv!r})\n"
+        "assert 'p_a_multigrids_tpu' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert json.loads(res.stdout.strip().splitlines()[-1])["mode"] == 9
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["mode"] == mode
+    key = "t_range" if mode == 1 else "L1_error"
+    assert all(v == v for v in np.atleast_1d(out[key]))
 
 
 def test_sources_free_of_jax():

@@ -281,3 +281,49 @@ def test_bicgstab_step_on_the_card_matches_cpu(cuda):
     assert abs(gpu.krylov_iters[0] - cpu.krylov_iters[0]) <= 1
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "gauss_seidel"])
+def test_point_smoother_step_on_the_card_matches_cpu(cuda, solver):
+    """A V-cycle step with point Jacobi or colored Gauss-Seidel smoothing
+    on the card (each operator apply one zero-round K1 launch: n_smooth
+    a pre- and post-smoothing, two for GS, plus the residual) against the
+    same step on the CPU, both float32: 1e-4 of the largest value."""
+    from p_a_multigrids_tpu_torch.config import Solver
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+    cfg = SemiConfig(n_split=2, multi_levels=2, dt=0.05, n_multigrid=1,
+                     solver=Solver(solver), omega=0.5)
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    gpu, cpu = (semi.SemiSolver(semi.build_problem(mesh, cfg), d)
+                for d in (cuda, "cpu"))
+    assert gpu.stencil and not gpu.phase_cycle
+    T_t = to_t(cpu.initial_condition())
+    n0, r0 = K.KERNEL.launches, K.KERNEL.rounds
+    got = gpu._step_t(T_t.to(cuda))
+    torch.cuda.synchronize()
+    # level 0: 2 * n_smooth sweeps and the residual; level 1 is the dense
+    # coarse solve
+    applies = 2 * cfg.n_smooth * (2 if solver == "gauss_seidel" else 1) + 1
+    assert K.KERNEL.launches - n0 == applies
+    assert K.KERNEL.rounds - r0 == applies       # zero-round: the z round
+    want = cpu._step_t(T_t)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def test_mode1_step_on_the_card_matches_cpu(cuda):
+    """Mode 1's step (plain PyTorch, no kernel) on the card against the
+    CPU, both float32, from the initial box: 1e-5 of the largest value."""
+    from p_a_multigrids_tpu_torch.config import RectConfig
+    from p_a_multigrids_tpu_torch.models import transport_rect
+    cfg = RectConfig(no_ele_row=40, no_ele_col=8)
+    out = []
+    for dev in (cuda, "cpu"):
+        problem = transport_rect.build_problem(cfg, dev)
+        step, _ = transport_rect.make_step(problem)
+        T = transport_rect.initial_condition(problem)
+        for _ in range(5):
+            T = step(T)
+        out.append(T.cpu())
+    assert float((out[0] - out[1]).abs().max()) <= 1e-5 * float(
+        out[1].abs().max())

@@ -38,6 +38,49 @@ def test_least_bytes_at_one_child_counts_no_fp():
         6.10, abs=0.01)
 
 
+@pytest.mark.parametrize("n_split", [0, 2])
+def test_apply_least_bytes_counts_x_in_and_z_out(n_split):
+    """The zero-round apply z = -D^-1 A x needs the coupling blocks, x in
+    and z out: two state planes, 33 floats a child at C > 1 (17.30 MB and
+    5.16 us at C = 16, U = 8192)."""
+    cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05)
+    op = semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(4, 4, 0.25, 0.25), cfg), "cpu").ops[0]
+    phase_bytes = profiling.least_bytes(op, 4)
+    assert profiling.least_bytes(op, 4, planes=2) == \
+        phase_bytes - 2 * 3 * op.C * op.U * 4
+    if n_split == 2:
+        per_macro = profiling.least_bytes(op, planes=2) / op.U
+        assert per_macro == 33 * 16 * 4
+        assert profiling.bound_ms(per_macro * 8192) * 1e3 == pytest.approx(
+            5.16, abs=0.01)
+
+
+@pytest.mark.parametrize("n_split", [0, 1, 2])
+def test_stencil_bsr_matrix_is_the_zero_round_apply(n_split):
+    """The zero-round apply's library yardstick computes the apply's z =
+    -D^-1 A x: the same z as the plain K1 round with bp = 0, and -D^-1 of
+    the level's assembled operator."""
+    from p_a_multigrids_tpu_torch.ops import phase
+    cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05,
+                     dtype="float64")
+    sv = semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(3, 2, 1 / 3, 0.5), cfg), "cpu")
+    op = sv.ops[0]
+    x = torch.tensor(np.random.default_rng(n_split).normal(
+        size=(3, op.C, op.U)))
+    A = profiling.stencil_bsr_matrix(op)
+    E = op.C * op.U
+    assert A.layout == torch.sparse_bsr and A.shape == (3 * E, 3 * E)
+    got = (A @ x.reshape(3, E).T.reshape(-1)).reshape(E, 3).T
+    want = phase.phase_reference(op, x, torch.zeros_like(x), [], True)[1]
+    torch.testing.assert_close(got.reshape(3, op.C, op.U), want,
+                               rtol=1e-12, atol=1e-12)
+    ax = sv._apply_t(0, x)
+    torch.testing.assert_close(-op.mul_self(got.reshape(x.shape)), ax,
+                               rtol=1e-12, atol=1e-12)
+
+
 def test_rowop_least_bytes_counts_tables_and_vectors():
     op = spmv.RowOp(np.zeros((5, 3), np.int64), np.ones((5, 3, 3, 3)), 7,
                     torch.float32, "cpu")
@@ -171,3 +214,31 @@ def test_step_paths_are_the_cli_builds(tmp_path):
     T1 = semi_assembled.direct_step(s8, T0)
     _, T_cli, _ = cli.run(small + ["--ntime", "1", "--device", "cpu"])
     torch.testing.assert_close(T1, T_cli, rtol=0, atol=0)
+
+
+def test_rect_step_is_the_cli_build():
+    """The profiler's mode-1 step is the step the CLI runs."""
+    from p_a_multigrids_tpu_torch import __main__ as cli
+    argv = ["--mode", "1", "--rows", "20", "--cols", "2"]
+    step, T0 = profiling.rect_step("cpu", argv)
+    T = T0
+    for _ in range(3):
+        T = step(T)
+    out, T_cli, _ = cli.run(argv + ["--device", "cpu"])
+    assert out["ntime"] > 3
+    from p_a_multigrids_tpu_torch.config import RectConfig
+    from p_a_multigrids_tpu_torch.models import transport_rect
+    _, T3, _, _ = transport_rect.solve(RectConfig(no_ele_row=20,
+                                                  no_ele_col=2), ntime=3)
+    torch.testing.assert_close(T, T3, rtol=0, atol=0)
+    assert T_cli.shape == T.shape
+
+
+@pytest.mark.parametrize("name,children,stencil", [
+    ("GS_ARGS", 64, True), ("RICHARDSON_ARGS", 64, True)])
+def test_menu_args_build_menu_solvers(name, children, stencil):
+    """The solver menu's profiled command lines build stencil-path solvers
+    that relax with the point smoothers, not the K1 phases."""
+    sv = profiling.cli_solver("cpu", getattr(profiling, name))
+    assert sv.p.levels[0]["C"] == children
+    assert sv.stencil == stencil and not sv.phase_cycle

@@ -1,10 +1,13 @@
 """One solver step of the port == the JAX package's, float64 on the CPU.
 
-The JAX side runs its XLA stencil path (pallas_phase=False); the port runs
-its phase formulation (phase_reference on CPU tensors) and its SA levels
-through rowop_reference.  Steps agree to 1e-11 (theta-schemes and BiCGStab
-included); PCG takes the same number of iterations and reaches the same
-solution to 1e-9.
+The JAX side runs its XLA stencil path (pallas_phase=False), or for the
+point smoothers and the non-stencil path its standard-layout cycle; the
+port runs its phase formulation (phase_reference on CPU tensors), the
+smoothers over the zero-round apply, or the fused operator, and its SA
+levels through rowop_reference.  Steps agree to 1e-11 (theta-schemes,
+BiCGStab, the solver menu and the non-stencil path included); PCG takes the
+same number of iterations and reaches the same solution to 1e-9.  The
+probed stencil equals the closed form blockwise.
 """
 
 import dataclasses
@@ -18,11 +21,13 @@ from p_a_multigrids_tpu import config as jcfg
 from p_a_multigrids_tpu.mesh import structured as jstruct
 from p_a_multigrids_tpu.models import semi as jsemi
 from p_a_multigrids_tpu.ops import krylov as jkrylov
+from p_a_multigrids_tpu.ops import stencil as jstencil
 
 from p_a_multigrids_tpu_torch import config as tcfg
 from p_a_multigrids_tpu_torch import convert
 from p_a_multigrids_tpu_torch.mesh import structured as tstruct
 from p_a_multigrids_tpu_torch.models import semi as tsemi
+from p_a_multigrids_tpu_torch.ops import stencil as tstencil
 from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
 
 MESH = (4, 4, 0.25, 0.25)                   # U = 32
@@ -63,16 +68,46 @@ CASES = {
     "bicgstab": dict(n_split=2, multi_levels=2, advect=True, krylov=True),
     "bicgstab_theta_half": dict(n_split=2, multi_levels=2, advect=True,
                                 krylov=True, theta=0.5),
+    # the solver menu on the stencil path, with the omegas of the JAX
+    # package's tests/test_semi.py (point relaxation of the SIP operator
+    # needs a smaller omega than block relaxation)
+    "jacobi": dict(n_split=2, multi_levels=2, solver="jacobi", omega=0.5),
+    "richardson": dict(n_split=2, multi_levels=2, solver="richardson",
+                       omega=0.01),
+    "gauss_seidel": dict(n_split=2, multi_levels=2, solver="gauss_seidel",
+                         omega=0.5),
+    # without surface terms no element couples to another: GS is Jacobi
+    "gauss_seidel_no_surface": dict(n_split=2, multi_levels=2,
+                                    solver="gauss_seidel", surface=False),
+    # direct relaxes as Jacobi
+    "direct": dict(n_split=2, multi_levels=2, solver="direct", omega=0.5),
+    # the reference's active mode-9 configuration (tests/test_semi.py)
+    "reference_mode9": dict(n_split=2, multi_levels=2, dt=1.25e-5,
+                            n_multigrid=6, solver="jacobi",
+                            restrictor="corner_average", surface=False),
+    # the non-stencil path: the fused operator (or apply_A) with exact
+    # block inverses; the dense coarse inverse from apply_A's columns
+    "non_stencil_chebyshev": dict(n_split=2, multi_levels=1,
+                                  stencil_operator=False, cheb_degree=3),
+    "non_stencil_block_jacobi": dict(n_split=2, multi_levels=2,
+                                     stencil_operator=False,
+                                     solver="block_jacobi"),
+    "no_fast_operator": dict(n_split=1, multi_levels=2,
+                             stencil_operator=False, fast_operator=False,
+                             advect=True),
+    # the stencil probed from apply_A instead of the closed form
+    "stencil_probe": dict(n_split=2, multi_levels=2, stencil_probe=True),
 }
 
 
-def _pair(dt=0.05, advect=False, solver=None, **kw):
+def _pair(dt=0.05, advect=False, solver=None, surface=True, **kw):
     """(JAX solver, port solver) on the same mesh and configuration."""
     u = (0.4, -0.2) if advect else (0.0, 0.0)
     kw = dict(dict(dt=dt, dtype="float64", ntime=1), **kw)
     jc = jcfg.SemiConfig(pallas_phase=False, physics=jcfg.Physics(
-        advection=advect, u=u), **kw)
-    tc = tcfg.SemiConfig(physics=tcfg.Physics(advection=advect, u=u), **kw)
+        advection=advect, u=u, surface_terms=surface), **kw)
+    tc = tcfg.SemiConfig(physics=tcfg.Physics(
+        advection=advect, u=u, surface_terms=surface), **kw)
     if solver:
         jc = dataclasses.replace(jc, solver=jcfg.Solver(solver))
         tc = dataclasses.replace(tc, solver=tcfg.Solver(solver))
@@ -88,13 +123,24 @@ def _state(js, seed=0):
     return np.random.default_rng(seed).normal(size=(3, C, U))
 
 
+def _jax_step_t(js, T_t):
+    """The JAX solver's step of a transposed state: its transposed step
+    where it runs the transposed cycle, else its standard-layout step."""
+    if js._use_t_cycle:
+        return np.asarray(js._step_t(jnp.asarray(T_t)))
+    return np.asarray(js._step(jnp.asarray(T_t.transpose(2, 1, 0)))
+                      ).transpose(2, 1, 0)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_step_matches_jax(case):
     js, ts = _pair(**CASES[case])
     T_t = _state(js)
-    want = np.asarray(js._step_t(jnp.asarray(T_t)))
+    want = _jax_step_t(js, T_t)
     got = ts._step_t(torch.tensor(T_t)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)
+    assert ts.stencil == (js._stencil is not None)
+    assert ts.phase_cycle == js._use_t_cycle
     if case == "coarse_pack4":
         assert js._pack == [1, 4]           # JAX packed; the port need not
     assert (ts.agg is None) == (js._agg is None)
@@ -212,14 +258,89 @@ def test_solver_from_numpy_carries_agg(case):
         atol=1e-11)
 
 
+def test_direct_relaxes_as_jacobi():
+    """--solver direct falls through to Jacobi: the same step bit for
+    bit."""
+    _, tj = _pair(n_split=2, multi_levels=2, solver="jacobi", omega=0.5)
+    _, td = _pair(n_split=2, multi_levels=2, solver="direct", omega=0.5)
+    T_t = torch.tensor(_state(tj))
+    assert torch.equal(tj._step_t(T_t), td._step_t(T_t))
+
+
+def test_jacobi_amg_pcg_matches_jax():
+    """Point Jacobi under the SA correction (stored transfers, as the JAX
+    package's standard-layout cycle runs them) preconditioning PCG."""
+    js, ts = _pair(n_split=2, multi_levels=1, amg=True, agg_strength=0.5,
+                   agg_dense_max_dof=128, solver="jacobi", omega=0.5,
+                   krylov=True, krylov_tol=1e-8)
+    assert ts.agg is not None and js._agg is not None
+    T_t = _state(js, 6)
+    want = _jax_step_t(js, T_t)
+    got = ts._step_t(torch.tensor(T_t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("case", ["non_stencil_chebyshev",
+                                  "non_stencil_block_jacobi"])
+def test_non_stencil_solver_from_numpy(case):
+    """The port's non-stencil solver built from the JAX solver's host
+    arrays (_lam_max, _block_inv, the dense coarse inverse) runs the same
+    step as the port's own setup and as JAX."""
+    js, ts = _pair(**CASES[case])
+    conv = convert.solver_from_numpy(
+        ts.cfg, js.p.levels, None, getattr(js, "_lam_max", None),
+        None if js._coarse_inv is None else np.asarray(js._coarse_inv),
+        np.asarray(js.p.analytical), "cpu",
+        grid=js.p.grid, coords_fine=js.p.coords_fine,
+        block_inv=[np.asarray(B) for B in js._block_inv])
+    T_t = _state(js, 8)
+    got = conv._step_t(torch.tensor(T_t)).numpy()
+    np.testing.assert_allclose(got, ts._step_t(torch.tensor(T_t)).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got, _jax_step_t(js, T_t), rtol=1e-11,
+                               atol=1e-11)
+
+
+PROBE_PHYSICS = {
+    "diffusion": dict(),
+    "advect_diffuse": dict(advection=True, u=(0.7, -0.3)),
+    "no_surface": dict(surface_terms=False),
+    "penalty_only": dict(sip_consistency=False),
+}
+
+
+@pytest.mark.parametrize("phys", list(PROBE_PHYSICS))
+def test_probe_stencil_equals_closed_form(phys):
+    """probe_stencil (the port's apply_A probed) == build_stencil blockwise
+    and == the JAX package's probe, as tests/test_stencil.py holds the JAX
+    closed form to its probe (a no-flux top wall under advection)."""
+    kw = dict(n_split=2, multi_levels=1, dt=0.05, dtype="float64")
+    jfns, tfns = jcfg.ProblemFns(), tcfg.ProblemFns()
+    if phys == "advect_diffuse":
+        jfns.neumann = tfns.neumann = lambda x, y: y > 0.8
+    jc = jcfg.SemiConfig(physics=jcfg.Physics(**PROBE_PHYSICS[phys]),
+                         fns=jfns, **kw)
+    tc = tcfg.SemiConfig(physics=tcfg.Physics(**PROBE_PHYSICS[phys]),
+                         fns=tfns, **kw)
+    jL = jsemi.build_problem(jstruct.tri_mesh(*MESH), jc).levels[0]
+    tL = tsemi.build_problem(tstruct.tri_mesh(*MESH), tc).levels[0]
+    probed = tstencil.probe_stencil(tL, tc.physics, tc.dt, tc.theta)
+    exact = tstencil.build_stencil(tL, tc.physics, tc.dt, tc.theta)
+    jprobed = jstencil.probe_stencil(jL, jc.physics, jc.dt, jc.theta)
+    for field in ("self_blocks", "face_blocks", "cross_blocks", "c_aff"):
+        for want in (exact, jprobed):
+            np.testing.assert_allclose(
+                getattr(probed, field), getattr(want, field), rtol=1e-11,
+                atol=1e-12, err_msg=field)
+    for field in ("halo_src", "bnd_c", "bnd_f", "intra_onehot",
+                  "cross_onehot"):
+        np.testing.assert_array_equal(getattr(probed, field),
+                                      getattr(exact, field))
+
+
 @pytest.mark.parametrize("kw", [
-    dict(solver=tcfg.Solver.RICHARDSON),
-    dict(solver=tcfg.Solver.JACOBI),
-    dict(solver=tcfg.Solver.GAUSS_SEIDEL),
-    dict(stencil_operator=False),
     dict(debug=True),
-], ids=["richardson", "jacobi", "gauss_seidel", "non_stencil",
-        "debug"])
+], ids=["debug"])
 def test_unported_paths_raise(kw):
     cfg = tcfg.SemiConfig(n_split=1, multi_levels=2, dt=0.05, **kw)
     problem = tsemi.build_problem(tstruct.tri_mesh(*MESH), cfg)

@@ -136,10 +136,11 @@ def test_penalty_dx_path():
 def test_config_defaults_match():
     """Every field of the port is the JAX package's, with its default, so
     one set of the port's kwargs configures both (the port leaves out the
-    fields of paths it does not run yet)."""
+    fields of paths it does not run yet); RectConfig has them all."""
     for jc, tc in ((jcfg.SemiConfig(), tcfg.SemiConfig()),
                    (jcfg.Physics(), tcfg.Physics()),
-                   (jcfg.ProblemFns(), tcfg.ProblemFns())):
+                   (jcfg.ProblemFns(), tcfg.ProblemFns()),
+                   (jcfg.RectConfig(), tcfg.RectConfig())):
         jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
         for d in (jd, td):
             d.pop("physics", None)
@@ -147,3 +148,6 @@ def test_config_defaults_match():
             if "solver" in d:
                 d["solver"] = d["solver"].value
         assert td == {k: jd[k] for k in td}
+    assert (dataclasses.asdict(tcfg.RectConfig())
+            == dataclasses.asdict(jcfg.RectConfig()))
+    assert tcfg.SemiConfig().fast_operator is True
