@@ -49,9 +49,24 @@ closed form and one V-cycle through K1 against the analytic one; (e) mode
 1 at the reference's 200 x 1 quads and at 200 x 1024 (819,200 DOF), with
 the moving box's centre of mass and mass.  Each path prints its launches
 by kernel, ms a step by CUDA events and its history beside the JAX
-package's f32 values and the port's CPU run.  Every phase prints its
-numbers; any failure raises and the script exits non-zero.  The last line
-is
+package's f32 values and the port's CPU run.
+
+Then user-defined problems (slice 7): the CLI's mode 9 at 393,216 DOF with
+--ic/--bc/--source/--analytical expressions that build the manufactured
+problem, geometric and with --amg --krylov, each equal bit for bit to the
+built-in problem with the same launches; a .geo annulus meshed by mesh_geo
+(2,048 macros, 393,216 DOF at n_split 3) through the CLI with PCG, its
+V-cycle history held to the JAX package's pin on the same mesh; every
+other history pin of validation/history_pins.json on the card (the bench
+stand-in, the .geo square at n_split 4 in K3's regime, the amg pins);
+checkpoint and resume (4 steps straight against 2 + 2, bit for bit) and a
+--vtk-interval series read back at full width; and the sanitizer: the
+checked builds of K1 and K2 under --debug (the same launches and bits as
+the unchecked run, their device time beside the unchecked one, a NaN
+initial condition and one index set out of range by hand in a K1 and a K2
+operator each raising from the kernels' error record).  Every phase prints
+its numbers; any failure raises and the script exits non-zero.  The last
+line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -223,6 +238,17 @@ MODE1_CLI = {"ntime": 714, "dt": 0.35,
 MODE1_GATE = 5e-6
 # steps of the width run held to the port's plain path on the CPU
 MODE1_CPU_STEPS = 20
+# The user-defined problem through the CLI (slice 7) on the bench stand-in,
+# 393,216 DOF: these expressions build the built-in manufactured problem
+# (source 2*k*sin(x+y) with k = 1, the zero initial condition of a mesh
+# with no region 4), so each run must equal the built-in run bit for bit
+USER_BASE = ["--mode", "9", "--rows", "128", "--cols", "32", "--n-split",
+             "2", "--levels", "2"]
+USER_EXPR = ["--ic", "0", "--bc", "sin(x+y)", "--source", "2*sin(x+y)",
+             "--analytical", "sin(x+y)"]
+USER_ARGS = USER_BASE + USER_EXPR
+# a NaN initial condition by expression, on the geometric CLI path
+NAN_IC = ["--ic", "sqrt(-1 - x)", "--debug"]
 
 
 def check(cond: bool, what: str):
@@ -283,8 +309,14 @@ def main():
         RICHARDSON_ARGS, SWEEP_MESH, THETA_ARGS, amg_solver, bench_solver,
         cli_solver, deep_amg_solver, bound_ms, bsr_matrix, event_ms,
         least_bytes, painted_mesh, rect_step, rowop_least_bytes,
-        stencil_bsr_matrix, sweep_solver, transport_solver, _trace)
+        stencil_bsr_matrix, sweep_solver, transport_solver, _trace,
+        kernel_class)
     from p_a_multigrids_tpu_torch.validation import analytical, gates, probe
+    from p_a_multigrids_tpu_torch.validation import history as pins_mod
+    from p_a_multigrids_tpu_torch.io import vtu as vtu_mod
+    from p_a_multigrids_tpu_torch.mesh import geo as geo_mesh
+    from p_a_multigrids_tpu_torch.models import semi
+    from p_a_multigrids_tpu_torch.utils.expressions import Expression
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -300,8 +332,10 @@ def main():
         count=torch.cuda.device_count())
     print(card, flush=True)
 
-    # 2. build: one nvcc per kernel source, both started together ----------
-    kernels = {"k1_phase": K.KERNEL, "k2_rowop": K2.KERNEL}
+    # 2. build: one nvcc per kernel library (K1 and K2, each unchecked and
+    # checked), all started together --------------------------------------
+    kernels = {"k1_phase": K.KERNEL, "k2_rowop": K2.KERNEL,
+               "k1_phase_checked": K.CHECKED, "k2_rowop_checked": K2.CHECKED}
     with ThreadPoolExecutor(len(kernels)) as pool:
         for fut in [pool.submit(k.function) for k in kernels.values()]:
             fut.result()
@@ -482,13 +516,18 @@ def main():
 
     def counts_zero():
         K.KERNEL.reset()
-        K2.KERNEL.launches = 0
+        K.CHECKED.reset()
+        K2.KERNEL.launches = K2.CHECKED.launches = 0
 
     def read_counts():
         return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
                 "k1_deep": K.KERNEL.launches_deep,
                 "k1_tiers": {k: v for k, v in K.KERNEL.by_tier.items() if v},
-                "k2_rowop": K2.KERNEL.launches}
+                "k2_rowop": K2.KERNEL.launches,
+                "k1_checked": K.CHECKED.launches,
+                "k1_checked_rounds": K.CHECKED.rounds,
+                "k1_checked_deep": K.CHECKED.launches_deep,
+                "k2_checked": K2.CHECKED.launches}
 
     def drive(args):
         counts_zero()
@@ -707,7 +746,7 @@ def main():
         for _ in range(3):
             A @ xv
         lib_ms = event_ms(lambda: A @ xv, 50)
-        backend = sorted({k for k, _, _ in _trace(lambda: A @ xv, 1)})
+        backend = sorted({k for k, _, _ in _trace(lambda: A @ xv, 5)})
         k2_ms[name] = (ms, plain_ms, bound_ms(rowop_least_bytes(op)), lib_ms)
         say("time", rowop=name, N=op.n_out, D=op.D, S=op.n_src,
             variant=op.variant, lanes=op.lanes, k2_ms=f"{ms:.5f}",
@@ -1161,6 +1200,9 @@ def main():
         return event_ms(lambda: sv._step_t(T0_t), reps), c
 
     a_out, a_counts, _, a_sv = drive_state(REFERENCE9_ARGS)
+    # the zero-round apply's launches on its own path, the CLI's two steps
+    # (108 a step) and the three applies of the CLI's setup and result
+    apply_launches = a_counts["k1_phase"]
     a_cpu = cli.main(REFERENCE9_ARGS + ["--device", "cpu"])
     check([(op.C, op.U) for op in a_sv.ops] == [(16, 8192), (4, 8192)]
           and a_sv.agg is not None and a_sv._agg_li == 1
@@ -1171,6 +1213,9 @@ def main():
                     for case in solver_cases("ref9", a_sv, phases=False))
     k2_err = max(k2_err, k2_parity("ref9", a_sv.agg.rowops()))
     a_ms, a_step = step_ms(a_sv)
+    check(a_step["k1_phase"] == 108 and apply_launches == 219,
+          f"reference mode 9: {apply_launches} zero-round applies, "
+          f"{a_step['k1_phase']} a step, not 219 and 108")
     say("main", path="mode9_reference_jacobi", launches=a_counts,
         step_launches=a_step, ms_per_step=f"{a_ms:.4f}",
         sa_levels=[lv.n for lv in a_sv.agg.levels],
@@ -1214,7 +1259,7 @@ def main():
         for _ in range(3):
             A @ xv
         lib_ms = event_ms(lambda: A @ xv, 50)
-        backend = sorted({k for k, _, _ in _trace(lambda: A @ xv, 1)})
+        backend = sorted({k for k, _, _ in _trace(lambda: A @ xv, 5)})
         nbytes = least_bytes(op, planes=2)
         ka.append((ms, plain_ms, bound_ms(nbytes), lib_ms))
         say("time", phase=f"ref9_apply_l{li}", C=op.C, U=op.U,
@@ -1381,6 +1426,346 @@ def main():
           f"mode 1 width: {m1_diff:.3e} from the plain CPU path")
     del T_gpu, T_cpu
 
+    # 27. this slice's main path: a user-defined problem through the CLI at
+    # 393,216 DOF (--ic/--bc/--source/--analytical), geometric and with
+    # --amg --krylov, each against the built-in manufactured problem (the
+    # same numbers bit for bit, the same launches) ---------------------------
+    user = {}
+    for name, extra in (("geometric", []), ("amg_krylov",
+                                            ["--amg", "--krylov"])):
+        runs = [drive_state(USER_BASE + extra + e)
+                for e in ([], USER_EXPR)]
+        (ob, cb, Tb, _), (oe, ce, Te, sve) = runs
+        say("main", path=f"user_{name}", launches=ce,
+            residual_history=oe["residual_history"],
+            krylov_iterations=oe.get("krylov_iterations"),
+            L1_error=oe["L1_error"], wall_s=oe["wall_s"],
+            builtin_wall_s=ob["wall_s"])
+        check(torch.equal(Tb, Te), f"user {name}: the expression problem's "
+              f"state differs from the built-in one's by "
+              f"{float((Tb - Te).abs().max()):.3e}")
+        check(all(ob[k] == oe[k] for k in ("residual_history", "L1_error",
+                                           "residual")),
+              f"user {name}: {oe} != built-in {ob}")
+        check(cb == ce, f"user {name}: launches {ce}, built-in {cb}")
+        check(ce["k1_phase"] > 0 and (name == "geometric"
+                                      or ce["k2_rowop"] > 0),
+              f"user {name}: launches {ce}")
+        user[name] = (oe, ce, Te)
+        del runs, Tb, sve
+    # the expressions' host evaluation at the 393,216 fine nodes: the ones
+    # above and erf (np.vectorize(math.erf), point by point, as in JAX)
+    cf = structured.tri_mesh(128, 32, 3 / 128, 1 / 128)
+    cf = splitting.child_coords(cf.X, 2)
+    xf, yf = cf[:, :, 0], cf[:, :, 1]
+    for text in ("sin(x+y)", "2*sin(x+y)", "erf(x-y)"):
+        t0 = time.perf_counter()
+        val = Expression(text)(xf, yf)
+        say("setup", expression=repr(text), points=val.size,
+            seconds=f"{time.perf_counter() - t0:.3f}")
+    del cf, xf, yf, val
+
+    pins = pins_mod.load_pins()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 28. a .geo domain: the annulus meshed by mesh_geo (2,048 macros,
+        # 393,216 DOF at n_split 3, C = 64: K1), PCG through the CLI; its
+        # V-cycle history held to the JAX package's pin on the same mesh
+        geo_path = f"{tmp}/annulus.geo"
+        with open(geo_path, "w") as f:
+            f.write(pins_mod.ANNULUS_GEO)
+        pin = pins["annulus_geo:s3:cli"]
+        t0 = time.perf_counter()
+        ann = geo_mesh.mesh_geo(geo_path)
+        geo_s = time.perf_counter() - t0
+        check(pins_mod.mesh_hash(ann) == pin["x_hash"],
+              f"the annulus .geo meshed to X hash {pins_mod.mesh_hash(ann)} "
+              f"({ann.num_elements} macros) in this run, the JAX pin's is "
+              f"{pin['x_hash']} ({pin['num_macro']} macros): scipy's "
+              f"Delaunay differs here, so the pin is of another mesh")
+        ann_args = pins_mod.CLI_ARGS + ["--mesh", geo_path, "--n-split", "3"]
+        t0 = time.perf_counter()
+        ann_sv = cli.setup(ann_args + ["--device", "cuda"])[2]
+        torch.cuda.synchronize()
+        ann_setup_s = time.perf_counter() - t0
+        ann_hist = pins_mod.residual_history(ann_sv,
+                                             len(pin["residual_linf"]))
+        fails = pins_mod.hold(ann_hist, pin)
+        say("pin", spec="annulus_geo:s3:cli",
+            residual_linf=[f"{v:.4e}" for v in ann_hist],
+            jax_f64=[f"{v:.4e}" for v in pin["residual_linf"]],
+            f32_floor=pin["f32_floor"], fails=fails)
+        check(not fails, f"annulus history against its pin: {fails}")
+        del ann_sv
+        ann_out, ann_counts, T_ann, ann_sv = drive_state(ann_args)
+        T_t = to_t(T_ann)
+        ann_ms = event_ms(lambda: ann_sv._step_t(T_t), 3)
+        say("main", path="geo_annulus", macros=ann.num_elements,
+            dof=T_ann.numel(), mesh_geo_s=f"{geo_s:.3f}",
+            setup_s=f"{ann_setup_s:.2f}", ms_per_step=f"{ann_ms:.3f}",
+            launches=ann_counts,
+            residual_history=ann_out["residual_history"],
+            krylov_iterations=ann_out["krylov_iterations"],
+            L1_error=ann_out["L1_error"], wall_s=ann_out["wall_s"],
+            card=repr(card))
+        check(ann_out["elements"] == pin["num_macro"] == 2048
+              and ann_counts["k1_phase"] > 0
+              and all(math.isfinite(v)
+                      for v in ann_out["residual_history"]),
+              f"annulus CLI: {ann_out}, {ann_counts}")
+        del T_ann, ann_sv, T_t, ann
+
+        # 29. the history pins on the card, float32, each held to the JAX
+        # package's float64 pin within 2% plus twice its float32 floor:
+        # the bench stand-in (levels 1, 2), the .geo square at n_split 4
+        # (C = 256: K1 in the TPU's K3 regime, launches_deep) and the amg
+        # production pins (K2)
+        for spec in pins_mod.DEFAULT_SPECS:
+            name, n_split, levels = spec
+            if levels == "cli":
+                continue
+            key = pins_mod.spec_key(*spec)
+            pin = pins[key]
+            mesh = pins_mod.spec_mesh(name, levels)
+            check(pins_mod.mesh_hash(mesh) == pin["x_hash"],
+                  f"{key}: the stand-in's X hash {pins_mod.mesh_hash(mesh)} "
+                  f"is not the pin's {pin['x_hash']}")
+            p_sv = semi.SemiSolver(semi.build_problem(
+                mesh, pins_mod.spec_config(n_split, levels)), dev)
+            counts_zero()
+            got = pins_mod.residual_history(p_sv, len(pin["residual_linf"]))
+            torch.cuda.synchronize()
+            c = read_counts()
+            fails = pins_mod.hold(got, pin)
+            say("pin", spec=key, k1=c["k1_phase"], k1_deep=c["k1_deep"],
+                k2=c["k2_rowop"], residual_linf=[f"{v:.4e}" for v in got],
+                jax_f64=[f"{v:.4e}" for v in pin["residual_linf"]],
+                f32_floor=pin["f32_floor"], fails=fails)
+            check(not fails, f"{key} against its pin: {fails}")
+            check(c["k1_phase"] > 0 and (c["k1_deep"] > 0) == (n_split >= 4)
+                  and (c["k2_rowop"] > 0 or levels != "amg"),
+                  f"{key}: launches {c}")
+            del p_sv
+
+        # 30. checkpoint and VTU at full width on the user problem: 4 steps
+        # straight against 2 steps, a checkpoint and a resume to 4 (K1 and
+        # K2 add in a fixed order: the same bits); a --vtk-interval 2 series
+        # whose Tracer arrays hold the states on the host
+        ck = f"{tmp}/user.npz"
+        f_out, _, T4, _ = drive_state(USER_ARGS + ["--ntime", "4"])
+        c_out = drive_state(USER_ARGS + ["--ntime", "2", "--checkpoint", ck,
+                                         "--checkpoint-every", "2"])[0]
+        r_out, _, T4r, _ = drive_state(USER_ARGS + [
+            "--ntime", "4", "--checkpoint", ck, "--checkpoint-every", "2"])
+        say("main", path="checkpoint", resumed_from_step=r_out.get(
+            "resumed_from_step"), straight=f_out["residual_history"],
+            first=c_out["residual_history"],
+            resumed=r_out["residual_history"],
+            max_abs_diff=f"{float((T4 - T4r).abs().max()):.3e}")
+        check(r_out.get("resumed_from_step") == 2
+              and c_out["residual_history"] + r_out["residual_history"]
+              == f_out["residual_history"] and torch.equal(T4, T4r),
+              "the resumed run differs from the straight one")
+        del T4, T4r
+        spent = []
+        write_vtu = vtu_mod.write_vtu
+
+        def timed_write(*a, **kw):
+            t0 = time.perf_counter()
+            write_vtu(*a, **kw)
+            spent.append(time.perf_counter() - t0)
+
+        vtu_mod.write_vtu = timed_write
+        try:
+            v_out, _, T_v, _ = drive_state(USER_ARGS + [
+                "--vtu", f"{tmp}/user.vtu", "--vtk-interval", "2"])
+        finally:
+            vtu_mod.write_vtu = write_vtu
+        series = v_out["vtu_series"]
+
+        def tracer(path):
+            with open(path) as f:
+                lines = f.read().splitlines()
+            at = next(i for i, ln in enumerate(lines) if 'Name="Tracer"' in ln)
+            return np.asarray(lines[at + 1].split(), np.float64)
+
+        host = T_v.cpu().numpy().reshape(-1)
+        want = np.asarray(["%.7g" % v for v in host], np.float64)
+        check(len(series) == 2 and [p[-9:] for p in series]
+              == ["_0000.vtu", "_0002.vtu"], f"series {series}")
+        check(np.array_equal(tracer(series[-1]), want)
+              and np.array_equal(tracer(v_out["vtu"]), want)
+              and not tracer(series[0]).any(),
+              "a VTU file's Tracer is not the state on the host")
+        say("main", path="vtu", files=len(spent), points=host.size,
+            write_s=[f"{t:.2f}" for t in spent],
+            wall_s=v_out["wall_s"])
+        del T_v, host, want
+
+    # 31. the sanitizer (--debug): the checked builds of K1 and K2 ---------
+    # (a) the CLI main path with --debug on the user problem with --amg
+    # --krylov: only checked launches, as many as the unchecked run's, and
+    # the same bits
+    d_out, d_counts, T_d, d_sv = drive_state(USER_ARGS + [
+        "--amg", "--krylov", "--debug"])
+    u_out, u_counts, T_u = user["amg_krylov"]
+    say("main", path="user_amg_krylov_debug", launches=d_counts,
+        residual_history=d_out["residual_history"],
+        unchecked_launches=u_counts, wall_s=d_out["wall_s"],
+        unchecked_wall_s=u_out["wall_s"])
+    check(d_counts["k1_phase"] == d_counts["k2_rowop"] == 0
+          and d_counts["k1_checked"] == u_counts["k1_phase"] > 0
+          and d_counts["k1_checked_rounds"] == u_counts["k1_rounds"]
+          and d_counts["k2_checked"] == u_counts["k2_rowop"] > 0,
+          f"checked launches {d_counts}, unchecked {u_counts}")
+    check(torch.equal(T_d, T_u) and all(
+        d_out[k] == u_out[k] for k in ("residual_history", "L1_error",
+                                       "krylov_iterations")),
+          "the checked CLI run differs from the unchecked one")
+    main_checked = d_counts
+    del T_d, d_sv, T_u
+    # (b) the bench-geometric and production amg configurations: 10 cycles
+    # unchecked, then checked (the step made checked as SemiConfig(debug=
+    # True) makes it at the end of the constructor): the same histories and
+    # launches
+    for name, sv in (("bench", solver), ("amg", amg)):
+        counts_zero()
+        h_u = history(sv)
+        c_u = read_counts()
+        sv._make_checked("_step_t")
+        counts_zero()
+        h_c = history(sv)
+        sv.sanitizer.raise_on_fault()
+        c_c = read_counts()
+        say("sanitizer", config=name, unchecked=c_u, checked=c_c,
+            identical=h_u == h_c)
+        check(h_u == h_c, f"{name}: checked history {h_c} != {h_u}")
+        check(c_c["k1_phase"] == c_c["k2_rowop"] == 0
+              and (c_c["k1_checked"], c_c["k1_checked_rounds"],
+                   c_c["k2_checked"])
+              == (c_u["k1_phase"], c_u["k1_rounds"], c_u["k2_rowop"]),
+              f"{name}: checked launches {c_c}, unchecked {c_u}")
+    # (c) device time of the fine K1 phase (C = 16, U = 8192) and of K2 on
+    # l0_op, checked against unchecked, in turns; and each against its
+    # plain version on the same inputs
+    site0 = op0.sanitizer
+    coefs0 = solver._phase_coefs(0, solver.cfg.n_smooth)
+    xk1, bpk1 = rand(op0), op0._bp(rand(op0), True)
+
+    def k1_run(checked):
+        op0.sanitizer = site0 if checked else None
+        return K.phase(op0, xk1, bpk1, coefs0, True)
+
+    xc, zc = k1_run(True)
+    xu, zu = k1_run(False)
+    xr, zr = K.phase_reference(op0, xk1, bpk1, coefs0, True)
+    k1c_err = max(float((xc - xr).abs().max()), float((zc - zr).abs().max()))
+    check(torch.equal(xc, xu) and torch.equal(zc, zu),
+          "checked K1 differs from unchecked K1")
+    check(k1c_err <= 1e-4 * float(xr.abs().max()),
+          f"checked K1 against its plain version: {k1c_err:.3e}")
+    k1c_ms, k1u_ms, k1_times = time_pair(lambda: k1_run(True),
+                                         lambda: k1_run(False), 20)
+    op0.sanitizer = site0
+    l0 = rowops["l0_op"]
+    site2 = l0.sanitizer
+    xl = torch.as_tensor(rng.normal(size=(3, l0.n_src)).astype(np.float32),
+                         device=dev)
+
+    def k2_run(checked):
+        l0.sanitizer = site2 if checked else None
+        return l0(xl)
+
+    yc, yu = k2_run(True), k2_run(False)
+    k2c_err = float((yc - K2.rowop_reference(*l0.tables(), xl)).abs().max())
+    check(torch.equal(yc, yu), "checked K2 differs from unchecked K2")
+    k2c_ms, k2u_ms, k2_times = time_pair(lambda: k2_run(True),
+                                         lambda: k2_run(False), 50)
+
+    def device_us(fn, cls, reps):
+        """Device time of one call's ``cls`` kernels, torch.profiler."""
+        ks = [k for k in _trace(fn, reps) if kernel_class(k[0]) == cls]
+        return sum(d for _, _, d in ks) / reps
+
+    # in turns: unchecked, checked, checked, unchecked
+    dev_us = {}
+    for key, fn, cls, reps in (
+            ("k1u", lambda: k1_run(False), "k1_phase", 20),
+            ("k1c", lambda: k1_run(True), "k1_phase", 20),
+            ("k1c", lambda: k1_run(True), "k1_phase", 20),
+            ("k1u", lambda: k1_run(False), "k1_phase", 20),
+            ("k2u", lambda: k2_run(False), "k2_rowop", 50),
+            ("k2c", lambda: k2_run(True), "k2_rowop", 50),
+            ("k2c", lambda: k2_run(True), "k2_rowop", 50),
+            ("k2u", lambda: k2_run(False), "k2_rowop", 50)):
+        dev_us.setdefault(key, []).append(device_us(fn, cls, reps))
+    op0.sanitizer = site0
+    l0.sanitizer = site2
+    solver.sanitizer.raise_on_fault()
+    amg.sanitizer.raise_on_fault()
+    say("time", phase="fine_cheb6_z_checked", C=op0.C, U=op0.U,
+        tier=K.CHECKED.plan(op0).tier,
+        device_us_checked=[f"{v:.2f}" for v in dev_us["k1c"]],
+        device_us_unchecked=[f"{v:.2f}" for v in dev_us["k1u"]],
+        events_us_checked=f"{1e3 * k1c_ms:.2f}",
+        events_us_unchecked=f"{1e3 * k1u_ms:.2f}",
+        bound_us=f"{1e3 * k1_bound:.2f}", max_abs_err=f"{k1c_err:.3e}",
+        card=repr(card))
+    say("time", rowop="l0_op_checked", N=l0.n_out, D=l0.D,
+        variant=l0.variant,
+        device_us_checked=[f"{v:.2f}" for v in dev_us["k2c"]],
+        device_us_unchecked=[f"{v:.2f}" for v in dev_us["k2u"]],
+        events_us_checked=f"{1e3 * k2c_ms:.2f}",
+        events_us_unchecked=f"{1e3 * k2u_ms:.2f}",
+        bound_us=f"{1e3 * k2_ms['l0_op'][2]:.2f}",
+        max_abs_err=f"{k2c_err:.3e}", card=repr(card))
+    # the checked step's one read of the record a step: ms a step of the
+    # checked production amg step against the same step unchecked (its
+    # kernels checked too), in turns
+    T_t = to_t(amg.initial_condition())
+    raw_step = type(amg)._step_t
+    steps = {"checked": [], "unwrapped": []}
+    for label in ("unwrapped", "checked", "checked", "unwrapped"):
+        fn = (amg._step_t if label == "checked"
+              else lambda: raw_step(amg, T_t))
+        steps[label].append(event_ms(
+            (lambda: fn(T_t)) if label == "checked" else fn, 5))
+    say("time", step="amg_checked", ms_checked=[f"{v:.4f}" for v in
+                                                steps["checked"]],
+        ms_without_record_read=[f"{v:.4f}" for v in steps["unwrapped"]],
+        card=repr(card))
+    # (d) a NaN initial condition given by expression, and one index of a
+    # K1 and of a K2 operator set out of range by hand after the build: each
+    # raises from the checked step (the kernels' error record), not from
+    # host code
+    try:
+        with np.errstate(invalid="ignore"):
+            cli.run(CLI_ARGS + NAN_IC + ["--device", "cuda"])
+        raise RuntimeError("chip_smoke FAILED: a NaN initial condition "
+                           "did not raise")
+    except FloatingPointError as e:
+        say("sanitizer", nan_ic="FloatingPointError", message=repr(str(e)))
+    for which, table, at, bad in (
+            ("k1", amg.ops[0].src_cu, 1, amg.ops[0].C * amg.ops[0].U + 7),
+            ("k2", amg.agg.levels[0].op.cols_t, 5,
+             amg.agg.levels[0].op.n_src + 3)):
+        flat = table.view(-1)
+        keep = int(flat[at])
+        flat[at] = bad
+        try:
+            amg._step_t(T_t)
+            raise RuntimeError(f"chip_smoke FAILED: the {which} index "
+                               "fault did not raise")
+        except IndexError as e:
+            msg = str(e)
+            say("sanitizer", index_fault=which, message=repr(msg))
+            check("error record" in msg and ("K1" if which == "k1" else "K2")
+                  in msg, f"{which}: {msg}")
+        finally:
+            flat[at] = keep
+    amg._step_t(T_t)
+    torch.cuda.synchronize()
+    del T_t
+
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x
     # and z; a rowop's tables and vectors); a K1 phase has no library call,
@@ -1420,9 +1805,22 @@ def main():
         "name": "k1_phase_apply", "route": "cuda",
         "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
         "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:176",
-        "launches": a_counts["k1_phase"], "max_abs_err": apply_err,
+        "launches": apply_launches, "max_abs_err": apply_err,
         "ms": ka[0][0], "plain_ms": ka[0][1], "bound_ms": ka[0][2],
-        "bound_by": "bytes", "library_ms": ka[0][3]}]}),
+        "bound_by": "bytes", "library_ms": ka[0][3]}, {
+        "name": "k1_phase_checked", "route": "cuda",
+        "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
+        "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:176",
+        "launches": main_checked["k1_checked"], "max_abs_err": k1c_err,
+        "ms": k1c_ms, "plain_ms": p_ms, "bound_ms": k1_bound,
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "k2_rowop_checked", "route": "cuda",
+        "source": "p_a_multigrids_tpu_torch/csrc/spmv.cu",
+        "replaces": "p_a_multigrids_tpu/ops/pallas_bsr.py:144",
+        "launches": main_checked["k2_checked"], "max_abs_err": k2c_err,
+        "ms": k2c_ms, "plain_ms": k2_ms["l0_op"][1],
+        "bound_ms": k2_ms["l0_op"][2], "bound_by": "bytes",
+        "library_ms": k2_ms["l0_op"][3]}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@
         --restrictor corner_average --n-multigrid 6 --device cuda
     python -m p_a_multigrids_tpu_torch --mode 9 --mesh macro.msh \\
         --n-split 5 --levels 6 --cycle-type w --dt 1e8 --device cuda
+    python -m p_a_multigrids_tpu_torch --mode 9 --mesh domain.geo \\
+        --ic 0 --bc "sin(x+y)" --source "2*sin(x+y)" \\
+        --analytical "sin(x+y)" --vtu out.vtu --vtk-interval 1 \\
+        --checkpoint run.npz --checkpoint-every 1 --debug
     python -m p_a_multigrids_tpu_torch --mode 1 --rows 200 --cols 1024
 
 Modes mirror the JAX package's CLI: 1 rectangular DG advection (the moving
@@ -15,18 +19,25 @@ implicit, 6 advection-diffusion; split depth 0), 7 semi explicit (theta =
 0), 8 semi direct (dense inverse), 9 semi multigrid (V-cycles or, with
 --krylov, PCG / BiCGStab under --u; any --solver; at n_split >= 7 the
 non-stencil operator), 10 semi assembled (block-Jacobi sweeps over the BSR
-operator).  The macro mesh is a gmsh 2.x ASCII ``--mesh`` file, else the
-generated ``--rows`` x ``--cols`` unit square.  Prints one JSON line with
-the JAX package's keys for the mode (mode 1: mode, ntime, dt, t_range and
-with --curves the files; modes 2-6: mode, elements, wall_s; 7, 9, 10: also
-residual_history, children, L1_error, residual; 8: the same without
-residual_history), plus krylov_iterations with --krylov in modes 7 and 9.
-``--cpu`` is ``--device cpu``.  ``--mesh`` with a ``.geo`` file, VTU
-output, checkpoints, expressions, the sanitizer, the profiler flag and
-``--devices`` are not ported yet: each exits with a message naming the
-ROADMAP.md item that will port it (``--checkpoint-every`` and
-``--dist-ghost-frac`` are parsed, and matter only beside ``--checkpoint``
-and ``--devices``).
+operator).  The macro mesh is a gmsh 2.x ASCII ``--mesh`` file, a gmsh
+``.geo`` geometry (``mesh.geo.mesh_geo``), else the generated ``--rows`` x
+``--cols`` unit square.  ``--ic``, ``--bc``, ``--source`` and
+``--analytical`` are expressions of x and y (``utils.expressions``); any of
+the first three turns the built-in manufactured sin(x+y) problem off.
+``--vtu`` writes the final Tracer field, ``--vtk-interval N`` the
+Tracer / error / analytical series of modes 7, 9 and 10 every N steps,
+``--checkpoint`` saves modes 7, 9 and 10 every ``--checkpoint-every``
+steps and resumes from the file when it exists, and ``--debug`` runs the
+checked step (``utils.debugging``: checked builds of kernels K1 and K2 on
+the card).  Prints one JSON line with the JAX package's keys for the mode
+(mode 1: mode, ntime, dt, t_range and with --curves the files; modes 2-6:
+mode, elements, wall_s; 7, 9, 10: also residual_history, children,
+L1_error, residual; 8: the same without residual_history; vtu,
+vtu_series and resumed_from_step with their flags), plus
+krylov_iterations with --krylov in modes 7 and 9.  ``--cpu`` is
+``--device cpu``.  The profiler flag and ``--devices`` are not ported yet:
+each exits with a message naming the ROADMAP.md item that will port it
+(``--dist-ghost-frac`` is parsed, and matters only beside ``--devices``).
 """
 
 from __future__ import annotations
@@ -38,14 +49,6 @@ import time
 
 # flag (argparse dest) -> ROADMAP.md queue-1 item that ports it
 UNPORTED_FLAGS = {
-    "vtu": "CLI, IO and validation",
-    "vtk_interval": "CLI, IO and validation",
-    "checkpoint": "CLI, IO and validation",
-    "ic": "CLI, IO and validation (expressions)",
-    "bc": "CLI, IO and validation (expressions)",
-    "source": "CLI, IO and validation (expressions)",
-    "analytical": "CLI, IO and validation (expressions)",
-    "debug": "CLI, IO and validation (sanitizer mode)",
     "profile": "port bench (profiling)",
     "devices": "distributed solver",
 }
@@ -100,19 +103,35 @@ def _parser():
                     help="mode 1: write the curve files PREFIX and "
                          "PREFIX_analytical (x value per DG node)")
     ap.add_argument("--mesh", type=str, default=None,
-                    help="gmsh 2.x ASCII macro mesh (.msh); default: the "
-                         "generated --rows x --cols unit square")
-    # not ported yet: each exits with a message (UNPORTED_FLAGS)
-    for flag in ("--vtu", "--checkpoint", "--ic", "--bc", "--source",
-                 "--analytical", "--profile"):
-        ap.add_argument(flag, type=str, default=None)
-    ap.add_argument("--vtk-interval", type=int, default=0)
-    ap.add_argument("--devices", type=int, default=0)
-    # the JAX CLI's defaults; each matters only beside --checkpoint or
-    # --devices, which exit above
+                    help="gmsh 2.x ASCII macro mesh (.msh) or gmsh geometry "
+                         "(.geo); default: the generated --rows x --cols "
+                         "unit square")
+    ap.add_argument("--vtu", type=str, default=None,
+                    help="write the final Tracer field to this .vtu")
+    ap.add_argument("--vtk-interval", type=int, default=0, metavar="N",
+                    help="modes 7, 9, 10: write Tracer/error/analytical "
+                         "VTUs every N steps and at the end, as "
+                         "<--vtu base>_NNNN.vtu")
+    ap.add_argument("--checkpoint", type=str, default=None, metavar="NPZ",
+                    help="modes 7, 9, 10: checkpoint the run to this .npz "
+                         "and resume from it when it exists")
     ap.add_argument("--checkpoint-every", type=int, default=10)
+    for flag, what in (("--ic", "initial condition"),
+                       ("--bc", "Dirichlet boundary value"),
+                       ("--source", "volume source"),
+                       ("--analytical", "exact solution (error field)")):
+        ap.add_argument(flag, type=str, default=None, metavar="EXPR",
+                        help=f"{what} as an expression of x, y")
+    ap.add_argument("--debug", action="store_true",
+                    help="modes 7, 9, 10: the checked step (index tables "
+                         "range-checked at setup, the state asserted "
+                         "finite, checked builds of kernels K1 and K2 on "
+                         "the card; one synchronisation a step)")
+    # not ported yet: each exits with a message (UNPORTED_FLAGS)
+    ap.add_argument("--profile", type=str, default=None)
+    ap.add_argument("--devices", type=int, default=0)
+    # the JAX CLI's default; it matters only beside --devices
     ap.add_argument("--dist-ghost-frac", type=float, default=0.25)
-    ap.add_argument("--debug", action="store_true")
     return ap
 
 
@@ -136,16 +155,14 @@ def _parse(argv):
     if args.f64 and device.type != "cpu":
         raise SystemExit("--f64 runs on --device cpu only: kernels K1 and K2 are "
                          "float32")
-    if args.mesh and args.mesh.endswith(".geo"):
-        raise SystemExit(
-            "--mesh with a .geo file is not ported to "
-            "p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: CLI, IO and "
-            "validation (mesh/geo.py)); give a gmsh .msh file")
     return args, device
 
 
 def _mesh(args):
     from .mesh import structured, topology
+    if args.mesh and args.mesh.endswith(".geo"):
+        from .mesh import geo
+        return geo.mesh_geo(args.mesh)
     if args.mesh:
         return topology.from_msh(args.mesh)
     return structured.tri_mesh(args.rows, args.cols, 1.0 / args.rows,
@@ -164,9 +181,23 @@ def _transport_cfg(args):
         dtype="float64" if args.f64 else "float32")
 
 
+def _problem_fns(args):
+    """--ic/--bc/--source/--analytical strings -> ProblemFns."""
+    from .config import ProblemFns
+    from .utils.expressions import Expression
+
+    def comp(text):
+        return Expression(text) if text else None
+    return ProblemFns(ic=comp(args.ic), bc=comp(args.bc),
+                      source=comp(args.source),
+                      analytical=comp(args.analytical))
+
+
 def _semi_cfg(args):
     """The SemiConfig of modes 7-10 (mode 7: the theta = 0 explicit step,
-    one exact block-Jacobi round)."""
+    one exact block-Jacobi round).  The manufactured sin(x+y) problem is on
+    unless --ic, --bc or --source is given, as in the JAX CLI; the error is
+    then measured against --analytical, or against zero without it."""
     from .config import Physics, SemiConfig, Solver
 
     cfg = SemiConfig(
@@ -184,7 +215,9 @@ def _semi_cfg(args):
         physics=Physics(k=args.k, u=tuple(args.u),
                         advection=any(args.u),
                         surface_terms=not args.no_surface_terms),
-        dtype="float64" if args.f64 else "float32")
+        fns=_problem_fns(args), manufactured=all(
+            v is None for v in (args.ic, args.bc, args.source)),
+        dtype="float64" if args.f64 else "float32", debug=args.debug)
     if args.solver:
         cfg = dataclasses.replace(cfg, solver=Solver(args.solver))
     if args.mode == 7:
@@ -204,10 +237,7 @@ def _stepping_solver(args, device):
     mesh = _mesh(args)
     cls = (semi_assembled.AssembledSemiSolver if args.mode == 10
            else semi.SemiSolver)
-    try:
-        return mesh, cls(semi.build_problem(mesh, _semi_cfg(args)), device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    return mesh, cls(semi.build_problem(mesh, _semi_cfg(args)), device)
 
 
 def setup(argv=None):
@@ -246,6 +276,82 @@ def _rect(args, device, out):
     return T, problem
 
 
+def _time_loop(args, solver, out):
+    """Modes 7, 9 and 10: cfg.ntime steps from the initial condition, or
+    from the --checkpoint file when it exists, with the --vtk-interval
+    series and the --checkpoint saves (``checkpoint.run_with_checkpoints``);
+    fills out's residual_history (and resumed_from_step, vtu_series) and
+    returns the final state (U, C, 3)."""
+    import os
+
+    import numpy as np
+
+    from . import convert
+    from .io import checkpoint, vtu
+
+    cfg = solver.cfg
+    coords = None
+
+    def write_series(T, step):
+        """Tracer + error + analytical point fields, the get_vtk_files
+        set, every --vtk-interval steps (one copy of T to the host)."""
+        nonlocal coords
+        if coords is None:
+            coords = vtu.semi_coords(solver.p.grid.macro.X, cfg.n_split)
+        base = (args.vtu or "out.vtu")[: -4]
+        T_np = convert.state_to_numpy(T)
+        fields = {"Tracer": T_np.reshape(-1, 3),
+                  "error": np.abs(T_np - solver.p.analytical).reshape(-1, 3),
+                  "analytical": solver.p.analytical.reshape(-1, 3)}
+        path = f"{base}_{step:04d}.vtu"
+        vtu.write_vtu(path, coords, fields, cell_type=5)
+        out.setdefault("vtu_series", []).append(path)
+
+    T = solver.initial_condition()
+    start = 0
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        T_np, start, _, _ = checkpoint.load(args.checkpoint)
+        T = convert.state_from_numpy(solver, T_np)
+        out["resumed_from_step"] = start
+    hist = []
+
+    def observe(k, S, st):
+        """After k steps: the residual of each step taken here, and the
+        series every --vtk-interval steps and at the end."""
+        if k > start:
+            hist.append(float(st.convergence(S)))
+        if args.vtk_interval and (k % args.vtk_interval == 0
+                                  or k == cfg.ntime):
+            write_series(st.from_state(S), k)
+
+    T = checkpoint.run_with_checkpoints(
+        solver, T, cfg.ntime, args.checkpoint, args.checkpoint_every, start,
+        observe)
+    out["residual_history"] = hist
+    return T
+
+
+def _vtu_final(args, out, T, solver):
+    """--vtu: the final Tracer field with each mode's element coordinates
+    (mode 1: quads, cell type 9; else triangles, 5)."""
+    from .io import vtu
+    from .mesh import splitting
+
+    if args.mode == 1:
+        coords = solver.x_all
+    elif args.mode <= 6:
+        coords = splitting.child_coords(solver.p.grid.macro.X,
+                                        0).reshape(-1, 2, 3)
+    else:
+        coords = vtu.semi_coords(solver.p.grid.macro.X, args.n_split)
+    vals = T.detach().cpu().numpy()
+    if args.mode != 1:
+        vals = vals.reshape(-1, 3)
+    vtu.write_vtu(args.vtu, coords, {"Tracer": vals},
+                  cell_type=9 if args.mode == 1 else 5)
+    out["vtu"] = args.vtu
+
+
 def run(argv=None):
     """Run the CLI without printing: returns (the JSON dict, the final
     state T (U, C, 3) on the run's device, the solver that ran the last
@@ -273,28 +379,20 @@ def run(argv=None):
                                                     device)
         else:
             mesh, solver = _stepping_solver(args, device)
-            hist = []
-            if args.mode == 10:
-                T = solver.initial_condition()
-                for _ in range(solver.cfg.ntime):
-                    T = solver._step(T)
-                    hist.append(float(solver.convergence(T)))
-            else:
-                from .ops import fused
-                T_t = fused.to_t(solver.initial_condition())
-                for _ in range(solver.cfg.ntime):
-                    T_t = solver._step_t(T_t)
-                    hist.append(float(solver.convergence_t(T_t)))
-                T = fused.from_t(T_t)
-            out["residual_history"] = hist
+            T = _time_loop(args, solver, out)
         out.update(elements=mesh.num_elements, children=4 ** args.n_split,
                    L1_error=float(solver.error(T).mean()),
                    residual=float(solver.convergence(T)))
         if solver.cfg.krylov and args.mode in (7, 9):
             out["krylov_iterations"] = list(solver.krylov_iters)
+        if solver.sanitizer is not None:
+            # the error and residual above ran checked kernels too
+            solver.sanitizer.raise_on_fault()
     if T.device.type == "cuda":
         torch.cuda.synchronize(T.device)
     out["wall_s"] = round(time.time() - t0, 3)
+    if args.vtu:
+        _vtu_final(args, out, T, solver)
     return out, T, solver
 
 

@@ -2,9 +2,8 @@
 transport solvers (mirror of the JAX package's ``config.py``, same fields
 and defaults).
 
-Fields of paths this port does not run yet are left out.  Of those kept,
-only ``debug`` still names such a path: ``models.semi.SemiSolver`` raises
-``NotImplementedError`` when it is set.
+Fields of paths this port does not run yet are left out.  ``debug`` makes
+the solver's step a checked step (``utils.debugging``).
 """
 
 from __future__ import annotations
@@ -125,7 +124,7 @@ class SemiConfig:
     manufactured: bool = True
     fns: ProblemFns = dataclasses.field(default_factory=ProblemFns)
     dtype: str = "float32"
-    debug: bool = False                  # not ported: raises
+    debug: bool = False                  # the checked step (utils/debugging)
 
 
 @dataclasses.dataclass

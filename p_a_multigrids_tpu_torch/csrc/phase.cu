@@ -91,9 +91,23 @@
 // C*U = 1,179,648; the bound is 1,820 times that, and a level at the bound
 // would hold 232 GB of Fp, more than the card, so allocating its
 // coefficients fails before any launch and the wrapper does not check it.
+//
+// The checked build (-DPAMG_CHECKED, checked.cuh; `--debug`): every index
+// a thread reads from a table is compared with the size it addresses
+// (`intra` with C, `slot_ptr` with nb + 1 and a child's slot count with
+// kMaxSlots + 1, `slot_idx` with nb, `src` with C*U), and every x and z it
+// writes is tested with isfinite.  The first fault goes to the error
+// record and a faulty index reads as 0.  In the kept tiers the indices are
+// checked in round 0, when they are read from device memory, and later
+// rounds read the checked copies on chip.  The rounds' arithmetic and the
+// host's launch plan are the unchecked build's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#ifdef PAMG_CHECKED
+#include "checked.cuh"
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -119,7 +133,42 @@ struct Args {
   float* z_out;
   int C, U, nb, rounds, slice;
   float coef[kMaxRounds];
+#ifdef PAMG_CHECKED
+  int* record;   // the error record (checked.cuh)
+  int site;      // the caller's name for this launch's operator
+#endif
 };
+
+// What the checked build records as `sub` (utils/debugging.K1_SUBS):
+// tables 0-2 intra (face f), 3 slot_ptr, 4 a child's slot count, 5-7
+// slot_idx (slot k), 8-10 src (slot k); values 0-2 x (dof i), 3-5 z.
+constexpr int kSubSlotPtr = 3, kSubSlotCount = 4, kSubSlotIdx = 5,
+              kSubSrc = 8, kSubZ = 3;
+
+// v, an index of pair t read from table `sub`, if it lies in [0, bound);
+// in the checked build a fault is recorded and 0 returned otherwise.
+__device__ __forceinline__ int in_range(const Args& a, int v, int bound,
+                                        long long t, int sub) {
+#ifdef PAMG_CHECKED
+  if (v < 0 || v >= bound) {
+    pamg_checked::record_fault(a.record, 1, a.site, pamg_checked::kIndex, t,
+                               sub, v, bound);
+    return 0;
+  }
+#endif
+  return v;
+}
+
+// In the checked build, records v, written for pair t as `sub`, unless it
+// is finite.
+__device__ __forceinline__ void expect_finite(const Args& a, float v,
+                                              long long t, int sub) {
+#ifdef PAMG_CHECKED
+  if (!isfinite(v))
+    pamg_checked::record_fault(a.record, 1, a.site, pamg_checked::kNonFinite,
+                               t, sub, __float_as_int(v), 0);
+#endif
+}
 
 // What a pair keeps in shared memory on chip: Fp (27) and bp (3) as
 // floats, then as ints the offsets in a (C, U) plane of its three
@@ -176,14 +225,18 @@ __device__ __forceinline__ void relax_round(const Args& a, const float* x,
       const int c = static_cast<int>(t / a.U);
       const int u = static_cast<int>(t - static_cast<long long>(c) * a.U);
 #pragma unroll
-      for (int f = 0; f < 3; ++f) q[f] = a.intra[f * a.C + c] * a.U + u;
-      const int k0 = a.slot_ptr[c];
-      ns = a.slot_ptr[c + 1] - k0;
+      for (int f = 0; f < 3; ++f)
+        q[f] = in_range(a, a.intra[f * a.C + c], a.C, t, f) * a.U + u;
+      const int k0 = in_range(a, a.slot_ptr[c], a.nb + 1, t, kSubSlotPtr);
+      ns = in_range(a, a.slot_ptr[c + 1], a.nb + 1, t, kSubSlotPtr) - k0;
+      ns = in_range(a, ns, kMaxSlots + 1, t, kSubSlotCount);
 #pragma unroll
       for (int k = 0; k < kMaxSlots; ++k) {
         if (k < ns) {
-          su[k] = a.slot_idx[k0 + k] * a.U + u;
-          g[k] = a.src[su[k]];
+          su[k] = in_range(a, a.slot_idx[k0 + k], a.nb, t, kSubSlotIdx + k)
+                  * a.U + u;
+          g[k] = in_range(a, a.src[su[k]], static_cast<int>(CU), t,
+                          kSubSrc + k);
         }
       }
       if (kSrc == kGlobalKeep) {
@@ -258,6 +311,8 @@ __device__ __forceinline__ void relax_round(const Args& a, const float* x,
       const float xi = fetch(i, static_cast<int>(t));
       const float z = b - xi - (acc[i] + cross[i]);
       const float xo = xi + coef * z;
+      expect_finite(a, xo, t, i);
+      if (z_out != nullptr) expect_finite(a, z, t, kSubZ + i);
       if (kBlock) xs_out[i * a.slice + p] = xo;
       if (x_out != nullptr) x_out[i * CU + t] = xo;
       if (z_out != nullptr) z_out[i * CU + t] = z;
@@ -352,15 +407,17 @@ extern "C" int k1_phase_limits(int* sm_count, int* smem_optin,
 // `threads`, `slice` pairs a block, `smem` bytes of dynamic shared memory
 // (46 * 4 * slice small, 40 * 4 * slice resident, 0 streaming).  Round r reads x0 (r = 0) or the
 // buffer round r - 1 wrote and writes buf0 (r even) or buf1 (r odd); the
-// last round also writes z_out unless it is null.  Returns the launch's
-// CUDA error code, 0 when it was accepted.
+// last round also writes z_out unless it is null.  The checked build
+// records its first fault in `record` (checked.cuh) as operator `site`;
+// the unchecked build ignores both.  Returns the launch's CUDA error code,
+// 0 when it was accepted.
 extern "C" int k1_phase(const void* x0, const void* bp, const void* Fp,
                         const void* Xp, const void* intra,
                         const void* slot_ptr, const void* slot_idx,
                         const void* src, void* buf0, void* buf1, void* z_out,
                         const float* coefs, int rounds, int C, int U, int nb,
                         int tier, int grid, int threads, int slice, int smem,
-                        void* stream) {
+                        void* stream, void* record, int site) {
   if (rounds < 1 || rounds > kMaxRounds || grid < 1 || threads < 1
       || (tier == kSmall && grid != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -382,6 +439,14 @@ extern "C" int k1_phase(const void* x0, const void* bp, const void* Fp,
   a.rounds = rounds;
   a.slice = slice;
   for (int r = 0; r < rounds; ++r) a.coef[r] = coefs[r];
+#ifdef PAMG_CHECKED
+  if (record == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.record = static_cast<int*>(record);
+  a.site = site;
+#else
+  (void)record;
+  (void)site;
+#endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* params[] = {&a};
   cudaError_t err;

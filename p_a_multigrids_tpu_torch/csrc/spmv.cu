@@ -46,28 +46,74 @@
 //   2% at its fourth cycle, within the f32 spread of the solve but outside
 //   the check that holds it).  Rows of more than 1,024 slots (48 KB of sums
 //   a block) take the thread variant.
+//
+// The checked build (-DPAMG_CHECKED, checked.cuh; `--debug`): every column
+// a thread reads from `cols` is compared with S, the number of source rows
+// it addresses, and every y it writes is tested with isfinite.  The first
+// fault goes to the error record and a faulty column reads as 0.  The
+// variants, their launch shapes and their arithmetic are the unchecked
+// build's.
 
 #include <cuda_runtime.h>
 
+#ifdef PAMG_CHECKED
+#include "checked.cuh"
+#endif
+
 namespace {
+
+// Where a checked launch records its first fault (checked.cuh); unused by
+// the unchecked build.
+struct Check {
+  int* record;
+  int site;
+};
+
+// c, column `slot` of row n, if it lies in [0, S); in the checked build a
+// fault is recorded and 0 returned otherwise.
+__device__ __forceinline__ int in_range(const Check& k, int c, int S,
+                                        long long n, int slot) {
+#ifdef PAMG_CHECKED
+  if (c < 0 || c >= S) {
+    pamg_checked::record_fault(k.record, 2, k.site, pamg_checked::kIndex, n,
+                               slot, c, S);
+    return 0;
+  }
+#endif
+  return c;
+}
+
+// In the checked build, records y[i, n] = v unless it is finite.
+__device__ __forceinline__ void expect_finite(const Check& k, float v,
+                                              long long n, int i) {
+#ifdef PAMG_CHECKED
+  if (!isfinite(v))
+    pamg_checked::record_fault(k.record, 2, k.site,
+                               pamg_checked::kNonFinite, n, i,
+                               __float_as_int(v), 0);
+#endif
+}
 
 __global__ void rowop_thread_kernel(const int* __restrict__ cols,
                                     const float* __restrict__ vals,
                                     const float* __restrict__ x,
                                     float* __restrict__ y, int N, int D,
-                                    int S) {
+                                    int S, const Check chk) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const long long NN = N;
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
   for (int d = 0; d < D; ++d) {
-    const long long c = cols[d * NN + n];
+    const long long c = in_range(chk, cols[d * NN + n], S, n, d);
     const float x0 = x[c], x1 = x[S + c], x2 = x[2LL * S + c];
     const float* v = vals + d * 9 * NN + n;   // v[(3i + j) * N]
     a0 += v[0 * NN] * x0 + v[1 * NN] * x1 + v[2 * NN] * x2;
     a1 += v[3 * NN] * x0 + v[4 * NN] * x1 + v[5 * NN] * x2;
     a2 += v[6 * NN] * x0 + v[7 * NN] * x1 + v[8 * NN] * x2;
   }
+  expect_finite(chk, a0, n, 0);
+  expect_finite(chk, a1, n, 1);
+  expect_finite(chk, a2, n, 2);
   y[n] = a0;
   y[NN + n] = a1;
   y[2 * NN + n] = a2;
@@ -99,7 +145,7 @@ __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
                                    const float4* __restrict__ vals,
                                    const float* __restrict__ x,
                                    float* __restrict__ y, int N, int Q,
-                                   int S) {
+                                   int S, const Check chk) {
   extern __shared__ float sums[];
   const long long g = (static_cast<long long>(blockIdx.x) * blockDim.x
                        + threadIdx.x);
@@ -110,7 +156,11 @@ __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
   const float4* vr = vals + n * 9 * Q;
   float* rs = sums + static_cast<long long>(threadIdx.x / G) * Q * 12;
   for (int q = lane; q < Q; q += G) {
-    const int4 c = cr[q];
+    const int4 cq = cr[q];
+    const int4 c = make_int4(in_range(chk, cq.x, S, n, 4 * q),
+                             in_range(chk, cq.y, S, n, 4 * q + 1),
+                             in_range(chk, cq.z, S, n, 4 * q + 2),
+                             in_range(chk, cq.w, S, n, 4 * q + 3));
     float4 v[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) v[k] = vr[k * Q + q];
@@ -132,6 +182,9 @@ __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
       a1 += rs[3 * d + 1];
       a2 += rs[3 * d + 2];
     }
+    expect_finite(chk, a0, n, 0);
+    expect_finite(chk, a1, n, 1);
+    expect_finite(chk, a2, n, 2);
     y[n] = a0;
     y[static_cast<long long>(N) + n] = a1;
     y[2LL * N + n] = a2;
@@ -140,7 +193,8 @@ __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
 
 template <int G>
 cudaError_t launch_lanes(const void* cols, const void* vals, const void* x,
-                         void* y, int N, int Q, int S, cudaStream_t s) {
+                         void* y, int N, int Q, int S, cudaStream_t s,
+                         const Check chk) {
   const int threads = 128;
   const long long total = static_cast<long long>(N) * G;
   const unsigned int blocks =
@@ -149,7 +203,7 @@ cudaError_t launch_lanes(const void* cols, const void* vals, const void* x,
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   rowop_lanes_kernel<G><<<blocks, threads, smem, s>>>(
       static_cast<const int4*>(cols), static_cast<const float4*>(vals),
-      static_cast<const float*>(x), static_cast<float*>(y), N, Q, S);
+      static_cast<const float*>(x), static_cast<float*>(y), N, Q, S, chk);
   return cudaSuccess;
 }
 
@@ -158,12 +212,18 @@ cudaError_t launch_lanes(const void* cols, const void* vals, const void* x,
 // y (3, N) <- block-row operator (cols, vals) applied to x (3, S), on
 // `stream`.  lanes = 1: the thread variant, tables (D, N) / (D, 3, 3, N);
 // lanes = 4, 8, 16 or 32: the lane-group variant, tables (N, D) /
-// (N, 3, 3, D) with D a multiple of 4.  Returns cudaGetLastError() after
-// the launch: 0 when it was accepted.
+// (N, 3, 3, D) with D a multiple of 4.  The checked build records its
+// first fault in `record` (checked.cuh) as operator `site`; the unchecked
+// build ignores both.  Returns cudaGetLastError() after the launch: 0 when
+// it was accepted.
 extern "C" int k2_rowop(const void* cols, const void* vals, const void* x,
                         void* y, int N, int D, int S, int lanes,
-                        void* stream) {
+                        void* stream, void* record, int site) {
   if (N <= 0) return 0;
+#ifdef PAMG_CHECKED
+  if (record == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  const Check chk{static_cast<int*>(record), site};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lanes == 1) {
     const int threads = 256;
@@ -171,19 +231,19 @@ extern "C" int k2_rowop(const void* cols, const void* vals, const void* x,
         static_cast<unsigned int>((N + threads - 1) / threads);
     rowop_thread_kernel<<<blocks, threads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<float*>(y), N, D, S);
+        static_cast<const float*>(x), static_cast<float*>(y), N, D, S, chk);
   } else {
     cudaError_t err = cudaErrorInvalidValue;
     if (D % 4 != 0) {
       // the 16-byte loads need whole quads of slots
     } else if (lanes == 4) {
-      err = launch_lanes<4>(cols, vals, x, y, N, D / 4, S, s);
+      err = launch_lanes<4>(cols, vals, x, y, N, D / 4, S, s, chk);
     } else if (lanes == 8) {
-      err = launch_lanes<8>(cols, vals, x, y, N, D / 4, S, s);
+      err = launch_lanes<8>(cols, vals, x, y, N, D / 4, S, s, chk);
     } else if (lanes == 16) {
-      err = launch_lanes<16>(cols, vals, x, y, N, D / 4, S, s);
+      err = launch_lanes<16>(cols, vals, x, y, N, D / 4, S, s, chk);
     } else if (lanes == 32) {
-      err = launch_lanes<32>(cols, vals, x, y, N, D / 4, S, s);
+      err = launch_lanes<32>(cols, vals, x, y, N, D / 4, S, s, chk);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -31,14 +31,17 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   split depth (the level sweep runs n_split 5: C = 1024 children per
   macro).
 
-The sanitizer mode (``debug``) is not ported: it raises
-``NotImplementedError`` naming the ROADMAP.md item that will port it.
+With ``debug`` the step is a checked step (``utils.debugging``): the
+index tables are range-checked when the solver is built, the state is
+asserted finite before each step, K1 and K2 run their checked builds on
+the card, and the error record is read once a step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import typing
 import warnings
 
 import numpy as np
@@ -54,7 +57,7 @@ from ..ops.fused import FusedOperator, from_t, to_t
 from ..ops.phase import phase
 from ..ops.stencil import (StencilOperator, build_stencil, lam_max_estimate,
                            probe_stencil, to_dense)
-from ..utils import shape_functions
+from ..utils import debugging, shape_functions
 
 
 def manufactured_solution(x, y):
@@ -523,20 +526,13 @@ def prolong_t(e_coarse_t, parent, pweights):
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to p_a_multigrids_tpu_torch yet "
-        f"(ROADMAP.md, queue 1: {item})")
-
-
 def _check_config(cfg: SemiConfig):
-    """Raise for every setting whose path this port does not run."""
+    """Raise for settings that name no path or that contradict each
+    other."""
     if cfg.coarse_operator not in ("geometric", "galerkin"):
         raise ValueError(f"unknown coarse_operator {cfg.coarse_operator!r}")
     if cfg.restrictor not in ("linear", "corner_average"):
         raise ValueError(f"unknown restrictor {cfg.restrictor!r}")
-    if cfg.debug:
-        raise _not_ported("debug (sanitizer) mode", "CLI, IO and validation")
     if cfg.coarse_krylov:
         # an inner CG makes the V-cycle a nonlinear preconditioner
         if cfg.krylov:
@@ -549,6 +545,17 @@ def _check_config(cfg: SemiConfig):
                 "coarse_krylov assumes an SPD coarse operator; advective"
                 " physics may misconverge — prefer stationary coarse"
                 " sweeps here", stacklevel=3)
+
+
+class Stepper(typing.NamedTuple):
+    """How a solver steps in time: ``step`` maps a state in its stepping
+    layout to the next, ``convergence`` gives the residual norm of such a
+    state, ``to_state`` / ``from_state`` convert from / to the standard
+    (U, C, 3) layout (only where a state is read or written)."""
+    to_state: typing.Callable
+    step: typing.Callable
+    convergence: typing.Callable
+    from_state: typing.Callable
 
 
 # solvers whose smoothing phases run as whole K1 phases on the stencil path
@@ -655,6 +662,22 @@ class SemiSolver(nn.Module):
             buf("coarse_inv_t", coarse_inv[perm][:, perm])
 
         self._fine_tables()
+        self.sanitizer = None
+        if cfg.debug:
+            self._make_checked("_step_t")
+
+    def _make_checked(self, step: str):
+        """debug: range-check the index tables, route every K1 and K2 call
+        through the kernels' checked builds and make the method ``step`` a
+        checked step (``utils.debugging``)."""
+        self.sanitizer = debugging.attach(self)
+        setattr(self, step, debugging.checked(getattr(self, step),
+                                              self.sanitizer))
+
+    def stepper(self) -> Stepper:
+        """The transposed (3, C, U) time step: ``_step_t`` (checked under
+        debug) and ``convergence_t``."""
+        return Stepper(to_t, self._step_t, self.convergence_t, from_t)
 
     def _stencil_setup(self, host):
         """The stencil path's operators (``ops``), spectral bounds and SA

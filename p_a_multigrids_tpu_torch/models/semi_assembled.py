@@ -190,6 +190,15 @@ class AssembledSemiSolver(semi.SemiSolver):
         self.register_buffer("dinv_e", op.Dinv_t.transpose(2, 3).reshape(
             3, 3, E).contiguous())
         self._fine_tables()
+        self.sanitizer = None
+        if cfg.debug:
+            self._make_checked("_step")
+
+    def stepper(self) -> semi.Stepper:
+        """The step in the standard (U, C, 3) layout: ``_step`` (checked
+        under debug) and ``convergence``."""
+        same = lambda T: T
+        return semi.Stepper(same, self._step, self.convergence, same)
 
     @staticmethod
     def _flat(T):

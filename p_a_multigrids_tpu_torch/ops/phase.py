@@ -17,6 +17,12 @@ tensor the plain PyTorch version ``phase_reference`` runs instead; it is
 also what the tests and ``chip_smoke.py`` hold the kernel against.  There
 is no fallback: on a CUDA tensor the kernel builds and launches, or this
 module raises.
+
+An operator with a sanitizer site (``op.sanitizer``, set by
+``utils.debugging.attach`` for the checked step) launches ``CHECKED``, the
+checked build of the same source (``-DPAMG_CHECKED``: index and finite
+checks into the sanitizer's error record), with the unchecked build's
+launch plan; on the CPU its plain version's outputs are checked finite.
 """
 
 from __future__ import annotations
@@ -103,9 +109,14 @@ class PhaseKernel:
     launch ran, ``by_tier[tier]`` by one for a launch in that tier;
     ``launches_deep`` counts the launches on a level with C > ``DEEP_C``
     children (the TPU's ``PhaseOperatorResident`` regime).  The library is
-    built at the first launch (``cuda_build.load``)."""
+    built at the first launch (``cuda_build.load``).  A checked instance
+    (``plan_from`` the unchecked one) builds the source with
+    ``-DPAMG_CHECKED`` and plans its launches with the unchecked build's
+    limits, so that both builds run the same plan."""
 
-    def __init__(self):
+    def __init__(self, plan_from: "PhaseKernel | None" = None):
+        self.checked = plan_from is not None
+        self._plan_from = plan_from
         self.launches = 0
         self.launches_deep = 0
         self.rounds = 0
@@ -122,31 +133,47 @@ class PhaseKernel:
 
     def function(self):
         if self._lib is None:
-            lib, self.build_info = cuda_build.load("phase")
+            lib, self.build_info = cuda_build.load(
+                "phase", ("PAMG_CHECKED",) if self.checked else ())
             lib.k1_phase.argtypes = [ctypes.c_void_p] * 11 + [
                 ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 9 + [
-                ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             lib.k1_phase.restype = ctypes.c_int
             lib.k1_phase_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
             lib.k1_phase_limits.restype = ctypes.c_int
             self._lib = lib
         return self._lib.k1_phase
 
+    def limits(self, dev: int) -> tuple:
+        """(SMs, opt-in shared memory a block, streaming blocks an SM) of
+        this build on card ``dev`` (``k1_phase_limits``)."""
+        if dev not in self._limits:
+            self.function()
+            vals = [ctypes.c_int() for _ in range(3)]
+            err = self._lib.k1_phase_limits(*map(ctypes.byref, vals))
+            if err != 0:
+                raise RuntimeError(f"kernel K1: reading the card's "
+                                   f"limits failed: CUDA error {err}")
+            self._limits[dev] = tuple(v.value for v in vals)
+        return self._limits[dev]
+
     def plan(self, op: StencilOperator, tier: str | None = None
              ) -> PhasePlan:
-        """``phase_plan`` for op's level on op's card, cached per shape."""
+        """``phase_plan`` for op's level on op's card, cached per shape;
+        a checked instance's is the unchecked build's plan."""
+        if self._plan_from is not None:
+            plan = self._plan_from.plan(op, tier)
+            dev = op.Fp_t.device.index or 0
+            own, base = self.limits(dev)[2], self._plan_from.limits(dev)[2]
+            if plan.tier == "stream" and own < base:
+                raise RuntimeError(
+                    f"kernel K1, checked build: {own} streaming blocks fit "
+                    f"an SM, the unchecked build's plan needs {base}")
+            return plan
         dev = op.Fp_t.device.index or 0
         key = (dev, op.C, op.U, tier)
         if key not in self._plans:
-            if dev not in self._limits:
-                self.function()
-                vals = [ctypes.c_int() for _ in range(3)]
-                err = self._lib.k1_phase_limits(*map(ctypes.byref, vals))
-                if err != 0:
-                    raise RuntimeError(f"kernel K1: reading the card's "
-                                       f"limits failed: CUDA error {err}")
-                self._limits[dev] = tuple(v.value for v in vals)
-            self._plans[key] = phase_plan(op.C, op.U, *self._limits[dev],
+            self._plans[key] = phase_plan(op.C, op.U, *self.limits(dev),
                                           tier=tier)
         return self._plans[key]
 
@@ -155,15 +182,21 @@ class PhaseKernel:
         """Launch one phase of len(coefs) rounds (a ctypes float array) on
         ``stream``: round r reads x (r = 0) or the buffer round r - 1
         wrote, writes buf0 (r even) or buf1 (r odd), and the last round
-        writes z_out unless it is None."""
+        writes z_out unless it is None.  A checked instance records its
+        first fault in the error record of op's sanitizer site."""
         fn = self.function()
+        record, site = None, 0
+        if self.checked:
+            record = op.sanitizer.sanitizer.record.data_ptr()
+            site = op.sanitizer.index
         err = fn(x.data_ptr(), bp.data_ptr(), op.Fp_t.data_ptr(),
                  op.Xp_t.data_ptr(), op.intra_rows.data_ptr(),
                  op.slot_ptr.data_ptr(), op.slot_idx.data_ptr(),
                  op.src_cu.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
                  None if z_out is None else z_out.data_ptr(), coefs,
                  len(coefs), op.C, op.U, op.nb, TIERS.index(plan.tier),
-                 plan.grid, plan.threads, plan.slice, plan.smem, stream)
+                 plan.grid, plan.threads, plan.slice, plan.smem, stream,
+                 record, site)
         if err != 0:
             raise RuntimeError(f"kernel K1 (phase, {plan.tier} tier, "
                                f"{plan.grid} x {plan.threads}) launch failed:"
@@ -176,6 +209,8 @@ class PhaseKernel:
 
 
 KERNEL = PhaseKernel()
+# the checked build, which the checked step launches (utils/debugging.py)
+CHECKED = PhaseKernel(plan_from=KERNEL)
 
 
 def _round_coefs(coefs, want_z: bool, dtype: torch.dtype) -> list[float]:
@@ -242,8 +277,12 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
     """``phase`` with K1's tier forced to ``tier`` (None: ``phase_plan``'s
     choice); a tier the level does not fit raises ValueError."""
     _check(op, x_t, bp_t)
+    site = op.sanitizer
     if x_t.device.type == "cpu":
-        return phase_reference(op, x_t, bp_t, coefs, want_z)
+        x, z = phase_reference(op, x_t, bp_t, coefs, want_z)
+        if site is not None:
+            site.check_finite(1, x, z)
+        return x, z
     if x_t.device.type != "cuda":
         raise ValueError(f"phase: unsupported device {x_t.device}")
     if x_t.dtype != torch.float32:
@@ -253,7 +292,8 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
         return x_t, None
     with torch.cuda.device(x_t.device):
         stream = torch.cuda.current_stream(x_t.device).cuda_stream
-        plan = KERNEL.plan(op, tier)
+        kernel = KERNEL if site is None else CHECKED
+        plan = kernel.plan(op, tier)
         # the two ping-pong buffers (one for a single round) and z, in one
         # allocation
         n_bufs = min(2, sum(map(len, chunks)))
@@ -266,7 +306,7 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
             b0, b1 = bufs[0], bufs[-1]
             if src is b0:
                 b0, b1 = b1, b0
-            KERNEL.launch(op, src, bp_t, b0, b1,
+            kernel.launch(op, src, bp_t, b0, b1,
                           z if k == len(chunks) - 1 else None, chunk, plan,
                           stream)
             src = b0 if len(chunk) % 2 else b1

@@ -16,6 +16,11 @@ the plain PyTorch version ``rowop_reference`` runs instead; it is also what
 the tests and ``chip_smoke.py`` hold the kernel against.  There is no
 fallback: on a CUDA tensor the kernel builds and launches, or this module
 raises.
+
+An operator with a sanitizer site (``op.sanitizer``, set by
+``utils.debugging.attach`` for the checked step) launches ``CHECKED``, the
+checked build of the same source (``-DPAMG_CHECKED``), in the same variant;
+on the CPU its plain version's output is checked finite.
 """
 
 from __future__ import annotations
@@ -59,28 +64,37 @@ class SpMVKernel:
     """ctypes binding of ``k2_rowop`` with its launch count.
 
     ``launches`` grows by one for every kernel launch and nowhere else; the
-    library is built at the first launch (``cuda_build.load``)."""
+    library is built at the first launch (``cuda_build.load``), with
+    ``-DPAMG_CHECKED`` for a ``checked`` instance."""
 
-    def __init__(self):
+    def __init__(self, checked: bool = False):
+        self.checked = checked
         self.launches = 0
         self.build_info: dict | None = None
         self._fn = None
 
     def function(self):
         if self._fn is None:
-            lib, self.build_info = cuda_build.load("spmv")
+            lib, self.build_info = cuda_build.load(
+                "spmv", ("PAMG_CHECKED",) if self.checked else ())
             fn = lib.k2_rowop
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
     def launch(self, op: "RowOp", x_t, y_t, stream: int):
-        """y_t <- op(x_t) on ``stream``."""
+        """y_t <- op(x_t) on ``stream``; a checked instance records its
+        first fault in the error record of op's sanitizer site."""
         fn = self.function()
+        record, site = None, 0
+        if self.checked:
+            record = op.sanitizer.sanitizer.record.data_ptr()
+            site = op.sanitizer.index
         err = fn(op.cols_t.data_ptr(), op.vals_t.data_ptr(), x_t.data_ptr(),
-                 y_t.data_ptr(), op.n_out, op.Dp, op.n_src, op.lanes, stream)
+                 y_t.data_ptr(), op.n_out, op.Dp, op.n_src, op.lanes, stream,
+                 record, site)
         if err != 0:
             raise RuntimeError(f"kernel K2 (block-row SpMV, {op.variant}) "
                                f"launch failed: CUDA error {err}")
@@ -88,6 +102,8 @@ class SpMVKernel:
 
 
 KERNEL = SpMVKernel()
+# the checked build, which the checked step launches (utils/debugging.py)
+CHECKED = SpMVKernel(checked=True)
 
 
 class RowOp(nn.Module):
@@ -114,6 +130,8 @@ class RowOp(nn.Module):
         if N and (cols.min() < 0 or cols.max() >= n_src):
             raise ValueError(f"RowOp: column index outside [0, {n_src})")
         self.n_out, self.D, self.n_src = int(N), int(D), int(n_src)
+        # the checked step's site of this operator (utils.debugging.attach)
+        self.sanitizer = None
         self.variant, self.lanes, self.Dp = rowop_plan(N, D, variant)
         np_dtype = torch.empty((), dtype=dtype).numpy().dtype
         vals = np.asarray(vals, np_dtype)
@@ -169,7 +187,10 @@ def rowop(op: RowOp, x_t):
     """
     _check(op, x_t)
     if x_t.device.type == "cpu":
-        return rowop_reference(*op.tables(), x_t)
+        y_t = rowop_reference(*op.tables(), x_t)
+        if op.sanitizer is not None:
+            op.sanitizer.check_finite(2, y_t)
+        return y_t
     if x_t.device.type != "cuda":
         raise ValueError(f"rowop: unsupported device {x_t.device}")
     if x_t.dtype != torch.float32:
@@ -177,5 +198,6 @@ def rowop(op: RowOp, x_t):
     y_t = torch.empty((3, op.n_out), dtype=x_t.dtype, device=x_t.device)
     with torch.cuda.device(x_t.device):
         stream = torch.cuda.current_stream(x_t.device).cuda_stream
-        KERNEL.launch(op, x_t, y_t, stream)
+        (KERNEL if op.sanitizer is None else CHECKED).launch(op, x_t, y_t,
+                                                             stream)
     return y_t

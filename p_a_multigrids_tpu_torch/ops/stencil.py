@@ -432,6 +432,8 @@ class StencilOperator(nn.Module):
         nb = data.cross_blocks.shape[1]
         self.U, self.C, self.nb = U, C, nb
         self._data = data
+        # the checked step's site of this operator (utils.debugging.attach)
+        self.sanitizer = None
         np_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
         # premultiplied-smoother form: z = D^-1 (b - A x) with D = self

@@ -2,7 +2,9 @@
 
 ``load("phase")`` compiles ``csrc/phase.cu`` with ``nvcc`` for Hopper
 (``sm_90a``) into ``_build/phase-<hash>.so`` beside the sources, keyed by a
-hash of the source and the flags, and loads it with ``ctypes``.  The library
+hash of the source, the headers of ``csrc/``, the flags and the defines
+(``load("phase", defines=("PAMG_CHECKED",))`` builds the checked variant
+into a library of its own), and loads it with ``ctypes``.  The library
 has a plain C interface, so no PyTorch headers are compiled.  There is no
 fallback: a missing compiler or a failed build raises.
 """
@@ -37,8 +39,9 @@ def nvcc_path() -> str:
                        " the CUDA kernels cannot be built")
 
 
-def load(name: str):
-    """Build (unless built already) and load ``csrc/<name>.cu``.
+def load(name: str, defines: tuple = ()):
+    """Build (unless built already) and load ``csrc/<name>.cu``, with
+    ``-D<define>`` for each of ``defines``.
 
     Returns (ctypes.CDLL, info) with info = {"path", "seconds", "cached",
     "log"}: the library path, the build's wall time (0 when cached) and
@@ -46,15 +49,18 @@ def load(name: str):
     spill report.
     """
     src = SRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    key = hashlib.sha256(
+        b"".join(f.read_bytes() for f in
+                 [src] + sorted(SRC_DIR.glob("*.cuh")))
+        + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{key}.so"
     info = {"path": str(out), "seconds": 0.0, "cached": out.exists(),
             "log": ""}
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{name}-{key}.{os.getpid()}.so"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         info["seconds"] = time.perf_counter() - t0

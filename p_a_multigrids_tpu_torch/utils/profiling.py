@@ -210,13 +210,17 @@ def _busy_us(kernels) -> float:
 # counted raises, and the idle host time at both ends of a traced step: on
 # the H100 the tracer dropped kernel events near the edges of a step (1-18
 # of 60-700 in a window, 18 of 50 short K2 launches three times running)
-# until the steps had such margins
-TRACE_TRIES = 3
+# until the steps had such margins; and a trace of one short library call
+# came back empty three times running, so five tries
+TRACE_TRIES = 5
 MARGIN_S = 0.002
 
 
 def _launch_counts() -> dict:
-    return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches}
+    """Launches by kernel class, the checked builds' (the same kernel
+    names) included."""
+    return {"k1_phase": K.KERNEL.launches + K.CHECKED.launches,
+            "k2_rowop": K2.KERNEL.launches + K2.CHECKED.launches}
 
 
 def _trace(fn, reps: int):

@@ -123,14 +123,8 @@ def test_jax_only_flags_parse(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "m.geo"],
-    ["--vtu", "o.vtu"], ["--vtk-interval", "2"], ["--checkpoint", "c.npz"],
-    ["--ic", "x"], ["--bc", "x"], ["--source", "x"], ["--debug"],
-    ["--devices", "2"], ["--analytical", "x"],
-    ["--profile", "p.json"], ["--checkpoint", "c.npz", "--checkpoint-every",
-                              "2"],
+    ["--devices", "2"], ["--profile", "p.json"],
     ["--devices", "2", "--dist-ghost-frac", "0.5"],
-    ["--mode", "10", "--vtu", "o.vtu"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_unported_flags_exit_with_message(argv):
     with pytest.raises(SystemExit) as exc:
@@ -146,13 +140,16 @@ def test_cuda_device_without_card_exits():
 
 
 @pytest.mark.parametrize("extra,mode", [
-    ([], 9), (["--solver", "jacobi"], 9), (["--mode", "1"], 1)],
-    ids=["mode9", "mode9_jacobi", "mode1"])
-def test_runs_with_jax_blocked(extra, mode):
+    ([], 9), (["--solver", "jacobi"], 9), (["--mode", "1"], 1),
+    (["--debug", "--ic", "x*y", "--analytical", "x", "--vtk-interval",
+      "1", "--vtu", "{tmp}/x.vtu", "--checkpoint", "{tmp}/c.npz"], 9)],
+    ids=["mode9", "mode9_jacobi", "mode1", "mode9_debug_expressions_io"])
+def test_runs_with_jax_blocked(extra, mode, tmp_path):
     """Importing and running the port never touches jax or the JAX
     package."""
     argv = ["--rows", "2", "--cols", "2", "--n-split", "1", "--levels", "2",
-            "--ntime", "1", "--device", "cpu"] + extra
+            "--ntime", "1", "--device", "cpu"] + [
+                a.format(tmp=tmp_path) for a in extra]
     code = (
         "import sys, json\n"
         "sys.modules['jax'] = None\n"

@@ -327,3 +327,134 @@ def test_mode1_step_on_the_card_matches_cpu(cuda):
         out.append(T.cpu())
     assert float((out[0] - out[1]).abs().max()) <= 1e-5 * float(
         out[1].abs().max())
+
+
+# -- the checked builds (--debug): utils/debugging, csrc/checked.cuh --------
+
+def _checked(op, san=None):
+    """op with a sanitizer site (a fresh sanitizer unless given): its
+    launches go to the checked build."""
+    from p_a_multigrids_tpu_torch.utils import debugging
+    san = san or debugging.Sanitizer(op.vals_t.device if hasattr(op, "vals_t")
+                                     else op.Fp_t.device)
+    op.sanitizer = san.site("test operator", getattr(op, "U", 0))
+    return san
+
+
+@pytest.mark.parametrize("tier", [None, "small", "resident", "stream"])
+def test_checked_k1_is_bit_identical(cuda, tier):
+    """The checked build of K1 gives the unchecked build's bits in every
+    tier (the same plan, the same arithmetic), counts its launches on its
+    own instance, and leaves the error record clean."""
+    big = tier not in (None, "small")
+    op, cheb, x, b = _k1_level(3 if big else 2, cuda,
+                               (12, 10, 1 / 12, 0.1) if big else
+                               (6, 5, 0.2, 0.25))
+    runs = []
+    for checked in (False, True):
+        san = _checked(op) if checked else None
+        if not checked:
+            op.sanitizer = None
+        n0, c0 = K.KERNEL.launches, K.CHECKED.launches
+        out = K.phase_on_tier(op, x, op._bp(b, True), cheb, True, tier)
+        torch.cuda.synchronize()
+        assert (K.CHECKED.launches - c0, K.KERNEL.launches - n0) == (
+            (1, 0) if checked else (0, 1))
+        runs.append(out)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert K.CHECKED.plan(op, tier) == K.KERNEL.plan(op, tier)
+    san.raise_on_fault()
+
+
+def test_checked_k2_is_bit_identical(cuda):
+    """Every rowop of an SA hierarchy, both variants, checked == unchecked
+    bit for bit."""
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    L = semi.build_problem(mesh, cfg).levels[0]
+    data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+    h = agg.AggHierarchy(agg.build_hierarchy(
+        data, splitting.child_coords(mesh.X, 2), max_dense_dof=256,
+        strength=0.5, always=True), torch.float32, cuda)
+    rng = np.random.default_rng(2)
+    for op in h.rowops().values():
+        x = torch.tensor(rng.normal(size=(3, op.n_src)),
+                         dtype=torch.float32, device=cuda)
+        plain = op(x)
+        san = _checked(op)
+        c0 = spmv.CHECKED.launches
+        got = op(x)
+        torch.cuda.synchronize()
+        assert spmv.CHECKED.launches - c0 == 1
+        assert torch.equal(got, plain)
+        san.raise_on_fault()
+
+
+def _debug_pair(cuda, **kw):
+    cfg = SemiConfig(**{**dict(n_split=2, multi_levels=2, dt=0.05,
+                                ntime=2), **kw})
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    problem = semi.build_problem(mesh, cfg)
+    import dataclasses
+    plain = semi.SemiSolver(problem, cuda)
+    dbg = semi.SemiSolver(dataclasses.replace(
+        problem, cfg=dataclasses.replace(cfg, debug=True)), cuda)
+    return plain, dbg
+
+
+@pytest.mark.parametrize("kw", [{}, {"amg": True, "multi_levels": 1,
+                                     "krylov": True}],
+                         ids=["geometric", "amg_krylov"])
+def test_checked_step_is_bit_identical(cuda, kw):
+    """A clean checked run on the card gives the unchecked run's bits, with
+    as many checked launches as the unchecked run makes."""
+    plain, dbg = _debug_pair(cuda, **kw)
+    counts = []
+    outs = []
+    for sv, k1, k2 in ((plain, K.KERNEL, spmv.KERNEL),
+                       (dbg, K.CHECKED, spmv.CHECKED)):
+        n1, n2 = k1.launches, k2.launches
+        outs.append(sv.run())
+        torch.cuda.synchronize()
+        counts.append((k1.launches - n1, k2.launches - n2))
+    assert torch.equal(outs[0], outs[1])
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    if kw:
+        assert counts[0][1] > 0
+
+
+@pytest.mark.parametrize("table", ["src_cu", "intra_rows", "slot_idx",
+                                   "cols_t"])
+def test_checked_kernel_index_fault_raises(cuda, table):
+    """One index set out of range by hand after the solver was built (so
+    no host check sees it) raises IndexError from the checked kernel's
+    error record at the end of the step."""
+    _, dbg = _debug_pair(cuda, amg=True, multi_levels=1)
+    if table == "cols_t":
+        op = dbg.agg.levels[0].op
+        op.cols_t.view(-1)[5] = op.n_src + 3
+        match = r"K2 .*cols .*outside \[0, "
+    else:
+        op = dbg.ops[0]
+        bound = {"src_cu": op.C * op.U, "intra_rows": op.C,
+                 "slot_idx": op.nb}[table]
+        getattr(op, table).view(-1)[1] = bound + 7
+        match = r"K1 .*level 0 .*outside \[0, "
+    with pytest.raises(IndexError, match=match + ".*error record"):
+        dbg.run(ntime=1)
+
+
+def test_checked_kernel_nonfinite_raises(cuda):
+    """An infinite coefficient makes K1 write a non-finite value: the
+    checked build records it; a NaN state raises before the kernels."""
+    _, dbg = _debug_pair(cuda)
+    T0 = dbg.initial_condition()
+    bad = T0.clone()
+    bad[0, 0, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match="state before the step"):
+        dbg.run(bad, ntime=1)
+    dbg.ops[0].Fp_t.view(-1)[0] = float("inf")
+    with pytest.raises(FloatingPointError, match=r"K1 .*level 0 .*error "
+                       r"record"):
+        dbg.run(T0, ntime=1)

@@ -336,13 +336,3 @@ def test_probe_stencil_equals_closed_form(phys):
                   "cross_onehot"):
         np.testing.assert_array_equal(getattr(probed, field),
                                       getattr(exact, field))
-
-
-@pytest.mark.parametrize("kw", [
-    dict(debug=True),
-], ids=["debug"])
-def test_unported_paths_raise(kw):
-    cfg = tcfg.SemiConfig(n_split=1, multi_levels=2, dt=0.05, **kw)
-    problem = tsemi.build_problem(tstruct.tri_mesh(*MESH), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsemi.SemiSolver(problem, "cpu")
