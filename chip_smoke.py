@@ -64,9 +64,20 @@ checkpoint and resume (4 steps straight against 2 + 2, bit for bit) and a
 checked builds of K1 and K2 under --debug (the same launches and bits as
 the unchecked run, their device time beside the unchecked one, a NaN
 initial condition and one index set out of range by hand in a K1 and a K2
-operator each raising from the kernels' error record).  Every phase prints
-its numbers; any failure raises and the script exits non-zero.  The last
-line is
+operator each raising from the kernels' error record).
+
+Then the distributed solver (slice 8, phase 32): the geometric and the
+production amg configurations on the bench stand-in at 1 rank (nccl), 2
+and 4 ranks sharing the card (gloo, messages staged through host memory),
+one spawn a world size; on the first and last rank K1 on every level's
+extended-domain operators and K2 on every sharded SA rowop against their
+plain versions; 10 geometric cycles equal to the serial solver on the
+card bit for bit, amg within 2% + the f32 floor and its PCG count within
+one; n_split 4 at 2 ranks over a halo wider than a rank's block, bit for
+bit; ms a step with the share of host staging (the ranks share one card:
+not a scaling measurement); and the CLI's --devices 2 on the card against
+CPU ranks.  Every phase prints its numbers; any failure raises and the
+script exits non-zero.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -282,6 +293,355 @@ def history(solver, cycles: int = 10):
         r = solver.residual(0, from_t(x_t), from_t(b_t), True)
         out.append(float(r.abs().max()))
     return out
+
+
+# The distributed solver (slice 8, phase 32) on the bench stand-in: the
+# geometric configuration (bench.py's, with unpacked coarse levels, which
+# the distributed solver requires and which give the same numbers) and the
+# production amg one (utils.profiling.amg_solver's), each on 1 rank (nccl:
+# one card), 2 and 4 ranks sharing the card (gloo, messages staged through
+# host memory); at 2 ranks also n_split 4 (K1 at C = 256) on the level
+# sweep's mesh, one deep-ghost chunk whose halo (49 macros) spans more than
+# a rank's 48
+DIST_STANDIN = [128, 32, 3 / 128, 1 / 128]
+DIST_CONFIGS = {
+    "geo": (DIST_STANDIN, dict(n_split=2, multi_levels=2, dt=0.05, ntime=1,
+                               n_multigrid=1, coarse_agg=False,
+                               coarse_cheb_degree=8, coarse_cheb_lower=0.02)),
+    "amg": (DIST_STANDIN, dict(n_split=2, multi_levels=1, dt=0.05, ntime=1,
+                               n_multigrid=1, amg=True, agg_strength=0.5,
+                               cheb_degree=16, cheb_lower=0.05)),
+    "deep": ([8, 6, 1 / 8, 1 / 8], dict(n_split=4, multi_levels=2, dt=1e8,
+                                       ntime=1, n_multigrid=1,
+                                       coarse_agg=False,
+                                       dist_ghost_max_frac=1e9)),
+}
+DIST_WORLDS = {1: ("geo", "amg"), 2: ("geo", "amg", "deep"),
+               4: ("geo", "amg")}
+DIST_CYCLES = 10
+DIST_STEPS = 5               # timed steps a configuration, after one more
+
+
+def _dist_rank(comm, names, kernel_times):
+    """One rank of phase 32: for each configuration in ``names``, the
+    distributed solver's setup and ghost report; on the first and last
+    ranks K1 on each level's extended operators and K2 on each sharded
+    rowop against their plain versions; then the main path with every
+    count at 0 (DIST_CYCLES cycles from T0 with the residual after each
+    and, for amg, one PCG step to 1e-6), the counts; on rank 0 the serial
+    twin on the card from the same state; and ms a step by CUDA events on
+    rank 0 between barriers, with the host seconds of staging.  With
+    ``kernel_times``, rank 0 also times the fine phase on its extended
+    domain and the level-0 restriction partial product beside their plain
+    versions, bounds and (K2) the library call, by CUDA events and by
+    torch.profiler's device time."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p_a_multigrids_tpu_torch.config import SemiConfig
+    from p_a_multigrids_tpu_torch.mesh import structured
+    from p_a_multigrids_tpu_torch.ops import phase as K
+    from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
+    from p_a_multigrids_tpu_torch.parallel.stencil_solver import (
+        DistributedStencilSolver)
+    from p_a_multigrids_tpu_torch.utils.profiling import (
+        bound_ms, bsr_matrix, event_ms, least_bytes, phase_profile,
+        rowop_least_bytes, rowop_profile)
+
+    dev = comm.device
+    rng = np.random.default_rng(comm.rank)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+
+    def gmax(t):
+        """max |t| over every rank."""
+        return float(comm.all_gather(t.abs().max()[None]).max())
+
+    out = {}
+    for name in names:
+        mesh_args, cfg_kw = DIST_CONFIGS[name]
+        cfg = SemiConfig(**cfg_kw)
+        t0 = time.perf_counter()
+        dist = DistributedStencilSolver(structured.tri_mesh(*mesh_args),
+                                        cfg, comm)
+        torch.cuda.synchronize()
+        res = dict(setup_s=time.perf_counter() - t0,
+                   ghost=dist.ghost_report(), parity=[])
+        if comm.rank in (0, comm.world - 1):
+            for li, ph in enumerate(dist._phases):
+                coefs = dist._coefs[li][:ph.chunk]
+                for tag, op, tier, want_z in (
+                        ("fin", ph.op, ph.tier, True),
+                        ("mid", ph.op_mid, ph.tier_mid, False)):
+                    if op is None:
+                        continue
+                    x, bp = rand(3, op.C, op.U), rand(3, op.C, op.U)
+                    got = K.phase_on_tier(op, x, bp, coefs, want_z, tier)
+                    ref = K.phase_reference(op, x, bp, coefs, want_z)
+                    err = max(float((g - r).abs().max())
+                              for g, r in zip(got, ref) if r is not None)
+                    scale = max(float(r.abs().max()) for r in ref
+                                if r is not None)
+                    res["parity"].append(dict(
+                        kernel="k1", op=f"l{li}_{tag}", C=op.C, U=op.U,
+                        rounds=len(coefs) + want_z,
+                        tier=K.KERNEL.plan(op, tier).tier, err=err,
+                        rel=err / scale))
+            for rname, rop in dist.rowops().items():
+                x = rand(3, rop.n_src)
+                y, yr = rop(x), K2.rowop_reference(*rop.tables(), x)
+                err = float((y - yr).abs().max())
+                res["parity"].append(dict(
+                    kernel="k2", op=rname, N=rop.n_out, D=rop.D,
+                    S=rop.n_src, variant=rop.variant, err=err,
+                    rel=err / float(yr.abs().max())))
+        torch.cuda.synchronize()
+        # the main path, its counts from 0
+        comm.barrier()
+        K.KERNEL.reset()
+        K2.KERNEL.launches = 0
+        T0 = dist.initial_condition()
+        b = dist._rhs_t(T0)
+        x, hist = T0, []
+        for _ in range(DIST_CYCLES):
+            x = dist._vcycle_t(0, x, b)
+            hist.append(gmax(b - dist._apply_t(0, x, True)))
+        if cfg.amg:
+            dist.cfg = dataclasses.replace(cfg, krylov=True, krylov_tol=1e-6)
+            T_pcg = dist.step(T0)
+            dist.cfg = cfg
+        torch.cuda.synchronize()
+        res["counts"] = dict(k1=K.KERNEL.launches, k1_rounds=K.KERNEL.rounds,
+                             k1_tiers={k: v for k, v in
+                                       K.KERNEL.by_tier.items() if v},
+                             k2=K2.KERNEL.launches)
+        res["history"] = hist
+        res["pcg_iters"] = list(dist.krylov_iters)
+        x_full = comm.all_gather(x, -1)
+        pcg_full = comm.all_gather(T_pcg, -1) if cfg.amg else None
+        if comm.rank == 0:
+            sv = dist.serial
+            Tf = to_t(sv.initial_condition())
+            bf = sv._rhs_t(Tf)
+            xs, shist = Tf, []
+            for _ in range(DIST_CYCLES):
+                xs = sv._vcycle_t(0, xs, bf)
+                shist.append(float(sv.residual(0, from_t(xs), from_t(bf),
+                                               True).abs().max()))
+            res["serial_history"] = shist
+            res["bits_equal"] = bool(torch.equal(x_full, xs))
+            res["max_abs_diff"] = float((x_full - xs).abs().max())
+            if cfg.amg:
+                sv.cfg = dataclasses.replace(cfg, krylov=True,
+                                             krylov_tol=1e-6)
+                Ts = sv._step_t(Tf)
+                sv.cfg = cfg
+                res["serial_pcg_iters"] = list(sv.krylov_iters)
+                res["pcg_rel_diff"] = float((pcg_full - Ts).abs().max()
+                                            / Ts.abs().max())
+            torch.cuda.synchronize()
+        # ms a step (the bare step), rank 0's CUDA events between barriers
+        T = dist.step(T0)
+        comm.barrier()
+        torch.cuda.synchronize()
+        comm.reset_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(DIST_STEPS):
+            T = dist.step(T)
+        end.record()
+        torch.cuda.synchronize()
+        res["host_s"] = (time.perf_counter() - t0) / DIST_STEPS
+        comm.barrier()
+        res["ms_step"] = start.elapsed_time(end) / DIST_STEPS
+        res["stats"] = dict(comm.stats)
+        res["staging_share"] = (comm.stats["staging_s"] * 1e3 / DIST_STEPS
+                                / res["ms_step"])
+        res["wait_share"] = (comm.stats["wait_s"] * 1e3 / DIST_STEPS
+                             / res["ms_step"])
+        if kernel_times and comm.rank == 0:
+            res["kernel_times"] = kt = {}
+
+            def pair(run_k, run_p, reps):
+                """(kernel ms, plain ms) by CUDA events, in turns plain,
+                kernel, kernel, plain after 3 warm-up calls of each."""
+                for fn in (run_k, run_p):
+                    for _ in range(3):
+                        fn()
+                t = {run_k: [], run_p: []}
+                for fn in (run_p, run_k, run_k, run_p):
+                    t[fn].append(event_ms(fn, reps))
+                return sum(t[run_k]) / 2, sum(t[run_p]) / 2
+
+            ph = dist._phases[0]
+            op, coefs = ph.op, dist._coefs[0][:ph.chunk]
+            x, bp = rand(3, op.C, op.U), rand(3, op.C, op.U)
+            xr, zr = K.phase_reference(op, x, bp, coefs, True)
+            xk, zk = K.phase_on_tier(op, x, bp, coefs, True, ph.tier)
+            k_ms, p_ms = pair(
+                lambda: K.phase_on_tier(op, x, bp, coefs, True, ph.tier),
+                lambda: K.phase_reference(op, x, bp, coefs, True), 20)
+            kt["k1"] = dict(
+                C=op.C, U_ext=op.U, rounds=len(coefs) + 1,
+                tier=K.KERNEL.plan(op, ph.tier).tier, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound_ms(least_bytes(op)),
+                err=max(float((xk - xr).abs().max()),
+                        float((zk - zr).abs().max())),
+                # torch.profiler's device time of the same launch
+                device_us=phase_profile(op, len(coefs) + 1, tier=ph.tier)[
+                    "device_us_per_phase"])
+            rops = dist.rowops()
+            if rops:
+                rop = rops["l0_rc"]
+                x = rand(3, rop.n_src)
+                yr = K2.rowop_reference(*rop.tables(), x)
+                k_ms, p_ms = pair(
+                    lambda: rop(x),
+                    lambda: K2.rowop_reference(*rop.tables(), x), 50)
+                A, xv = bsr_matrix(rop), x.T.reshape(-1).contiguous()
+                for _ in range(3):
+                    A @ xv
+                kt["k2"] = dict(
+                    N=rop.n_out, D=rop.D, S=rop.n_src, variant=rop.variant,
+                    ms=k_ms, plain_ms=p_ms,
+                    least_MB=rowop_least_bytes(rop) / 1e6,
+                    bound_ms=bound_ms(rowop_least_bytes(rop)),
+                    library_ms=event_ms(lambda: A @ xv, 50),
+                    err=float((rop(x) - yr).abs().max()),
+                    scale=float(yr.abs().max()),
+                    library_err=float(((A @ xv).reshape(rop.n_out, 3).T
+                                       - yr).abs().max()))
+                prof = rowop_profile(rop)
+                kt["k2"].update(device_us=prof["device_us"],
+                                library_device_us=prof["library_us"])
+        comm.barrier()
+        out[name] = res
+        del dist
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_phase(card: str):
+    """Phase 32, the distributed solver (slice 8) on the bench stand-in: 1
+    rank under nccl, 2 and 4 ranks sharing the card under gloo, one spawn a
+    world size running every configuration of DIST_WORLDS (``_dist_rank``);
+    then the CLI's --devices 2 on the card against CPU ranks.  Returns
+    (rank 0's K1 and K2 launches in the 4-rank main path, its K1 and K2
+    timings) for the kernels line."""
+    import torch
+
+    from p_a_multigrids_tpu_torch import __main__ as cli
+    from p_a_multigrids_tpu_torch.parallel import comm as dcomm
+    dist_res = {}
+    for world, names in DIST_WORLDS.items():
+        t0 = time.time()
+        backend = dcomm.backend_for("cuda", world)
+        check(backend == ("nccl" if world <= torch.cuda.device_count()
+                          else "gloo"), f"{world} ranks: backend {backend}")
+        dist_res[world] = res = dcomm.launch(
+            _dist_rank, world, "cuda", args=(names, world == 4),
+            timeout=600, pg_timeout=300, threads=max(1, 8 // world))
+        say("dist", ranks=world, backend=backend, configs=list(names),
+            seconds=f"{time.time() - t0:.1f}")
+        for name in names:
+            r0 = res[0][name]
+            say("dist_setup", ranks=world, config=name,
+                seconds=[f"{r[name]['setup_s']:.1f}" for r in res])
+            for lv in r0["ghost"]:
+                say("ghost", ranks=world, config=name, **lv)
+            for rank in sorted({0, world - 1}):
+                for p in res[rank][name]["parity"]:
+                    say("parity", ranks=world, rank=rank, config=name,
+                        **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+                           for k, v in p.items()})
+                    tol = 1e-4 if p["kernel"] == "k1" else 1e-5
+                    check(p["rel"] <= tol,
+                          f"{world} ranks, rank {rank}, {name}: {p}")
+            counts = [r[name]["counts"] for r in res]
+            say("main", path=f"dist_{name}", ranks=world, launches=counts,
+                history=[f"{v:.5e}" for v in r0["history"]],
+                serial_history=[f"{v:.5e}" for v in r0["serial_history"]],
+                bits_equal=r0["bits_equal"],
+                max_abs_diff=f"{r0['max_abs_diff']:.3e}",
+                pcg_iters=r0["pcg_iters"],
+                serial_pcg_iters=r0.get("serial_pcg_iters"))
+            check(all(c["k1"] > 0 for c in counts),
+                  f"{world} ranks, {name}: a rank launched no K1: {counts}")
+            if name == "amg":
+                check(all(c["k2"] > 0 for c in counts),
+                      f"{world} ranks, amg: a rank launched no K2: {counts}")
+                check(abs(r0["pcg_iters"][0] - r0["serial_pcg_iters"][0])
+                      <= 1, f"{world} ranks: PCG {r0['pcg_iters']} "
+                      f"iterations, serial {r0['serial_pcg_iters']}")
+                check(r0["pcg_rel_diff"] <= 1e-4,
+                      f"{world} ranks: PCG step {r0['pcg_rel_diff']:.3e} "
+                      "from the serial one")
+            if name != "amg" or world == 1:
+                # the same arithmetic as the serial solver: bit for bit
+                check(r0["bits_equal"] and r0["history"]
+                      == r0["serial_history"],
+                      f"{world} ranks, {name}: {DIST_CYCLES} cycles differ "
+                      f"from the serial solver by {r0['max_abs_diff']:.3e}")
+            else:
+                # the sharded SA restriction sums in another order; where
+                # the floor is the larger term a cycle is held to the band
+                # alone (the PCG checks above hold the converged end)
+                say("band", ranks=world, config=name,
+                    cycles_held_by_2pc=[
+                        i + 1 for i, w in enumerate(r0["serial_history"])
+                        if 0.02 * w > AMG_FLOOR],
+                    cycles_held_by_floor=[
+                        i + 1 for i, w in enumerate(r0["serial_history"])
+                        if 0.02 * w <= AMG_FLOOR])
+                for i, (g, w) in enumerate(zip(r0["history"],
+                                               r0["serial_history"])):
+                    check(math.isfinite(g)
+                          and abs(g - w) <= 0.02 * w + AMG_FLOOR,
+                          f"{world} ranks, amg cycle {i + 1}: {g:.4e} not "
+                          f"within 2% + {AMG_FLOOR:.2e} of {w:.4e}")
+            say("time", path=f"dist_{name}", ranks=world,
+                ms_step=f"{r0['ms_step']:.3f}",
+                host_ms_step=f"{1e3 * r0['host_s']:.3f}",
+                staging_share=f"{r0['staging_share']:.3f}",
+                wait_share=f"{r0['wait_share']:.3f}",
+                messages=r0["stats"]["messages"], bytes=r0["stats"]["bytes"],
+                note="ranks share one card: host and staging cost, not "
+                     "scaling", card=repr(card))
+    deep = dist_res[2][0]["deep"]["ghost"]
+    check(all(lv["He"] > lv["U_loc"] for lv in deep),
+          f"deep split: no multi-hop halo {deep}")
+    kt1 = dist_res[4][0]["geo"]["kernel_times"]["k1"]
+    kt2 = dist_res[4][0]["amg"]["kernel_times"]["k2"]
+    say("time", kernel="k1_phase_dist", card=repr(card),
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+           for k, v in kt1.items()})
+    say("time", kernel="k2_rowop_dist", op="l0_rc", card=repr(card),
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+           for k, v in kt2.items()})
+    check(kt2["library_err"] <= 1e-5 * kt2["scale"],
+          f"l0_rc: the BSR yardstick differs by {kt2['library_err']:.3e}")
+    dist_k1_launches = sum(dist_res[4][0][n]["counts"]["k1"]
+                           for n in DIST_WORLDS[4])
+    dist_k2_launches = dist_res[4][0]["amg"]["counts"]["k2"]
+    # (d) the CLI: --devices 2 on the card against the same on CPU ranks
+    g_out = cli.main(CLI_ARGS + ["--devices", "2"])
+    c_out = cli.main(CLI_ARGS + ["--devices", "2", "--device", "cpu"])
+    say("main", path="dist_cli", cuda=g_out, cpu=c_out)
+    check(set(g_out) == set(c_out) == {"mode", "devices", "elements",
+                                       "children", "L1_error", "wall_s"},
+          f"--devices keys {sorted(g_out)}")
+    check(abs(g_out["L1_error"] - c_out["L1_error"])
+          <= 1e-4 * abs(c_out["L1_error"]),
+          f"--devices 2: L1 {g_out['L1_error']} on the card, "
+          f"{c_out['L1_error']} on the CPU")
+    return dist_k1_launches, dist_k2_launches, kt1, kt2
 
 
 def main():
@@ -1766,6 +2126,9 @@ def main():
     torch.cuda.synchronize()
     del T_t
 
+    # 32. the distributed solver (slice 8) ----------------------------------
+    dist_k1_launches, dist_k2_launches, kt1, kt2 = dist_phase(card)
+
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x
     # and z; a rowop's tables and vectors); a K1 phase has no library call,
@@ -1820,7 +2183,21 @@ def main():
         "launches": main_checked["k2_checked"], "max_abs_err": k2c_err,
         "ms": k2c_ms, "plain_ms": k2_ms["l0_op"][1],
         "bound_ms": k2_ms["l0_op"][2], "bound_by": "bytes",
-        "library_ms": k2_ms["l0_op"][3]}]}),
+        "library_ms": k2_ms["l0_op"][3]}, {
+        "name": "k1_phase_dist", "route": "cuda",
+        "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
+        "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:176",
+        "launches": dist_k1_launches, "max_abs_err": kt1["err"],
+        "ms": kt1["ms"], "plain_ms": kt1["plain_ms"],
+        "bound_ms": kt1["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "k2_rowop_dist", "route": "cuda",
+        "source": "p_a_multigrids_tpu_torch/csrc/spmv.cu",
+        "replaces": "p_a_multigrids_tpu/ops/pallas_bsr.py:144",
+        "launches": dist_k2_launches, "max_abs_err": kt2["err"],
+        "ms": kt2["ms"], "plain_ms": kt2["plain_ms"],
+        "bound_ms": kt2["bound_ms"], "bound_by": "bytes",
+        "library_ms": kt2["library_ms"]}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,17 @@ mode, elements, wall_s; 7, 9, 10: also residual_history, children,
 L1_error, residual; 8: the same without residual_history; vtu,
 vtu_series and resumed_from_step with their flags), plus
 krylov_iterations with --krylov in modes 7 and 9.  ``--cpu`` is
-``--device cpu``.  The profiler flag and ``--devices`` are not ported yet:
-each exits with a message naming the ROADMAP.md item that will port it
-(``--dist-ghost-frac`` is parsed, and matters only beside ``--devices``).
+``--device cpu``.
+
+``--devices N`` runs mode 9 on N ranks (``parallel.comm.launch``: one
+process a rank over torch.distributed, on --device; CUDA ranks sharing one
+card talk through gloo) through ``parallel.stencil_solver.
+DistributedStencilSolver``, with ``--dist-ghost-frac`` its ghost-depth cap
+and ``--checkpoint`` / ``--checkpoint-every`` as above; rank 0's line has
+the JAX CLI's keys of that path (mode, devices, elements, children,
+L1_error, wall_s, resumed_from_step with a resumed checkpoint, vtu with
+--vtu).  The profiler flag is not ported yet: it exits with a message
+naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -45,12 +53,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 
 # flag (argparse dest) -> ROADMAP.md queue-1 item that ports it
 UNPORTED_FLAGS = {
     "profile": "port bench (profiling)",
-    "devices": "distributed solver",
 }
 
 
@@ -127,11 +135,15 @@ def _parser():
                          "range-checked at setup, the state asserted "
                          "finite, checked builds of kernels K1 and K2 on "
                          "the card; one synchronisation a step)")
-    # not ported yet: each exits with a message (UNPORTED_FLAGS)
+    # not ported yet: exits with a message (UNPORTED_FLAGS)
     ap.add_argument("--profile", type=str, default=None)
-    ap.add_argument("--devices", type=int, default=0)
-    # the JAX CLI's default; it matters only beside --devices
-    ap.add_argument("--dist-ghost-frac", type=float, default=0.25)
+    ap.add_argument("--devices", type=int, default=0, metavar="N",
+                    help="mode 9: run the distributed stencil solver on N "
+                         "ranks")
+    ap.add_argument("--dist-ghost-frac", type=float, default=0.25,
+                    help="with --devices: ghost rows of a smoothing phase "
+                         "at most this fraction of a rank's macros (else "
+                         "its rounds run in chunks)")
     return ap
 
 
@@ -155,6 +167,8 @@ def _parse(argv):
     if args.f64 and device.type != "cpu":
         raise SystemExit("--f64 runs on --device cpu only: kernels K1 and K2 are "
                          "float32")
+    if args.devices and args.debug:
+        raise SystemExit("--debug runs on one device: leave out --devices")
     return args, device
 
 
@@ -212,6 +226,7 @@ def _semi_cfg(args):
         coarse_cheb_degree=args.coarse_cheb_degree,
         coarse_cheb_lower=args.coarse_cheb_lower,
         coarse_pack=args.coarse_pack,
+        dist_ghost_max_frac=args.dist_ghost_frac,
         physics=Physics(k=args.k, u=tuple(args.u),
                         advection=any(args.u),
                         surface_terms=not args.no_surface_terms),
@@ -355,12 +370,24 @@ def _vtu_final(args, out, T, solver):
 def run(argv=None):
     """Run the CLI without printing: returns (the JSON dict, the final
     state T (U, C, 3) on the run's device, the solver that ran the last
-    steps); in mode 1, T (E, 4) and the ``RectProblem``."""
+    steps); in mode 1, T (E, 4) and the ``RectProblem``; with --devices,
+    (the JSON dict, None, None): the state stays in the ranks."""
     import torch
 
     t0 = time.time()
     args, device = _parse(argv)
     out = {"mode": args.mode}
+    if args.devices and args.mode == 9:
+        import os
+
+        from .parallel import comm, programs
+
+        argv = sys.argv[1:] if argv is None else list(argv)
+        out.update(comm.launch(
+            programs.cli_rank, args.devices, device, args=(argv,),
+            threads=max(1, (os.cpu_count() or 1) // args.devices))[0])
+        out["wall_s"] = round(time.time() - t0, 3)
+        return out, None, None
     if args.mode == 1:
         T, solver = _rect(args, device, out)
     elif args.mode <= 6:

@@ -119,6 +119,10 @@ class SemiConfig:
     coarse_cheb_degree: int | None = None
     coarse_cheb_lower: float | None = None
     coarse_operator: str = "geometric"   # or "galerkin" (P^T A P)
+    # distributed stencil solver: a smoothing phase's ghost rows (2 He a
+    # rank) at most this fraction of the rank's U_loc macros, or its rounds
+    # run in chunks with a halo exchange before each (parallel/)
+    dist_ghost_max_frac: float = 0.25
     restrictor: str = "linear"           # or "corner_average"
     physics: Physics = dataclasses.field(default_factory=Physics)
     manufactured: bool = True

@@ -8,8 +8,8 @@ V-cycles.  On the card the cycle's smoothing phases run kernel K1.
 
     python -m p_a_multigrids_tpu_torch.entry [--device cpu]
 
-prints the shape of one step's output.  The multi-chip dry run waits for
-the distributed solver (ROADMAP.md, queue 1).
+prints the shape of one step's output.  ``dryrun_multichip(n)`` runs the
+sharded step on n ranks (``parallel``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,25 @@ def entry(device=None):
         return from_t(T_t)
 
     return step, (T0,)
+
+
+def dryrun_multichip(n_ranks: int, device=None) -> list:
+    """The counterpart of the JAX package's ``__graft_entry__.
+    dryrun_multichip``: the sharded solver step on ``n_ranks`` ranks of
+    ``parallel.comm.launch`` on ``device`` (the card unless the caller asks
+    for the CPU): RCM-banded macro partitioning, ring halo exchanges (k-hop
+    where a halo is wider than a rank's block), K1 phases on deep-ghost
+    extended domains, the sharded SA correction through K2, Krylov dots
+    summed over the ranks, macro-local transfers and the replicated dense
+    coarsest solve.  Three configurations run (geometric, Krylov W-cycle,
+    the production amg), and with four or more ranks, an even number, the
+    production one again with mesh_shape (2, n/2).  Returns rank 0's
+    final state shapes."""
+    from .parallel import comm, programs
+
+    return comm.launch(programs.dryrun_rank, n_ranks,
+                       torch.device("cuda" if device is None else device),
+                       args=(n_ranks,))[0]
 
 
 def main(argv=None):

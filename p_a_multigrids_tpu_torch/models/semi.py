@@ -614,6 +614,7 @@ class SemiSolver(nn.Module):
         self._levels_t = None
         self._block_inv = None
         self.agg = None
+        self._agg_host = None
         self._agg_li = None
 
         def buf(name, a):
@@ -727,6 +728,8 @@ class SemiSolver(nn.Module):
                     target=cfg.agg_target)
             if h.levels:
                 self.agg = agg.AggHierarchy(h, self.dtype, self.device)
+                # the host tables, which the distributed solver shards
+                self._agg_host = h
                 self._agg_li = li
                 if self.agg.fine_dinv_t is not None:
                     # (3, E) -> (3, C, U), E = u*C + c

@@ -28,24 +28,25 @@ def _safe_div(a, b):
 
 
 def pcg(apply_A: Callable, b, x0, precond: Callable | None = None,
-        tol: float = 1e-8, maxiter: int = 200):
-    """Preconditioned CG for SPD systems.
+        tol: float = 1e-8, maxiter: int = 200, dot: Callable = _dot):
+    """Preconditioned CG for SPD systems.  ``dot`` is the inner product
+    (a distributed solver passes one summed over its ranks).
 
     Returns (x, iterations, final_residual_norm)."""
     M = precond or (lambda r: r)
-    bnorm = torch.sqrt(_dot(b, b))
+    bnorm = torch.sqrt(dot(b, b))
     atol = tol * torch.clamp(bnorm, min=1e-30)
 
     x = x0
     r = b - apply_A(x0)
     z = M(r)
     p = z
-    rz = _dot(r, z)
+    rz = dot(r, z)
     ok = True
     it = 0
-    while it < maxiter and ok and bool(torch.sqrt(_dot(r, r)) > atol):
+    while it < maxiter and ok and bool(torch.sqrt(dot(r, r)) > atol):
         Ap = apply_A(p)
-        pAp = _dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = _safe_div(rz, pAp)
         # <p, Ap> <= 0 means A (or M) is not SPD on this subspace: a true
         # CG breakdown; freeze the iterate and stop instead of diverging
@@ -55,39 +56,40 @@ def pcg(apply_A: Callable, b, x0, precond: Callable | None = None,
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = _safe_div(rz_new, rz)
         p = z + beta * p
         rz = rz_new
         it += 1
-    return x, it, torch.sqrt(_dot(r, r))
+    return x, it, torch.sqrt(dot(r, r))
 
 
 def bicgstab(apply_A: Callable, b, x0, precond: Callable | None = None,
-             tol: float = 1e-8, maxiter: int = 200):
+             tol: float = 1e-8, maxiter: int = 200, dot: Callable = _dot):
     """Preconditioned BiCGStab for nonsymmetric (advective) systems.
 
     When the shadow product rho = <rhat, r> degenerates (|rho| < 1e-12
     |<r, r>|) the shadow residual is re-anchored at r (a restart); a step
     whose residual is non-finite or above 1e4 x the best one so far is
     rejected and forces a restart.  Returns (x_best, iterations, rn_best):
-    the iterate of smallest residual norm, not the last one."""
+    the iterate of smallest residual norm, not the last one.  ``dot`` is
+    the inner product, as in ``pcg``."""
     M = precond or (lambda r: r)
-    bnorm = torch.sqrt(_dot(b, b))
+    bnorm = torch.sqrt(dot(b, b))
     atol = tol * torch.clamp(bnorm, min=1e-30)
 
     r = b - apply_A(x0)
     x, rhat = x0, r
-    rn_best = torch.sqrt(_dot(r, r))
+    rn_best = torch.sqrt(dot(r, r))
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho = alpha = omega = one
     v = p = torch.zeros_like(b)
     x_best = x0
     it = 0
     while it < maxiter and bool((rn_best > atol)
-                                & (torch.sqrt(_dot(r, r)) > atol)):
-        rho_new = _dot(rhat, r)
-        rr = _dot(r, r)
+                                & (torch.sqrt(dot(r, r)) > atol)):
+        rho_new = dot(rhat, r)
+        rr = dot(r, r)
         # Lanczos breakdown (|<rhat, r>| << |r|^2): restart with rhat = r
         restart = rho_new.abs() < 1e-12 * rr.abs()
         rhat = torch.where(restart, r, rhat)
@@ -98,14 +100,14 @@ def bicgstab(apply_A: Callable, b, x0, precond: Callable | None = None,
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = apply_A(phat)
-        alpha = _safe_div(rho_new, _dot(rhat, v))
+        alpha = _safe_div(rho_new, dot(rhat, v))
         s = r - alpha * v
         shat = M(s)
         t = apply_A(shat)
-        omega = _safe_div(_dot(t, s), _dot(t, t))
+        omega = _safe_div(dot(t, s), dot(t, t))
         x_n = x + alpha * phat + omega * shat
         r_n = s - omega * t
-        rn_n = torch.sqrt(_dot(r_n, r_n))
+        rn_n = torch.sqrt(dot(r_n, r_n))
         # step rejection: a non-finite or exploding step (> 1e4 x the best
         # residual so far, far beyond BiCGStab's normal nonmonotonicity)
         # keeps the previous iterate and forces a clean restart next round
@@ -119,7 +121,7 @@ def bicgstab(apply_A: Callable, b, x0, precond: Callable | None = None,
         alpha = torch.where(bad, one, alpha)
         omega = torch.where(bad, one, omega)
         rho = torch.where(bad, one, rho_new)
-        rn_cur = torch.where(bad, torch.sqrt(_dot(r, r)), rn_n)
+        rn_cur = torch.where(bad, torch.sqrt(dot(r, r)), rn_n)
         better = rn_cur < rn_best
         x_best = torch.where(better, x, x_best)
         rn_best = torch.where(better, rn_cur, rn_best)

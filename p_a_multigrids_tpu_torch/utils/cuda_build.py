@@ -5,13 +5,15 @@
 hash of the source, the headers of ``csrc/``, the flags and the defines
 (``load("phase", defines=("PAMG_CHECKED",))`` builds the checked variant
 into a library of its own), and loads it with ``ctypes``.  The library
-has a plain C interface, so no PyTorch headers are compiled.  There is no
-fallback: a missing compiler or a failed build raises.
+has a plain C interface, so no PyTorch headers are compiled.  Processes
+that find the library missing at once build it once, under a file lock.
+There is no fallback: a missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -59,14 +61,25 @@ def load(name: str, defines: tuple = ()):
             "log": ""}
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{name}-{key}.{os.getpid()}.so"
-        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                               f"{src}:\n{info['log']}")
-        os.replace(tmp, out)          # atomic: concurrent builds agree
+        # one build a library: processes that start together (the ranks of
+        # a distributed run) wait for the first one's; the lock goes with
+        # the process that holds it
+        with open(BUILD_DIR / f".{name}-{key}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            info["cached"] = out.exists()
+            if not out.exists():
+                _build(src, flags, out, info)
     return ctypes.CDLL(str(out)), info
+
+
+def _build(src: Path, flags: tuple, out: Path, info: dict):
+    tmp = out.with_name(f".{out.stem}.{os.getpid()}.so")
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    info["seconds"] = time.perf_counter() - t0
+    info["log"] = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
+                           f"{src}:\n{info['log']}")
+    os.replace(tmp, out)

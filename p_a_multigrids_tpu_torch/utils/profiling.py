@@ -93,9 +93,13 @@ def least_bytes(op: StencilOperator, itemsize: int = 4,
 
 
 def rowop_least_bytes(op: RowOp, itemsize: int = 4) -> int:
-    """Bytes one K2 launch must move at least: the tables (9 values and
-    one int32 column per slot), x read once and y written once."""
-    return (op.n_out * op.D * (9 * itemsize + 4)
+    """Bytes one K2 launch must move at least: the tables' nonzero slots
+    (9 values and one int32 column each; a zero block, such as a padding
+    slot, adds nothing to y and is not counted), x read once and y
+    written once."""
+    vals = op.tables()[1]                                 # (D, 3, 3, N)
+    slots = int((vals != 0).flatten(1, 2).any(1).sum())
+    return (slots * (9 * itemsize + 4)
             + 3 * (op.n_src + op.n_out) * itemsize)
 
 

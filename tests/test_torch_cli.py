@@ -1,5 +1,5 @@
 """The port's CLI == the JAX package's CLI (float64, CPU) in modes 1-10
-and with every --solver; flags the port lacks exit with a message; the
+and with every --solver; the flag the port lacks exits with a message; the
 port runs with jax blocked."""
 
 import json
@@ -122,14 +122,26 @@ def test_jax_only_flags_parse(capsys):
     assert got["residual_history"] == plain["residual_history"]
 
 
-@pytest.mark.parametrize("argv", [
-    ["--devices", "2"], ["--profile", "p.json"],
-    ["--devices", "2", "--dist-ghost-frac", "0.5"],
-], ids=lambda a: "_".join(a).strip("-"))
+@pytest.mark.parametrize("argv", [["--profile", "p.json"]],
+                         ids=lambda a: "_".join(a).strip("-"))
 def test_unported_flags_exit_with_message(argv):
     with pytest.raises(SystemExit) as exc:
         tcli.main(SMALL + ["--device", "cpu"] + argv)
     assert "not ported" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--devices", "2"], ["--devices", "2", "--dist-ghost-frac", "0.5"],
+], ids=lambda a: "_".join(a).strip("-"))
+def test_cli_devices_runs_on_cpu_ranks(argv, capsys):
+    """--devices N runs mode 9 on N CPU ranks and prints the JAX CLI's keys
+    of that path."""
+    got = tcli.main(SMALL + ["--device", "cpu"] + argv)
+    capsys.readouterr()
+    assert set(got) == {"mode", "devices", "elements", "children",
+                        "L1_error", "wall_s"}
+    assert got["devices"] == 2 and got["elements"] == 32
+    assert np.isfinite(got["L1_error"])
 
 
 def test_cuda_device_without_card_exits():

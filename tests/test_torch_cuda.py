@@ -458,3 +458,49 @@ def test_checked_kernel_nonfinite_raises(cuda):
     with pytest.raises(FloatingPointError, match=r"K1 .*level 0 .*error "
                        r"record"):
         dbg.run(T0, ntime=1)
+
+
+# -- the distributed solver (parallel/) on the card ----------------------------
+
+DIST_CASE = dict(id="geo", kind="stencil", mesh=[16, 4, 0.25, 0.25],
+                 cfg=dict(n_split=2, multi_levels=2, dt=0.05, ntime=2,
+                          n_multigrid=2), ntime=2, serial=True)
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_distributed_on_the_card_equals_serial(cuda, ranks):
+    """1 rank (nccl: one card a rank) and 2 ranks sharing the card (gloo,
+    messages staged through host memory): two geometric steps equal the
+    serial solver's on the card bit for bit, the ranks' K1 phases on their
+    extended domains included."""
+    from p_a_multigrids_tpu_torch.parallel import cases, comm
+
+    backend = comm.backend_for(cuda, ranks)
+    assert backend == ("nccl" if ranks <= torch.cuda.device_count()
+                       else "gloo")
+    r = comm.launch(cases.run_cases, ranks, cuda, args=([DIST_CASE],),
+                    timeout=300)[0]["geo"]
+    np.testing.assert_array_equal(r["std"], r["serial"])
+    assert r["k1"] > 0
+
+
+def test_k1_on_an_extended_domain_matches_plain(cuda):
+    """K1 on a rank's extended-domain operator (4 ranks, rank 1, the final
+    and the mid geometry of a chunked phase) against phase_reference."""
+    from p_a_multigrids_tpu_torch.parallel import stencil_solver as ss
+
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    L = semi.build_problem(structured.tri_mesh(16, 4, 0.25, 0.25),
+                           cfg).levels[0]
+    data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+    U, C = data.self_blocks.shape[:2]
+    W, U_loc = ss.band(data), U // 4
+    rng = np.random.default_rng(1)
+    for H, rounds in ((2 * W, 1), (W, 1)):
+        op = stencil.StencilOperator(
+            ss._ext_data(data, U, C, U_loc - H, U_loc + 2 * H),
+            torch.float32, cuda)
+        x, bp = (torch.tensor(rng.normal(size=(3, C, op.U)),
+                              dtype=torch.float32, device=cuda)
+                 for _ in range(2))
+        _k1_matches_plain(op, x, bp, [0.7] * rounds, H == 2 * W, 1e-4)

@@ -88,6 +88,18 @@ def test_rowop_least_bytes_counts_tables_and_vectors():
     assert profiling.rowop_least_bytes(op, 4) == tables + (3 * 7 + 3 * 5) * 4
 
 
+def test_rowop_least_bytes_skips_zero_blocks():
+    """Padding slots (zero blocks) move no bytes the product needs."""
+    vals = np.ones((5, 3, 3, 3))
+    vals[1:, 2] = 0
+    vals[4] = 0
+    op = spmv.RowOp(np.zeros((5, 3), np.int64), vals, 7, torch.float32,
+                    "cpu")
+    slots = 3 + 2 * 3
+    assert (profiling.rowop_least_bytes(op, 4)
+            == slots * (9 * 4 + 4) + (3 * 7 + 3 * 5) * 4)
+
+
 def test_bound_is_least_bytes_over_the_h100_memory_rate():
     """20.4 MB, the fine phase at C = 16, U = 8192, takes 6.1 us at least."""
     assert profiling.bound_ms(3.35e9) == pytest.approx(1.0)
