@@ -76,8 +76,17 @@ card bit for bit, amg within 2% + the f32 floor and its PCG count within
 one; n_split 4 at 2 ranks over a halo wider than a rank's block, bit for
 bit; ms a step with the share of host staging (the ranks share one card:
 not a scaling measurement); and the CLI's --devices 2 on the card against
-CPU ranks.  Every phase prints its numbers; any failure raises and the
-script exits non-zero.  The last line is
+CPU ranks.
+
+Then slice 9 (phase 33): the C++ mesh loaders, built with c++ at first use,
+read painted_mesh(256) as a gmsh file and build its topology bit for bit as
+the Python paths do (the seconds of each), and the mode-6 CLI runs on that
+file; the production amg CLI with --profile DIR writes a trace whose K1 and
+K2 kernels equal the wrappers' counts, with the history, Krylov counts and
+state of the same run without it (wall time of both); and
+SemiSolver.solve_system equals the CLI step's Krylov solve bit for bit,
+through K1 and K2.  Every phase prints its numbers; any failure raises and
+the script exits non-zero.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -89,6 +98,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -593,13 +603,19 @@ def dist_phase(card: str):
                 # the sharded SA restriction sums in another order; where
                 # the floor is the larger term a cycle is held to the band
                 # alone (the PCG checks above hold the converged end)
+                # rel_distance is what the cycles measured, band_width
+                # what the check allows (2% + the floor, relative)
                 say("band", ranks=world, config=name,
                     cycles_held_by_2pc=[
                         i + 1 for i, w in enumerate(r0["serial_history"])
                         if 0.02 * w > AMG_FLOOR],
                     cycles_held_by_floor=[
                         i + 1 for i, w in enumerate(r0["serial_history"])
-                        if 0.02 * w <= AMG_FLOOR])
+                        if 0.02 * w <= AMG_FLOOR],
+                    rel_distance=[f"{abs(g - w) / w:.4f}" for g, w in zip(
+                        r0["history"], r0["serial_history"])],
+                    band_width=[f"{0.02 + AMG_FLOOR / w:.4f}"
+                                for w in r0["serial_history"]])
                 for i, (g, w) in enumerate(zip(r0["history"],
                                                r0["serial_history"])):
                     check(math.isfinite(g)
@@ -644,6 +660,152 @@ def dist_phase(card: str):
     return dist_k1_launches, dist_k2_launches, kt1, kt2
 
 
+# Phase 33 (slice 9): the C++ mesh loaders on the GPU host, built with c++
+# at first use, on painted_mesh(MODE6_N) written as a gmsh file; the mode-6
+# CLI on it, beside its wall_s with the Python loaders (6.719 s, phase 20's
+# line in the last run before the C++ loaders, H100 80GB HBM3, 700 W);
+# --profile DIR over the production amg CLI run; SemiSolver.solve_system
+# against the CLI step's Krylov solve
+MODE6_CLI_WALL_PY_LOADERS = 6.719
+
+
+def native_profile_phase(card: str):
+    """Phase 33: (a) the native loaders against the Python paths, bit for
+    bit, with the seconds of each, and the mode-6 CLI on their file; (b) the
+    production amg CLI with --profile DIR, its counts from 0: the trace's
+    K1 and K2 kernels equal the wrappers' counts, and its history and
+    Krylov counts equal the same run without the trace, bit for bit; (c)
+    solve_system on that solver equals its CLI step's Krylov solve bit for
+    bit, through K1 and K2."""
+    import numpy as np
+    import torch
+
+    from p_a_multigrids_tpu_torch import __main__ as cli
+    from p_a_multigrids_tpu_torch.mesh import gmsh, topology
+    from p_a_multigrids_tpu_torch.ops import phase as K
+    from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
+    from p_a_multigrids_tpu_torch.utils import native
+    from p_a_multigrids_tpu_torch.utils.profiling import (
+        MODE6_ARGS, MODE6_N, _missing_launches, kernel_class, painted_mesh,
+        trace_kernels)
+
+    def counts_zero():
+        K.KERNEL.reset()
+        K2.KERNEL.launches = 0
+
+    def read_counts():
+        return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches}
+
+    def same(a, b):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    # (a) the loaders (built with c++ at first use: step 2 of main) -------
+    check(native.available(), "the native loaders are not available")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/painted_{MODE6_N}.msh"
+        gmsh.write_msh(path, painted_mesh(MODE6_N))
+        t0 = time.perf_counter()
+        v, t, r = native.read_msh(path)
+        read_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = gmsh._read_msh_py(path)
+        read_py = time.perf_counter() - t0
+        check(same(v, raw.vertices) and same(t, raw.triangles)
+              and same(r, raw.region_id),
+              "the C++ reader differs from the Python parser")
+        tri, _ = topology.dedupe_vertices(raw.vertices, raw.triangles)
+        t0 = time.perf_counter()
+        topo_n = native.neighbor_topology(tri)
+        topo_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        topo_p = topology._neighbor_topology_py(tri)
+        topo_py = time.perf_counter() - t0
+        check(all(same(a, b) for a, b in zip(topo_n, topo_p)),
+              "the C++ neighbor search differs from the Python one")
+        # the mode-6 CLI's mesh (its setup's part the loaders take)
+        t0 = time.perf_counter()
+        topology.from_msh(path)
+        load_s = time.perf_counter() - t0
+        say("native", mesh=f"painted_mesh({MODE6_N})", elements=len(tri),
+            file_MB=f"{os.path.getsize(path) / 1e6:.1f}",
+            read_native_s=f"{read_native:.4f}", read_py_s=f"{read_py:.4f}",
+            topology_native_s=f"{topo_native:.4f}",
+            topology_py_s=f"{topo_py:.4f}", bits_equal=True, card=repr(card))
+        m6_out = cli.main(MODE6_ARGS + ["--mesh", path, "--device", "cuda"])
+        say("setup", config="mode6_cli", mesh_load_s=f"{load_s:.4f}",
+            python_loaders_s=f"{read_py + topo_py:.4f}",
+            wall_s=m6_out["wall_s"],
+            wall_s_python_loaders=MODE6_CLI_WALL_PY_LOADERS,
+            card=repr(card))
+        check(m6_out["elements"] == 131072, f"mode 6 CLI: {m6_out}")
+
+        # (b) --profile over the production amg CLI, its counts from 0 ---
+        argv = AMG_ARGS + ["--device", "cuda"]
+        counts_zero()
+        t0 = time.perf_counter()
+        plain, T_plain, sv = cli.run(argv)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_counts = read_counts()
+        logdir = f"{tmp}/profile"
+        counts_zero()
+        t0 = time.perf_counter()
+        prof, T_prof, _ = cli.run(argv + ["--profile", logdir])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+        prof_counts = read_counts()
+        trace_path = f"{logdir}/trace.json"
+        check(os.path.isfile(trace_path), f"no trace at {trace_path}")
+        kernels = trace_kernels(trace_path)
+        traced = {cls: sum(1 for n, _, _ in kernels if kernel_class(n) == cls)
+                  for cls in prof_counts}
+        say("main", path="profile_amg_cli", launches=prof_counts,
+            traced=traced, trace_kernels=len(kernels),
+            trace_MB=f"{os.path.getsize(trace_path) / 1e6:.1f}",
+            residual_history=prof["residual_history"],
+            krylov_iterations=prof["krylov_iterations"],
+            profile_dir=prof.get("profile_dir"), card=repr(card))
+        check(prof_counts["k1_phase"] > 0 and prof_counts["k2_rowop"] > 0,
+              f"the profiled amg path did not launch both kernels: "
+              f"{prof_counts}")
+        missing = _missing_launches(kernels, prof_counts)
+        check(missing is None, f"--profile trace: {missing}")
+        check(prof.get("profile_dir") == logdir, "no profile_dir key")
+        check(prof["residual_history"] == plain["residual_history"]
+              and prof["krylov_iterations"] == plain["krylov_iterations"]
+              and bool(torch.equal(T_prof, T_plain))
+              and prof_counts == plain_counts,
+              f"--profile changed the run: {prof} against {plain}")
+        say("time", path="profile_amg_cli", wall_s_traced=f"{prof_s:.3f}",
+            wall_s_untraced=f"{plain_s:.3f}",
+            cli_wall_s=[prof["wall_s"], plain["wall_s"]], card=repr(card))
+
+    # (c) solve_system against the CLI step's Krylov solve ----------------
+    T0 = sv.initial_condition()
+    T0_t = to_t(T0)
+    b_t = sv._rhs_t(T0_t)
+    sv.krylov_iters.clear()
+    counts_zero()
+    x_step = sv._step_t(T0_t)
+    torch.cuda.synchronize()
+    step_counts, step_iters = read_counts(), list(sv.krylov_iters)
+    counts_zero()
+    x_api = sv.solve_system(from_t(b_t), T0)
+    torch.cuda.synchronize()
+    api_counts, api_iters = read_counts(), sv.krylov_iters[len(step_iters):]
+    say("main", path="solve_system", launches=api_counts,
+        step_launches=step_counts, krylov_iterations=api_iters,
+        step_krylov_iterations=step_iters,
+        cli_krylov_iterations=plain["krylov_iterations"],
+        bits_equal=bool(torch.equal(to_t(x_api), x_step)))
+    check(api_counts["k1_phase"] > 0 and api_counts["k2_rowop"] > 0,
+          f"solve_system did not launch both kernels: {api_counts}")
+    check(bool(torch.equal(to_t(x_api), x_step)) and api_iters == step_iters
+          and step_iters[0] == plain["krylov_iterations"][0],
+          "solve_system differs from the CLI step's Krylov solve")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -676,6 +838,7 @@ def main():
     from p_a_multigrids_tpu_torch.io import vtu as vtu_mod
     from p_a_multigrids_tpu_torch.mesh import geo as geo_mesh
     from p_a_multigrids_tpu_torch.models import semi
+    from p_a_multigrids_tpu_torch.utils import cuda_build
     from p_a_multigrids_tpu_torch.utils.expressions import Expression
 
     dev = torch.device("cuda", 0)
@@ -693,12 +856,19 @@ def main():
     print(card, flush=True)
 
     # 2. build: one nvcc per kernel library (K1 and K2, each unchecked and
-    # checked), all started together --------------------------------------
+    # checked) and one c++ per host mesh loader, all started together ------
     kernels = {"k1_phase": K.KERNEL, "k2_rowop": K2.KERNEL,
                "k1_phase_checked": K.CHECKED, "k2_rowop_checked": K2.CHECKED}
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(k.function) for k in kernels.values()]:
+    loaders = ("mesh_accel", "gmsh_reader")
+    with ThreadPoolExecutor(len(kernels) + len(loaders)) as pool:
+        futs = [pool.submit(k.function) for k in kernels.values()]
+        host = [pool.submit(cuda_build.load_host, n) for n in loaders]
+        for fut in futs:
             fut.result()
+        for name, fut in zip(loaders, host):
+            info = fut.result()[1]
+            say("build", library=name, seconds=f"{info['seconds']:.2f}",
+                cached=info["cached"], path=info["path"])
     for name, k in kernels.items():
         info = k.build_info
         say("build", kernel=name, seconds=f"{info['seconds']:.2f}",
@@ -2128,6 +2298,9 @@ def main():
 
     # 32. the distributed solver (slice 8) ----------------------------------
     dist_k1_launches, dist_k2_launches, kt1, kt2 = dist_phase(card)
+
+    # 33. the C++ loaders, --profile and solve_system (slice 9) -------------
+    native_profile_phase(card)
 
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x

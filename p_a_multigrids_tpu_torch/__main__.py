@@ -44,22 +44,23 @@ DistributedStencilSolver``, with ``--dist-ghost-frac`` its ghost-depth cap
 and ``--checkpoint`` / ``--checkpoint-every`` as above; rank 0's line has
 the JAX CLI's keys of that path (mode, devices, elements, children,
 L1_error, wall_s, resumed_from_step with a resumed checkpoint, vtu with
---vtu).  The profiler flag is not ported yet: it exits with a message
-naming the ROADMAP.md item that will port it.
+--vtu).
+
+``--profile DIR`` traces the run with torch.profiler (the CPU and the CUDA
+devices) into the Chrome trace ``DIR/trace.json`` (``utils.profiling.
+trace``), closed also when the solve raises; under ``--devices N`` each
+rank writes ``DIR/trace_rank<r>.json``.  The JSON line then carries
+``profile_dir``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
 import time
-
-# flag (argparse dest) -> ROADMAP.md queue-1 item that ports it
-UNPORTED_FLAGS = {
-    "profile": "port bench (profiling)",
-}
 
 
 def _parser():
@@ -135,8 +136,10 @@ def _parser():
                          "range-checked at setup, the state asserted "
                          "finite, checked builds of kernels K1 and K2 on "
                          "the card; one synchronisation a step)")
-    # not ported yet: exits with a message (UNPORTED_FLAGS)
-    ap.add_argument("--profile", type=str, default=None)
+    ap.add_argument("--profile", type=str, default=None, metavar="DIR",
+                    help="trace the run with torch.profiler into the "
+                         "Chrome trace DIR/trace.json (one file a rank "
+                         "with --devices)")
     ap.add_argument("--devices", type=int, default=0, metavar="N",
                     help="mode 9: run the distributed stencil solver on N "
                          "ranks")
@@ -150,11 +153,6 @@ def _parser():
 def _parse(argv):
     """Parse and check the arguments; returns (args, device)."""
     args = _parser().parse_args(argv)
-    for dest, item in UNPORTED_FLAGS.items():
-        if getattr(args, dest):
-            raise SystemExit(
-                f"--{dest.replace('_', '-')} is not ported to "
-                f"p_a_multigrids_tpu_torch yet (ROADMAP.md, queue 1: {item})")
     if not 1 <= args.mode <= 10:
         raise SystemExit(f"unknown mode {args.mode}")
 
@@ -372,11 +370,11 @@ def run(argv=None):
     state T (U, C, 3) on the run's device, the solver that ran the last
     steps); in mode 1, T (E, 4) and the ``RectProblem``; with --devices,
     (the JSON dict, None, None): the state stays in the ranks."""
-    import torch
-
     t0 = time.time()
     args, device = _parse(argv)
     out = {"mode": args.mode}
+    if args.profile:
+        out["profile_dir"] = args.profile
     if args.devices and args.mode == 9:
         import os
 
@@ -388,6 +386,29 @@ def run(argv=None):
             threads=max(1, (os.cpu_count() or 1) // args.devices))[0])
         out["wall_s"] = round(time.time() - t0, 3)
         return out, None, None
+    with _profiled(args.profile):
+        T, solver = _dispatch(args, device, out)
+    out["wall_s"] = round(time.time() - t0, 3)
+    if args.vtu:
+        _vtu_final(args, out, T, solver)
+    return out, T, solver
+
+
+def _profiled(logdir: str | None, rank: int | None = None):
+    """The --profile trace of a block (``utils.profiling.trace``), or no
+    trace without the flag."""
+    if not logdir:
+        return contextlib.nullcontext()
+    from .utils import profiling
+
+    return profiling.trace(logdir, rank)
+
+
+def _dispatch(args, device, out):
+    """The run of one mode on one device: fills out and returns (the final
+    state, the solver or problem), its device work finished."""
+    import torch
+
     if args.mode == 1:
         T, solver = _rect(args, device, out)
     elif args.mode <= 6:
@@ -417,10 +438,7 @@ def run(argv=None):
             solver.sanitizer.raise_on_fault()
     if T.device.type == "cuda":
         torch.cuda.synchronize(T.device)
-    out["wall_s"] = round(time.time() - t0, 3)
-    if args.vtu:
-        _vtu_final(args, out, T, solver)
-    return out, T, solver
+    return T, solver
 
 
 def main(argv=None) -> dict:

@@ -1,8 +1,9 @@
-"""gmsh 2.x ASCII reader (copy of the JAX package's pure-Python parser,
-``mesh/gmsh.py`` ``_read_msh_py``, without its native loader).
+"""gmsh 2.x ASCII reader (port of the JAX package's ``mesh/gmsh.py``):
+the C++ loader (``utils.native.read_msh``) first, the Python parser
+``_read_msh_py`` where the stricter C++ scanner rejects a file.
 
-Parses ``$Nodes`` / ``$Elements``, keeps the triangle element types
-{2, 9, 20, 21, 23, 24, 25} (corner vertices only) and records the first tag
+Both parse ``$Nodes`` / ``$Elements``, keep the triangle element types
+{2, 9, 20, 21, 23, 24, 25} (corner vertices only) and record the first tag
 as ``region_id``.  The neighbor search lives in ``mesh.topology``.
 """
 
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from ..utils import native
 
 # gmsh element types whose first three nodes are triangle corners
 _TRI_TYPES = {2, 9, 20, 21, 23, 24, 25}
@@ -24,7 +27,20 @@ class RawGmsh:
 
 
 def read_msh(path: str) -> RawGmsh:
-    """Parse a gmsh 2.x ASCII file."""
+    """Parse a gmsh 2.x ASCII file with the C++ loader.  The Python parser
+    defines which files load: a file the C++ scanner rejects (for example
+    trailing whitespace on a section tag) is parsed by ``_read_msh_py``,
+    and a file both reject raises the Python parser's ValueError.  A failed
+    build of the loader raises."""
+    try:
+        v, t, r = native.read_msh(path)
+    except ValueError:
+        return _read_msh_py(path)
+    return RawGmsh(vertices=v, triangles=t, region_id=r)
+
+
+def _read_msh_py(path: str) -> RawGmsh:
+    """The plain Python parser (the JAX package's ``_read_msh_py``)."""
     with open(path) as f:
         lines = f.read().split("\n")
     i = 0

@@ -1,5 +1,7 @@
-"""Macro-mesh neighbor topology by sorted-edge hashing, O(E) (copy of the
-JAX package's ``mesh/topology.py`` without its native ctypes path).
+"""Macro-mesh neighbor topology by sorted-edge hashing, O(E) (port of the
+JAX package's ``mesh/topology.py``).  ``build_macro_mesh`` runs the C++
+search (``utils.native.neighbor_topology``); ``_neighbor_topology_py`` is
+its plain Python version, which the tests hold it to.
 
 Face convention (MACRO_FACE_NODES): face 0 = edge(node0, node2), face 1 =
 edge(node0, node1), face 2 = edge(node1, node2).  ``dir_flag[e, f]`` is
@@ -13,6 +15,7 @@ import dataclasses
 
 import numpy as np
 
+from ..utils import native
 from .splitting import MACRO_FACE_NODES
 
 
@@ -57,7 +60,7 @@ def build_macro_mesh(vertices: np.ndarray, triangles: np.ndarray,
     U = triangles.shape[0]
     if region_id is None:
         region_id = np.zeros((U,), np.int32)
-    neig, neigh_face, dir_flag = _neighbor_topology_py(triangles)
+    neig, neigh_face, dir_flag = native.neighbor_topology(triangles)
     X = np.transpose(vertices[triangles][:, :, :2], (0, 2, 1)).astype(
         np.float64)   # (U, 2, 3)
     return MacroMesh(X=X, tri=triangles, neig=neig, neigh_face=neigh_face,

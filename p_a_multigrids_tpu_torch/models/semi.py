@@ -93,16 +93,7 @@ def _face_geometry(mesh: MacroMesh, ngi: int, sngi: int):
     ngi), nx0 (U, ngi, 2, 3), sdet0 (U, 3, sngi) edge |J|*w and snorm0 (U,
     3, sngi, 2) outward unit normals (for an up child)."""
     n, nlx, w = shape_functions.tri_p1(ngi)
-    jac = np.einsum("gal,ubl->ugab", nlx, mesh.X)
-    detj = jac[..., 0, 0] * jac[..., 1, 1] - jac[..., 0, 1] * jac[..., 1, 0]
-    detwei0 = 0.5 * np.abs(detj) * w                     # (U, ngi)
-    inv = np.empty_like(jac)
-    inv[..., 0, 0] = jac[..., 1, 1]
-    inv[..., 0, 1] = -jac[..., 0, 1]
-    inv[..., 1, 0] = -jac[..., 1, 0]
-    inv[..., 1, 1] = jac[..., 0, 0]
-    inv /= detj[..., None, None]
-    nx0 = np.einsum("ugab,gbl->ugal", inv, nlx)          # (U, ngi, 2, 3)
+    detwei0, nx0, _ = geometry.tri_det_nlx(mesh.X, nlx, w)
 
     sn, snlx, sw = shape_functions.edge_p1(sngi)
     U = mesh.num_elements
@@ -327,6 +318,13 @@ def flat_gather(L: dict, X: torch.Tensor) -> torch.Tensor:
     return flat[safe]
 
 
+def structured_gather(L: dict, X: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``structured_gather`` (its split of the gather
+    into intra-macro and strip faces, for the TPU's lowering): the same
+    values, by ``flat_gather``'s one index gather."""
+    return flat_gather(L, X)
+
+
 def neighbor_trace(L: dict, T: torch.Tensor, with_bc: bool,
                    gather=flat_gather) -> torch.Tensor:
     """T2 (U, C, 3, 2): for each face f, the neighbor's values at the
@@ -519,6 +517,37 @@ def prolong_t(e_coarse_t, parent, pweights):
     (3, Cc, U) -> (3, Cf, U); fine child f reads its parent parent[f]."""
     return torch.einsum("flk,kfu->lfu", pweights,
                         e_coarse_t[:, parent]).contiguous()
+
+
+def _transfer_tensors(n_coarse: int, like: torch.Tensor):
+    """_transfer_tables on like's device: fine_of and parent as int64,
+    pweights in like's dtype."""
+    fine_of, parent, pweights = _transfer_tables(n_coarse)
+    return (torch.as_tensor(fine_of.astype(np.int64), device=like.device),
+            torch.as_tensor(parent.astype(np.int64), device=like.device),
+            torch.as_tensor(pweights, dtype=like.dtype, device=like.device))
+
+
+def restrict(r_fine: torch.Tensor, n_coarse: int) -> torch.Tensor:
+    """``restrict_t`` in the natural layout: the residual (U, Cf, 3) at
+    split depth n_coarse+1 -> (U, Cc, 3) at n_coarse."""
+    fine_of, _, pweights = _transfer_tensors(n_coarse, r_fine)
+    return from_t(restrict_t(to_t(r_fine), fine_of, pweights))
+
+
+def restrict_corner_average(r_fine: torch.Tensor,
+                            n_coarse: int) -> torch.Tensor:
+    """``restrict_corner_average_t`` in the natural layout: (U, Cf, 3) ->
+    (U, Cc, 3)."""
+    fine_of, _, _ = _transfer_tensors(n_coarse, r_fine)
+    return from_t(restrict_corner_average_t(to_t(r_fine), fine_of[:, :3]))
+
+
+def prolong(e_coarse: torch.Tensor, n_coarse: int) -> torch.Tensor:
+    """``prolong_t`` in the natural layout: the coarse correction (U, Cc,
+    3) -> (U, Cf, 3)."""
+    _, parent, pweights = _transfer_tensors(n_coarse, e_coarse)
+    return from_t(prolong_t(to_t(e_coarse), parent, pweights))
 
 
 # ---------------------------------------------------------------------------
@@ -1055,6 +1084,12 @@ class SemiSolver(nn.Module):
             spat = apply_spatial(self._L0, cfg.physics, from_t(told_t), True)
             b_t = b_t - (1.0 - cfg.theta) * to_t(spat)
         return b_t
+
+    def solve_system(self, b, x0):
+        """``_solve_system_t`` in the natural layout: A x = b (Dirichlet
+        ghosts folded in) from x0, both (U, C, 3); PCG, or BiCGStab under
+        advection, its iteration count appended to ``krylov_iters``."""
+        return from_t(self._solve_system_t(to_t(b), to_t(x0)))
 
     def _solve_system_t(self, b_t, x0_t):
         """A x = b (Dirichlet ghosts folded in) by V-cycle-preconditioned

@@ -540,3 +540,25 @@ def correct_t(h: AggHierarchy, r_fine_t, ncycles: int = 1):
     preconditioner."""
     lvl0 = h.levels[0]
     return lvl0.prol(vcycle_iter(h, lvl0.rstr(r_fine_t), ncycles))
+
+
+def tent_restrict(h: AggHierarchy, y_fine_t):
+    """Tentative (member-sum) restriction P_tent^T y of the factored fine
+    transfers: (3, E) -> (3, na)."""
+    if h.tent_r is None:
+        raise ValueError("tent_restrict: the hierarchy has no factored "
+                         "fine transfers")
+    return h.tent_r(y_fine_t)
+
+
+def tent_prolong(h: AggHierarchy, e_t):
+    """Tentative prolongation P_tent e: (3, na) -> (3, E)."""
+    if h.tent_p is None:
+        raise ValueError("tent_prolong: the hierarchy has no factored "
+                         "fine transfers")
+    return h.tent_p(e_t)
+
+
+def correct(h: AggHierarchy, r_fine, ncycles: int = 1):
+    """``correct_t`` in the standard layout: (E, 3) -> (E, 3)."""
+    return correct_t(h, r_fine.T.contiguous(), ncycles).T.contiguous()

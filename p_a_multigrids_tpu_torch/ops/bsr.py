@@ -30,6 +30,24 @@ class BSR(NamedTuple):
     def num_rows(self) -> int:
         return self.cols.shape[0]
 
+    @property
+    def block_size(self) -> int:
+        return self.vals.shape[-1]
+
+    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A x with x (E, 3) -> (E, 3) on x's device and dtype, through
+        ``rowop`` (one K2 launch on a CUDA tensor)."""
+        op = self.rowop(x.dtype, x.device)
+        return op(x.T.contiguous()).T.contiguous()
+
+    def diag_blocks(self) -> np.ndarray:
+        """(E, b, b) diagonal blocks (slot 0 by convention)."""
+        return self.vals[:, 0]
+
+    def diagonal(self) -> np.ndarray:
+        """(E, b) scalar diagonal."""
+        return np.diagonal(self.diag_blocks(), axis1=-2, axis2=-1)
+
     def rowop(self, dtype: torch.dtype, device) -> RowOp:
         """The matrix on ``device`` as a square K2 operator (3, E) -> (3, E),
         E = num_rows."""

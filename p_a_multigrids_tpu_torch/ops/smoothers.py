@@ -65,6 +65,17 @@ def block_jacobi_solve(apply_A: Callable, b: torch.Tensor, x: torch.Tensor,
     return x
 
 
+def block_jacobi(apply_A: Callable, b: torch.Tensor, x: torch.Tensor,
+                 diag_blocks: torch.Tensor, omega: float = 1.0,
+                 sweeps: int = 1) -> torch.Tensor:
+    """``block_jacobi_solve`` with exact dense solves of diag_blocks (...,
+    nloc, nloc), matching x (..., nloc)."""
+    return block_jacobi_solve(
+        apply_A, b, x,
+        lambda r: torch.linalg.solve(diag_blocks, r[..., None])[..., 0],
+        omega, sweeps)
+
+
 def jacobi(apply_A: Callable, b: torch.Tensor, x: torch.Tensor,
            diag: torch.Tensor, omega: float = 0.8,
            sweeps: int = 1) -> torch.Tensor:

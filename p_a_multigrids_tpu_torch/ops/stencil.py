@@ -507,3 +507,19 @@ class StencilOperator(nn.Module):
     def _bp(self, b_t, with_bc: bool):
         """Premultiplied right-hand side D^-1 (b - c_aff)."""
         return self.solve_diag(b_t - self.c_aff_t if with_bc else b_t)
+
+    # -- the JAX package's smoothing methods, as one K1 phase each ----------
+    def smooth_chebyshev(self, x_t, b_t, roots, sweeps: int, with_bc: bool):
+        """``sweeps`` sweeps of x <- x + z / r over ``roots``, as one
+        relaxation phase (``ops.phase.phase``: kernel K1 on the card)."""
+        from .phase import phase
+        coefs = [1.0 / r for r in roots] * sweeps
+        return phase(self, x_t, self._bp(b_t, with_bc), coefs, False)[0]
+
+    def smooth_jacobi(self, x_t, b_t, omega: float, sweeps: int,
+                      with_bc: bool):
+        """``sweeps`` sweeps of x <- x + omega z, as one relaxation phase
+        (kernel K1 on the card)."""
+        from .phase import phase
+        return phase(self, x_t, self._bp(b_t, with_bc), [omega] * sweeps,
+                     False)[0]

@@ -22,10 +22,28 @@ from .stencil_solver import DistributedStencilSolver
 def cli_rank(comm, argv):
     """One rank of ``--devices N`` (the JAX CLI's distributed mode 9): the
     run from the initial condition or the --checkpoint file, saved every
-    --checkpoint-every steps and at the end; rank 0 returns the JSON keys
+    --checkpoint-every steps and at the end, traced into
+    ``--profile``'s ``trace_rank<r>.json``; rank 0 returns the JSON keys
     and writes --vtu (in the solver's reordered macro order, padding
     removed)."""
     args = cli._parser().parse_args(argv)
+    with cli._profiled(args.profile, comm.rank):
+        out, solver, T = _cli_rank_run(comm, args)
+    if comm.rank:
+        return None
+    if args.vtu:
+        from ..io import vtu
+
+        coords = vtu.semi_coords(solver.p.grid.macro.X, solver.cfg.n_split)
+        vtu.write_vtu(args.vtu, coords[: T.shape[0] * T.shape[1]],
+                      {"Tracer": T.reshape(-1, 3)}, cell_type=5)
+        out["vtu"] = args.vtu
+    return out
+
+
+def _cli_rank_run(comm, args):
+    """cli_rank's solve: (the JSON keys, the solver, the final state in
+    the standard layout)."""
     cfg = cli._semi_cfg(args)
     mesh = cli._mesh(args)
     solver = DistributedStencilSolver(mesh, cfg, comm)
@@ -43,16 +61,7 @@ def cli_rank(comm, argv):
     out.update(devices=comm.world, elements=mesh.num_elements,
                children=4 ** cfg.n_split,
                L1_error=float(solver.error(T_t).mean()))
-    if comm.rank:
-        return None
-    if args.vtu:
-        from ..io import vtu
-
-        coords = vtu.semi_coords(solver.p.grid.macro.X, cfg.n_split)
-        vtu.write_vtu(args.vtu, coords[: T.shape[0] * T.shape[1]],
-                      {"Tracer": T.reshape(-1, 3)}, cell_type=5)
-        out["vtu"] = args.vtu
-    return out
+    return out, solver, T
 
 
 def dryrun_rank(comm, n_ranks: int):

@@ -1,13 +1,16 @@
-"""Build a CUDA source of this package into a shared library at first use.
+"""Build a CUDA or C++ source of this package into a shared library at first
+use.
 
 ``load("phase")`` compiles ``csrc/phase.cu`` with ``nvcc`` for Hopper
 (``sm_90a``) into ``_build/phase-<hash>.so`` beside the sources, keyed by a
 hash of the source, the headers of ``csrc/``, the flags and the defines
 (``load("phase", defines=("PAMG_CHECKED",))`` builds the checked variant
 into a library of its own), and loads it with ``ctypes``.  The library
-has a plain C interface, so no PyTorch headers are compiled.  Processes
-that find the library missing at once build it once, under a file lock.
-There is no fallback: a missing compiler or a failed build raises.
+has a plain C interface, so no PyTorch headers are compiled.
+``load_host("mesh_accel")`` builds the host library ``csrc/mesh_accel.cpp``
+the same way with the C++ compiler ``CXX``.  Processes that find a library
+missing at once build it once, under a file lock.  There is no fallback:
+a missing compiler or a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX = "c++"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -50,11 +55,23 @@ def load(name: str, defines: tuple = ()):
     the compiler's output, which includes ``-Xptxas -v``'s register and
     spill report.
     """
-    src = SRC_DIR / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    return _load(name, SRC_DIR / f"{name}.cu",
+                 sorted(SRC_DIR.glob("*.cuh")), flags, nvcc_path)
+
+
+def load_host(name: str):
+    """Build (unless built already) and load the host library
+    ``csrc/<name>.cpp`` with ``CXX`` and ``CXX_FLAGS``; returns
+    (ctypes.CDLL, info) as ``load`` does."""
+    return _load(name, SRC_DIR / f"{name}.cpp", [], CXX_FLAGS, lambda: CXX)
+
+
+def _load(name: str, src: Path, headers: list, flags: tuple, compiler):
+    """The library of src, keyed by its text, its headers' and the flags,
+    built with compiler() when it is missing."""
     key = hashlib.sha256(
-        b"".join(f.read_bytes() for f in
-                 [src] + sorted(SRC_DIR.glob("*.cuh")))
+        b"".join(f.read_bytes() for f in [src] + headers)
         + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{key}.so"
     info = {"path": str(out), "seconds": 0.0, "cached": out.exists(),
@@ -62,24 +79,28 @@ def load(name: str, defines: tuple = ()):
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # one build a library: processes that start together (the ranks of
-        # a distributed run) wait for the first one's; the lock goes with
-        # the process that holds it
+        # a distributed run, the test workers) wait for the first one's;
+        # the lock goes with the process that holds it
         with open(BUILD_DIR / f".{name}-{key}.lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             info["cached"] = out.exists()
             if not out.exists():
-                _build(src, flags, out, info)
+                _build(src, [compiler(), *flags], out, info)
     return ctypes.CDLL(str(out)), info
 
 
-def _build(src: Path, flags: tuple, out: Path, info: dict):
+def _build(src: Path, command: list, out: Path, info: dict):
     tmp = out.with_name(f".{out.stem}.{os.getpid()}.so")
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    cmd = [*command, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{cmd[0]} cannot run ({e}) to build "
+                           f"{src}") from e
     info["seconds"] = time.perf_counter() - t0
     info["log"] = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
+        raise RuntimeError(f"{cmd[0]} failed ({res.returncode}) building "
                            f"{src}:\n{info['log']}")
     os.replace(tmp, out)

@@ -52,12 +52,22 @@ of at most ``WINDOW`` cycles; a window whose trace misses a K1 or K2
 launch the wrappers counted is traced again, and after ``TRACE_TRIES``
 such traces the profile raises.  Needs a CUDA device; without one it exits
 non-zero.
+
+The JAX package's helpers, for the card: ``timed`` (a ``Timing`` of a
+callable, synchronised with the device its result lies on), ``trace`` (a
+``torch.profiler`` trace of a block written as a Chrome trace; the CLI's
+``--profile DIR``), ``trace_kernels`` (the device kernels of such a file),
+and ``operator_roofline`` (a ``Roofline`` of one block-stencil apply, its
+summary against the H100's ``HBM_BYTES_PER_S``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import os
 import time
 import warnings
 
@@ -76,6 +86,115 @@ from ..ops.stencil import StencilOperator
 
 # device memory rate of an H100 SXM (NVIDIA's data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
+
+
+@dataclasses.dataclass
+class Timing:
+    name: str
+    seconds: float
+    iterations: int
+
+    @property
+    def per_iter_ms(self) -> float:
+        return self.seconds / self.iterations * 1e3
+
+    def __str__(self):
+        return f"{self.name}: {self.per_iter_ms:.3f} ms/iter"
+
+
+def _sync(out):
+    """Wait for the CUDA devices the tensors of out (a tensor, or a
+    tuple, list or dict of them) lie on; nothing for CPU tensors."""
+    if isinstance(out, torch.Tensor):
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+    elif isinstance(out, (tuple, list)):
+        for v in out:
+            _sync(v)
+    elif isinstance(out, dict):
+        for v in out.values():
+            _sync(v)
+
+
+def timed(name: str, fn, *args, iterations: int = 20, warmup: int = 2
+          ) -> Timing:
+    """Wall time of ``iterations`` calls of fn(*args) after ``warmup``
+    calls, each end synchronised with the device of fn's result."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _sync(out)
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        out = fn(*args)
+    _sync(out)
+    return Timing(name=name, seconds=time.perf_counter() - t0,
+                  iterations=iterations)
+
+
+@contextlib.contextmanager
+def trace(logdir: str, rank: int | None = None):
+    """A torch.profiler trace (the CPU, and the CUDA devices where there
+    are any) of the block, written as a Chrome trace to
+    ``logdir/trace.json``, or ``logdir/trace_rank<rank>.json`` for one rank
+    of a distributed run, also when the block raises.  Yields the file's
+    path."""
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, "trace.json" if rank is None
+                        else f"trace_rank{rank}.json")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield path
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+
+
+def trace_kernels(path: str) -> list:
+    """(name, start_us, duration_us) of every device kernel of a Chrome
+    trace written by ``trace``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["ts"], e["dur"]) for e in events
+            if e.get("cat") == "kernel"]
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops: float
+    bytes_moved: float
+    seconds: float
+
+    @property
+    def achieved_gflops(self) -> float:
+        return self.flops / self.seconds / 1e9
+
+    @property
+    def achieved_gbps(self) -> float:
+        return self.bytes_moved / self.seconds / 1e9
+
+    def summary(self, peak_gbps: float = HBM_BYTES_PER_S / 1e9) -> str:
+        return (f"{self.achieved_gflops:.1f} GFLOP/s, "
+                f"{self.achieved_gbps:.1f} GB/s "
+                f"({100 * self.achieved_gbps / peak_gbps:.1f}% of "
+                f"{peak_gbps:.0f} GB/s peak)")
+
+
+def operator_roofline(U: int, C: int, nloc: int, seconds: float,
+                      dtype_bytes: int = 4) -> Roofline:
+    """Roofline of one block-stencil operator apply, with the JAX
+    package's counts: the self and three face blocks (nloc x nloc each) of
+    every element read once, two flops a block entry, and the state
+    counted three times."""
+    E = U * C
+    nnz = E * 4 * nloc * nloc
+    return Roofline(flops=2.0 * nnz,
+                    bytes_moved=dtype_bytes * (nnz + 3 * E * nloc),
+                    seconds=seconds)
 
 
 def least_bytes(op: StencilOperator, itemsize: int = 4,

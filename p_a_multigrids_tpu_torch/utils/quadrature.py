@@ -1,8 +1,8 @@
-"""Quadrature tables for triangles and edges (host-side numpy).
+"""Quadrature tables for triangles, tetrahedra and edges (host-side numpy).
 
-Copy of the JAX package's ``utils/quadrature.py`` rules that the port
-uses: triangle rules return barycentric points ``(ngi, 3)`` and weights
-summing to 1; the edge rule is Gauss-Legendre on ``[-1, 1]`` with weights
+Copy of the JAX package's ``utils/quadrature.py``: triangle rules return
+barycentric points ``(ngi, 3)`` and weights summing to 1, tetrahedron
+rules ``(ngi, 4)`` and weights summing to 1/6; the edge rule is Gauss-Legendre on ``[-1, 1]`` with weights
 summing to 2; ``gauss_01`` is Gauss-Legendre on ``[0, 1]`` (the quads of
 mode 1).
 """
@@ -62,6 +62,47 @@ def triangle_rule(ngi: int) -> tuple[np.ndarray, np.ndarray]:
     w = np.asarray(w, _F)
     L = np.stack([L1, L2, 1.0 - L1 - L2], axis=1)
     return L, w
+
+
+def tet_rule(ngi: int) -> tuple[np.ndarray, np.ndarray]:
+    """Barycentric points (ngi, 4) and weights (ngi,) for a tetrahedron.
+
+    Supported ngi: 1, 4, 5, 11 (the Fortran reference's ShapFun.F90:
+    391-474); weights sum to 1/6.
+    """
+    if ngi == 1:
+        L = np.full((1, 4), 0.25, _F)
+        w = np.asarray([1.0], _F)
+    elif ngi == 4:
+        a, b = 0.58541020, 0.13819660
+        L = np.full((4, 4), b, _F)
+        np.fill_diagonal(L, a)
+        w = np.full((4,), 0.25, _F)
+    elif ngi == 5:
+        L = np.full((5, 4), 1.0 / 6.0, _F)
+        L[0] = 0.25
+        for i in range(1, 5):
+            L[i, i - 1] = 0.5
+        w = np.asarray([-4.0 / 5.0] + [9.0 / 20.0] * 4, _F)
+    elif ngi == 11:
+        # degree 4: the centroid, 4 vertex-biased points (11/14, 1/14) and
+        # the 6 edge-midpoint pairs (a, a, b, b), a + b = 1/2
+        a = (1.0 + np.sqrt(5.0 / 14.0)) / 4.0
+        b = (1.0 - np.sqrt(5.0 / 14.0)) / 4.0
+        h, e = 11.0 / 14.0, 1.0 / 14.0
+        L = np.array([
+            [0.25, 0.25, 0.25, 0.25],
+            [h, e, e, e], [e, h, e, e], [e, e, h, e], [e, e, e, h],
+            [a, a, b, b], [a, b, a, b], [a, b, b, a],
+            [b, a, a, b], [b, a, b, a], [b, b, a, a],
+        ])
+        w = np.array([-6.0 * 74.0 / 5625.0] + [6.0 * 343.0 / 45000.0] * 4
+                     + [6.0 * 56.0 / 2250.0] * 6)
+    else:
+        raise ValueError(f"unsupported tet rule ngi={ngi}")
+    # barycentrics that sum to one, then the 1/6 volume factor
+    L[:, 3] = 1.0 - L[:, 0] - L[:, 1] - L[:, 2]
+    return L, w / 6.0
 
 
 def edge_rule(sngi: int) -> tuple[np.ndarray, np.ndarray]:

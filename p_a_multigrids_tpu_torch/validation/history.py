@@ -239,6 +239,17 @@ def record_zoo(mesh_specs, ncycles: int = 12) -> dict:
     return out
 
 
+def load_committed(path: str | None = None) -> dict:
+    """The JAX package's committed histories (``HISTORY.json`` at the root
+    of the repository, recorded on reference meshes), or those of
+    ``path``."""
+    if path is None:
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__)))), "HISTORY.json")
+    with open(path) as f:
+        return json.load(f)
+
+
 def pins_path() -> str:
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "history_pins.json")

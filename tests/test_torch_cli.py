@@ -1,6 +1,6 @@
 """The port's CLI == the JAX package's CLI (float64, CPU) in modes 1-10
-and with every --solver; the flag the port lacks exits with a message; the
-port runs with jax blocked."""
+and with every --solver; --profile writes a torch.profiler trace; the port
+runs with jax blocked."""
 
 import json
 import pathlib
@@ -122,12 +122,61 @@ def test_jax_only_flags_parse(capsys):
     assert got["residual_history"] == plain["residual_history"]
 
 
-@pytest.mark.parametrize("argv", [["--profile", "p.json"]],
-                         ids=lambda a: "_".join(a).strip("-"))
-def test_unported_flags_exit_with_message(argv):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(SMALL + ["--device", "cpu"] + argv)
-    assert "not ported" in str(exc.value.code)
+PROFILED = ["--mode", "9", "--rows", "8", "--cols", "8", "--levels", "1",
+            "--amg", "--krylov", "--device", "cpu"]
+
+
+def _trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def test_profile_writes_a_trace(tmp_path, capsys):
+    """--profile DIR on the CPU: a Chrome trace in DIR, profile_dir in the
+    JSON line, and the same numbers as the run without the trace."""
+    logdir = str(tmp_path / "prof")
+    got = tcli.main(PROFILED + ["--profile", logdir])
+    plain = tcli.main(PROFILED)
+    capsys.readouterr()
+    assert got["profile_dir"] == logdir
+    assert _trace_events(tmp_path / "prof" / "trace.json")
+    assert set(got) == set(plain) | {"profile_dir"}
+    for key in ("residual_history", "krylov_iterations", "L1_error"):
+        assert got[key] == plain[key], key
+
+
+def test_profile_keys_match_jax(tmp_path, capsys):
+    """The same command line with --profile gives the JAX CLI's keys."""
+    argv = SMALL + ["--profile", str(tmp_path)]
+    jcli.main(argv + ["--cpu", "--f64"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = tcli.main(argv + ["--device", "cpu", "--f64"])
+    capsys.readouterr()
+    assert set(got) == set(want)
+    assert got["profile_dir"] == want["profile_dir"] == str(tmp_path)
+    assert got["residual_history"] == pytest.approx(
+        want["residual_history"], rel=1e-9)
+
+
+def test_profile_trace_closes_when_the_solve_raises(tmp_path):
+    """A solve that raises (a NaN initial condition under --debug) still
+    leaves a complete trace."""
+    with pytest.raises(FloatingPointError):
+        with np.errstate(invalid="ignore"):
+            tcli.main(SMALL + ["--device", "cpu", "--debug", "--ic",
+                               "sqrt(-1-x)", "--profile", str(tmp_path)])
+    assert _trace_events(tmp_path / "trace.json")
+
+
+def test_devices_profile_writes_a_trace_a_rank(tmp_path, capsys):
+    got = tcli.main(SMALL + ["--device", "cpu", "--devices", "2",
+                             "--profile", str(tmp_path)])
+    capsys.readouterr()
+    assert got["profile_dir"] == str(tmp_path)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "trace_rank0.json", "trace_rank1.json"]
+    for r in range(2):
+        assert _trace_events(tmp_path / f"trace_rank{r}.json")
 
 
 @pytest.mark.parametrize("argv", [

@@ -504,3 +504,42 @@ def test_k1_on_an_extended_domain_matches_plain(cuda):
                               dtype=torch.float32, device=cuda)
                  for _ in range(2))
         _k1_matches_plain(op, x, bp, [0.7] * rounds, H == 2 * W, 1e-4)
+
+
+@pytest.mark.parametrize("method", ["chebyshev", "jacobi"])
+def test_stencil_smoothing_is_one_k1_phase(cuda, method):
+    """StencilOperator.smooth_chebyshev / smooth_jacobi on the card: one K1
+    launch, against the same rounds of phase_reference (1e-4 relative, as
+    a multi-round phase above)."""
+    op, cheb, x, b = _k1_level(2, cuda)
+    roots = [1.0 / c for c in cheb]
+    n0 = K.KERNEL.launches
+    if method == "chebyshev":
+        got = op.smooth_chebyshev(x, b, roots, 1, True)
+        coefs = [1.0 / r for r in roots]
+    else:
+        got = op.smooth_jacobi(x, b, 0.8, 3, True)
+        coefs = [0.8] * 3
+    torch.cuda.synchronize()
+    assert K.KERNEL.launches - n0 == 1
+    want, _ = K.phase_reference(op, x, op._bp(b, True), coefs, False)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_bsr_spmv_is_one_k2_launch(cuda):
+    """BSR.spmv of mode 10's assembled operator on the card: one K2 launch,
+    equal to the CPU's spmv within 1e-5 of the largest value."""
+    from p_a_multigrids_tpu_torch.models import semi_assembled
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    L = semi.build_problem(structured.tri_mesh(12, 10, 1 / 12, 1 / 10),
+                           cfg).levels[0]
+    A = semi_assembled.assemble_operator(L, cfg.physics, cfg.dt, cfg.theta)
+    x = torch.tensor(np.random.default_rng(8).normal(size=(A.num_rows, 3)),
+                     dtype=torch.float32)
+    n0 = spmv.KERNEL.launches
+    got = A.spmv(x.to(cuda))
+    torch.cuda.synchronize()
+    assert spmv.KERNEL.launches - n0 == 1
+    want = A.spmv(x)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())

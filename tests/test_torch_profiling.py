@@ -1,5 +1,7 @@
 """Host-side pieces of the port's GPU profiler (no card needed)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -254,3 +256,73 @@ def test_menu_args_build_menu_solvers(name, children, stencil):
     sv = profiling.cli_solver("cpu", getattr(profiling, name))
     assert sv.p.levels[0]["C"] == children
     assert sv.stencil == stencil and not sv.phase_cycle
+
+
+# -- the JAX package's helpers ------------------------------------------------
+
+def test_timed_counts_as_jax():
+    """timed's name, iterations and calls of fn are the JAX package's."""
+    from p_a_multigrids_tpu.utils import profiling as jprof
+    calls = {"port": 0, "jax": 0}
+
+    def fn(key, x):
+        calls[key] += 1
+        return x + 1
+
+    got = profiling.timed("port", fn, "port", torch.ones(3), iterations=5,
+                          warmup=3)
+    want = jprof.timed("jax", fn, "jax", np.ones(3), iterations=5, warmup=3)
+    assert calls["port"] == calls["jax"] == 8
+    assert (got.iterations, got.name) == (want.iterations, "port")
+    assert got.seconds >= 0 and got.per_iter_ms == got.seconds / 5 * 1e3
+    assert str(got).startswith("port: ") and str(got).endswith(" ms/iter")
+    # a result with tensors in a tuple or dict synchronises as well
+    assert profiling.timed("t", lambda: (torch.ones(2), {"a": torch.ones(1)}),
+                           iterations=1, warmup=0).iterations == 1
+
+
+@pytest.mark.parametrize("U,C,nloc,dtype_bytes",
+                         [(8192, 16, 3, 4), (96, 1024, 3, 8)])
+def test_operator_roofline_counts_as_jax(U, C, nloc, dtype_bytes):
+    from p_a_multigrids_tpu.utils import profiling as jprof
+    got = profiling.operator_roofline(U, C, nloc, 1e-4, dtype_bytes)
+    want = jprof.operator_roofline(U, C, nloc, 1e-4, dtype_bytes)
+    assert (got.flops, got.bytes_moved, got.seconds) == (
+        want.flops, want.bytes_moved, want.seconds)
+    assert got.achieved_gbps == want.achieved_gbps
+    assert got.achieved_gflops == want.achieved_gflops
+
+
+def test_roofline_summary_uses_the_h100_rate():
+    r = profiling.Roofline(flops=2e9, bytes_moved=3.35e9, seconds=1e-3)
+    assert r.summary() == ("2000.0 GFLOP/s, 3350.0 GB/s (100.0% of 3350 "
+                           "GB/s peak)")
+    assert r.summary(1675.0).endswith("(200.0% of 1675 GB/s peak)")
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    with profiling.trace(str(tmp_path / "a")) as path:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert path == str(tmp_path / "a" / "trace.json")
+    with open(path) as f:
+        assert json.load(f)["traceEvents"]
+    assert profiling.trace_kernels(path) == []      # no device here
+    with pytest.raises(KeyError):
+        with profiling.trace(str(tmp_path), rank=3):
+            raise KeyError("closed all the same")
+    with open(tmp_path / "trace_rank3.json") as f:
+        assert json.load(f)["traceEvents"]
+
+
+def test_trace_kernels_reads_kernel_events(tmp_path):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "phase_kernel<1>", "ts": 5.0, "dur": 2.0},
+        {"cat": "cpu_op", "name": "aten::add", "ts": 1.0, "dur": 1.0},
+        {"cat": "kernel", "name": "rowop_lanes_kernel<4>", "ts": 9.0,
+         "dur": 1.5}]}))
+    ks = profiling.trace_kernels(str(path))
+    assert ks == [("phase_kernel<1>", 5.0, 2.0),
+                  ("rowop_lanes_kernel<4>", 9.0, 1.5)]
+    assert profiling._missing_launches(
+        ks, {"k1_phase": 1, "k2_rowop": 1}) is None
