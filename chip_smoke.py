@@ -85,7 +85,13 @@ file; the production amg CLI with --profile DIR writes a trace whose K1 and
 K2 kernels equal the wrappers' counts, with the history, Krylov counts and
 state of the same run without it (wall time of both); and
 SemiSolver.solve_system equals the CLI step's Krylov solve bit for bit,
-through K1 and K2.  Every phase prints its numbers; any failure raises and
+through K1 and K2.  Then slice 10 (phase 34): mode 1's solve and the fused
+operator given no device land on the card, bit for bit as with it;
+smoothers.block_jacobi_inv over the zero-round K1 apply on the bench
+stand-in's fine level (three sweeps, three K1 launches) against
+block_jacobi_solve and the plain apply; BSR.to_dense on the card and
+StencilOperator.lam_max_estimate against their host versions.  Every phase
+prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -804,6 +810,151 @@ def native_profile_phase(card: str):
     check(bool(torch.equal(to_t(x_api), x_step)) and api_iters == step_iters
           and step_iters[0] == plain["krylov_iterations"][0],
           "solve_system differs from the CLI step's Krylov solve")
+
+
+# Phase 34 (slice 10): the entry points that take a device land on the card
+# when given none, and the JAX package's last three public names run there.
+# BSR.to_dense is held at 1,024 block rows (3,072 rows, a 38 MB dense
+# matrix): mode 10's 131,072-block operator would be a 600 GB one.
+API_BSR_MESH = (32, 16)      # tri_mesh(32, 16): 1,024 triangles
+API_SWEEPS = 3
+
+
+def api_phase(card: str):
+    """Phase 34: (a) transport_rect.solve(cfg, ntime=3) with no device runs
+    on cuda and equals the explicit-device run bit for bit, at mode 1's
+    width (200 x 1024); FusedOperator without a device holds its buffers on
+    cuda and applies A as the explicit-device one does, bit for bit; (b)
+    smoothers.block_jacobi_inv on the bench stand-in's fine level, apply_A
+    the zero-round K1 apply and inv_blocks the exact inverses of its 3x3
+    diagonal blocks: three sweeps in exactly three K1 launches, equal bit
+    for bit to block_jacobi_solve with the same inverse, and within 1e-4 of
+    the same sweeps over the plain PyTorch apply; (c) BSR.to_dense on the
+    card equals to_dense_numpy bit for bit on a 3,072-row operator, and
+    StencilOperator.lam_max_estimate equals the module function bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from p_a_multigrids_tpu_torch.config import RectConfig
+    from p_a_multigrids_tpu_torch.mesh import structured
+    from p_a_multigrids_tpu_torch.models import transport_rect
+    from p_a_multigrids_tpu_torch.ops import bsr, smoothers, stencil
+    from p_a_multigrids_tpu_torch.ops import phase as K
+    from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops.fused import FusedOperator, from_t, to_t
+    from p_a_multigrids_tpu_torch.utils.profiling import (bench_solver,
+                                                          event_ms)
+
+    def counts_zero():
+        K.KERNEL.reset()
+        K2.KERNEL.launches = 0
+
+    def read_counts():
+        return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches}
+
+    # (a) no device: the card ------------------------------------------------
+    cfg = RectConfig(no_ele_row=200, no_ele_col=1024)
+    t0 = time.perf_counter()
+    p_def, T_def, _, n_def = transport_rect.solve(cfg, ntime=3)
+    torch.cuda.synchronize()
+    def_s = time.perf_counter() - t0
+    T_exp = transport_rect.solve(cfg, "cuda", ntime=3)[1]
+    places = sorted({t.device.type for t in p_def.tables.values()}
+                    | {T_def.device.type})
+    sv = bench_solver(torch.device("cuda"))
+    sc = sv.cfg
+    L0 = sv.p.levels[0]
+    fop = FusedOperator(L0, sc.physics, sc.dt, sc.theta)
+    fop_exp = FusedOperator(L0, sc.physics, sc.dt, sc.theta, "cuda")
+    fused_places = sorted({b.device.type for b in fop.buffers()})
+    x_t = torch.as_tensor(
+        np.random.default_rng(34).normal(size=(3, sv.ops[0].C, sv.ops[0].U)),
+        dtype=torch.float32, device="cuda")
+    fused_same = bool(torch.equal(fop.apply(x_t, True),
+                                  fop_exp.apply(x_t, True)))
+    say("main", path="default_device", mode1_on=places, steps=n_def,
+        mode1_dof=T_def.numel(), bits_equal=bool(torch.equal(T_def, T_exp)),
+        fused_on=fused_places, fused_bits_equal=fused_same,
+        mode1_wall_s=f"{def_s:.4f}", card=repr(card))
+    check(places == ["cuda"] and n_def == 3
+          and bool(torch.equal(T_def, T_exp)),
+          f"transport_rect.solve without a device: {places}, {n_def} steps")
+    check(fused_places == ["cuda"] and fused_same,
+          f"FusedOperator without a device: {fused_places}, bits equal "
+          f"{fused_same}")
+    del p_def, T_def, T_exp, fop, fop_exp
+
+    # (b) block_jacobi_inv over the zero-round K1 apply ---------------------
+    op = sv.ops[0]
+    inv = torch.linalg.inv(op.S_t.permute(3, 2, 0, 1).contiguous())
+    T0 = sv.initial_condition()
+    b = from_t(sv._rhs_t(to_t(T0)))
+
+    def k1_apply(v):
+        return from_t(sv._apply_t(0, to_t(v)))
+
+    def plain_apply(v):
+        return from_t(op.apply(to_t(v), False))
+
+    counts_zero()
+    x_inv = smoothers.block_jacobi_inv(k1_apply, b, T0, inv,
+                                       sweeps=API_SWEEPS)
+    torch.cuda.synchronize()
+    inv_counts = read_counts()
+    x_solve = smoothers.block_jacobi_solve(
+        k1_apply, b, T0, lambda r: torch.einsum("...ij,...j->...i", inv, r),
+        sweeps=API_SWEEPS)
+    x_plain = smoothers.block_jacobi_inv(plain_apply, b, T0, inv,
+                                         sweeps=API_SWEEPS)
+    err = float((x_inv - x_plain).abs().max())
+    scale = float(x_plain.abs().max())
+    ms = event_ms(lambda: smoothers.block_jacobi_inv(
+        k1_apply, b, T0, inv, sweeps=API_SWEEPS), 10)
+    plain_ms = event_ms(lambda: smoothers.block_jacobi_inv(
+        plain_apply, b, T0, inv, sweeps=API_SWEEPS), 10)
+    same = bool(torch.equal(x_inv, x_solve))
+    say("main", path="block_jacobi_inv", dof=T0.numel(), sweeps=API_SWEEPS,
+        launches=inv_counts, bits_equal_solve=same,
+        max_abs_err_plain=f"{err:.3e}", max_abs=f"{scale:.4e}",
+        finite=bool(torch.isfinite(x_inv).all()), card=repr(card))
+    say("time", path="block_jacobi_inv", ms=f"{ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", card=repr(card))
+    check(inv_counts == {"k1_phase": API_SWEEPS, "k2_rowop": 0},
+          f"block_jacobi_inv launched {inv_counts}")
+    check(same, "block_jacobi_inv differs from block_jacobi_solve")
+    check(bool(torch.isfinite(x_inv).all()) and err <= 1e-4 * scale,
+          f"block_jacobi_inv: {err:.3e} from the plain apply")
+
+    # (c) BSR.to_dense and StencilOperator.lam_max_estimate ------------------
+    rng = np.random.default_rng(34)
+    neig = structured.tri_mesh(*API_BSR_MESH, 1 / API_BSR_MESH[0],
+                               1 / API_BSR_MESH[1]).neig
+    E = neig.shape[0]
+    A = bsr.build(rng.normal(size=(E, 3, 3)).astype(np.float32),
+                  rng.normal(size=(E, 3, 3, 3)).astype(np.float32), neig)
+    counts_zero()
+    t0 = time.perf_counter()
+    dense = A.to_dense()
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_counts = read_counts()
+    want = bsr.to_dense_numpy(A)
+    dense_same = (dense.device.type == "cuda" and dense.dtype == torch.float32
+                  and np.array_equal(dense.cpu().numpy(), want))
+    t0 = time.perf_counter()
+    lam = op.lam_max_estimate()
+    lam_s = time.perf_counter() - t0
+    lam_fn = stencil.lam_max_estimate(op._data)
+    say("main", path="to_dense_lam_max", rows=3 * E,
+        dense_on=dense.device.type, dense_bits_equal=dense_same,
+        dense_launches=dense_counts, dense_s=f"{dense_s:.4f}",
+        lam_max=lam, lam_max_function=lam_fn, lam_s=f"{lam_s:.3f}",
+        card=repr(card))
+    check(3 * E <= 3072 and dense_same,
+          "BSR.to_dense on the card differs from to_dense_numpy")
+    check(lam == lam_fn and math.isfinite(lam),
+          f"lam_max_estimate {lam} against {lam_fn}")
 
 
 def main():
@@ -2301,6 +2452,9 @@ def main():
 
     # 33. the C++ loaders, --profile and solve_system (slice 9) -------------
     native_profile_phase(card)
+
+    # 34. the entry points on the card, the last public names (slice 10) ----
+    api_phase(card)
 
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x

@@ -5,11 +5,21 @@ module of the same name there and is held against it by the tests
 (``tests/test_torch_*.py``).  This package imports ``torch``, numpy and
 scipy, never ``jax`` and never the JAX package.
 
-The slice ported so far is mode 9 (``Semi_implicit_iterative``) on the
-stencil path: host setup (``mesh``, ``utils``, ``ops.local_matrices``,
-``ops.stencil`` build), the device stencil operator, the relaxation-phase
-kernel K1 (``ops/phase.py`` + ``csrc/phase.cu``), the geometric V-cycle and
-PCG (``models.semi``, ``ops.krylov``) and the mode-9 CLI (``__main__``).
+It does what the JAX package does, on one NVIDIA H100 or on the CPU:
+every reference mode (1-10) through the CLI (``__main__``, every flag of
+the JAX CLI, ``--profile`` included); the semi-structured multigrid
+(geometric and smoothed-aggregation, V and W cycles, Galerkin coarse
+operators) at every split depth, with every solver of the menu, PCG and
+BiCGStab and the theta-schemes (``models``, ``ops``); the distributed
+solver over ``torch.distributed`` (``parallel``, ``--devices N``); user
+problems by expression, ``.geo`` and gmsh meshes, VTU output, checkpoints
+and the history pins (``utils``, ``mesh``, ``io``, ``validation``).  On a
+CUDA tensor every relaxation phase and block-stencil apply launches K1
+(``ops/phase.py`` + ``csrc/phase.cu``) and every block-row product kernel
+K2 (``ops/spmv.py`` + ``csrc/spmv.cu``), both built by nvcc for sm_90a at
+first use; the mesh loaders are host C++ (``csrc/mesh_accel.cpp``,
+``csrc/gmsh_reader.cpp``).  Entry points run on the card unless the caller
+asks for the CPU, where the kernels' plain PyTorch versions run.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,3 @@
-"""Output files of the port (curves of mode 1)."""
+"""Output files of the port: mode 1's curves, VTU files and checkpoints."""
+
+from . import curves, vtu

@@ -85,7 +85,9 @@ def tables_on(tables: dict, dtype: str, device) -> dict:
     return out
 
 
-def build_problem(cfg: RectConfig, device="cpu") -> RectProblem:
+def build_problem(cfg: RectConfig, device="cuda") -> RectProblem:
+    """The mesh and the step's tables on ``device`` (the card unless the
+    caller asks for the CPU)."""
     x_all, face_ele, tables = host_tables(cfg)
     return RectProblem(cfg=cfg, x_all=x_all, face_ele=face_ele,
                        tables=tables_on(tables, cfg.dtype, device))
@@ -152,9 +154,10 @@ def initial_condition(problem: RectProblem) -> torch.Tensor:
                            device=problem.tables["n"].device)
 
 
-def solve(cfg: RectConfig | None = None, device="cpu", ntime=None):
-    """Run the moving-box problem for int(time / dt) steps (or ``ntime``);
-    returns (problem, T, dt, nsteps)."""
+def solve(cfg: RectConfig | None = None, device="cuda", ntime=None):
+    """Run the moving-box problem for int(time / dt) steps (or ``ntime``) on
+    ``device`` (the card unless the caller asks for the CPU); returns
+    (problem, T, dt, nsteps)."""
     cfg = cfg or RectConfig()
     problem = build_problem(cfg, device)
     step, dt = make_step(problem)

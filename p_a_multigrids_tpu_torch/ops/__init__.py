@@ -1,1 +1,5 @@
-"""Element matrices, the block stencil, the phase kernel K1 and Krylov."""
+"""Element matrices, the block stencil, kernels K1 (``phase``) and K2
+(``spmv``), smoothers, smoothed aggregation, Galerkin, dense and Krylov
+solvers."""
+
+from . import bsr, local_matrices, smoothers

@@ -53,6 +53,13 @@ class BSR(NamedTuple):
         E = num_rows."""
         return RowOp(self.cols, self.vals, self.num_rows, dtype, device)
 
+    def to_dense(self, device="cuda") -> torch.Tensor:
+        """The dense (E*b, E*b) matrix in ``vals``' dtype on ``device`` (the
+        card unless the caller asks for the CPU): ``to_dense`` of the
+        ``rowop``, one scatter-add of the blocks."""
+        return to_dense(self.rowop(getattr(torch, self.vals.dtype.name),
+                                   device))
+
 
 def build(diag: np.ndarray, face_blocks: np.ndarray,
           neigh: np.ndarray) -> BSR:

@@ -38,7 +38,8 @@ class FusedOperator(nn.Module):
     """A = M/dt + theta*L at one level, in the transposed layout, from the
     level's host tables (``models.semi.build_problem``, in the run dtype).
 
-    Buffers (the run dtype, index tables int64, on ``device``):
+    Buffers (the run dtype, index tables int64, on ``device``, the card
+    unless the caller asks for the CPU):
       vol_const (3, 3, U) M/dt + theta*D;  vol_K (3, 3, U) theta*K
       ud_c (1, C, 1) the children's up/down sign
       intra_rows (3f, 2, C)  flat (node*C + child) row of my k-th face
@@ -53,7 +54,7 @@ class FusedOperator(nn.Module):
     """
 
     def __init__(self, L: dict, phys: Physics, dt: float, theta: float,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.phys = phys
         self.theta = theta

@@ -58,11 +58,21 @@ def block_jacobi_solve(apply_A: Callable, b: torch.Tensor, x: torch.Tensor,
                        sweeps: int = 1) -> torch.Tensor:
     """Block-Jacobi: x <- x + omega * P^-1 (b - A x), P^-1 applied by
     ``solve_prec`` (the solver's exact block inverses in its transposed
-    layout; the JAX package's ``block_jacobi_inv`` takes the inverse blocks
-    themselves)."""
+    layout)."""
     for _ in range(sweeps):
         x = x + omega * solve_prec(b - apply_A(x))
     return x
+
+
+def block_jacobi_inv(apply_A: Callable, b: torch.Tensor, x: torch.Tensor,
+                     inv_blocks: torch.Tensor, omega: float = 1.0,
+                     sweeps: int = 1) -> torch.Tensor:
+    """``block_jacobi_solve`` with pre-inverted diagonal blocks inv_blocks
+    (..., nloc, nloc), matching x (..., nloc)."""
+    return block_jacobi_solve(
+        apply_A, b, x,
+        lambda r: torch.einsum("...ij,...j->...i", inv_blocks, r),
+        omega, sweeps)
 
 
 def block_jacobi(apply_A: Callable, b: torch.Tensor, x: torch.Tensor,

@@ -469,6 +469,11 @@ class StencilOperator(nn.Module):
         buf("slot_ptr", slot_ptr, np.int32)
         buf("slot_idx", slot_idx, np.int32)
 
+    def lam_max_estimate(self, iters: int = 12, seed: int = 0) -> float:
+        """``lam_max_estimate`` of this level's host stencil (numpy, no
+        device work)."""
+        return lam_max_estimate(self._data, iters, seed)
+
     # -- application (plain PyTorch) -----------------------------------------
     def _apply_planes(self, x_t):
         """D^-1 (A - D) x: the premultiplied neighbor contribution

@@ -1,1 +1,3 @@
 """Distributed solvers over ``torch.distributed`` (``--devices N``)."""
+
+from . import halo, partition, solver

@@ -206,6 +206,22 @@ def test_bsr_methods_match_jax():
     assert spmv.KERNEL.launches == n0       # CPU tensors never launch K2
 
 
+def test_bsr_to_dense_matches_jax():
+    """``BSR.to_dense`` adds the same blocks into the same places as the
+    JAX method's scatter-add, in ``vals``' dtype."""
+    E, nface = 40, 3
+    rng = _rng(13)
+    neigh = np.where(rng.random((E, nface)) < 0.2, -1,
+                     rng.integers(0, E, (E, nface)))
+    diag = rng.normal(size=(E, 3, 3))
+    faces = rng.normal(size=(E, nface, 3, 3))
+    got = tbsr.build(diag, faces, neigh).to_dense(device="cpu")
+    want = np.asarray(jbsr.build(jnp.asarray(diag), jnp.asarray(faces),
+                                 neigh).to_dense())
+    assert got.dtype == torch.float64 and got.shape == (3 * E, 3 * E)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
 # -- ops/smoothers.py ---------------------------------------------------------
 
 @pytest.mark.parametrize("omega,sweeps", [(1.0, 1), (0.7, 3)])
@@ -226,18 +242,49 @@ def test_block_jacobi_matches_jax(omega, sweeps):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("sweeps", [1, 3])
+@pytest.mark.parametrize("omega", [0.7, 1.0])
+def test_block_jacobi_inv_matches_jax(omega, sweeps):
+    """Block Jacobi over pre-inverted blocks, the same dense apply_A."""
+    n = 6
+    rng = _rng(9)
+    A = rng.normal(size=(3 * n, 3 * n)) + 12 * np.eye(3 * n)
+    inv = np.linalg.inv(np.stack([A[3 * i:3 * i + 3, 3 * i:3 * i + 3]
+                                  for i in range(n)]))
+    b, x = rng.normal(size=(n, 3)), rng.normal(size=(n, 3))
+    want = jsmoothers.block_jacobi_inv(
+        lambda v: (jnp.asarray(A) @ v.reshape(-1)).reshape(n, 3),
+        jnp.asarray(b), jnp.asarray(x), jnp.asarray(inv), omega, sweeps)
+    At = torch.tensor(A)
+    got = tsmoothers.block_jacobi_inv(
+        lambda v: (At @ v.reshape(-1)).reshape(n, 3), torch.tensor(b),
+        torch.tensor(x), torch.tensor(inv), omega, sweeps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12)
+
+
 # -- ops/stencil.py -----------------------------------------------------------
 
-def _stencil_ops(advection: bool):
+def _stencil_ops(advection: bool, n_split: int = 2):
     phys = jcfg.Physics(advection=advection,
                         u=(0.4, -0.2) if advection else (0.0, 0.0))
-    cfg = jcfg.SemiConfig(n_split=2, multi_levels=1, dt=0.05,
+    cfg = jcfg.SemiConfig(n_split=n_split, multi_levels=1, dt=0.05,
                           dtype="float64", physics=phys)
     L = jsemi.build_problem(jstruct.tri_mesh(6, 3, 0.3, 0.2), cfg).levels[0]
     data = jstencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
     return (jstencil.StencilOperator(data, np.float64),
             tstencil.StencilOperator(tstencil.StencilData(**vars(data)),
                                      torch.float64, "cpu"))
+
+
+@pytest.mark.parametrize("advection", [False, True])
+@pytest.mark.parametrize("n_split", [1, 2])
+def test_stencil_lam_max_matches_jax(n_split, advection):
+    jop, top = _stencil_ops(advection, n_split)
+    want = jop.lam_max_estimate()
+    assert top.lam_max_estimate() == pytest.approx(want, rel=1e-12)
+    assert top.lam_max_estimate(5, 3) == pytest.approx(
+        jop.lam_max_estimate(5, 3), rel=1e-12)
 
 
 @pytest.mark.parametrize("with_bc", [False, True])

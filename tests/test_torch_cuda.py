@@ -329,6 +329,22 @@ def test_mode1_step_on_the_card_matches_cpu(cuda):
         out[1].abs().max())
 
 
+def test_entry_points_default_to_the_card(cuda):
+    """Mode 1's build_problem and FusedOperator, given no device, put
+    every tensor on the card."""
+    from p_a_multigrids_tpu_torch.config import RectConfig
+    from p_a_multigrids_tpu_torch.models import transport_rect
+    from p_a_multigrids_tpu_torch.ops.fused import FusedOperator
+    problem = transport_rect.build_problem(RectConfig(no_ele_row=40,
+                                                      no_ele_col=8))
+    assert {t.device.type for t in problem.tables.values()} == {"cuda"}
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05)
+    L = semi.build_problem(structured.tri_mesh(4, 4, 0.25, 0.25),
+                           cfg).levels[0]
+    op = FusedOperator(L, cfg.physics, cfg.dt, cfg.theta)
+    assert {b.device.type for b in op.buffers()} == {"cuda"}
+
+
 # -- the checked builds (--debug): utils/debugging, csrc/checked.cuh --------
 
 def _checked(op, san=None):

@@ -46,7 +46,8 @@ def _levels(phys, n_split=2, neumann=False):
 
 def _check(jc, jL, tc, tL, seed):
     jop = jfused.FusedOperator(jL, jc.physics, jc.dt, jc.theta)
-    top = tfused.FusedOperator(tL, tc.physics, tc.dt, tc.theta)
+    top = tfused.FusedOperator(tL, tc.physics, tc.dt, tc.theta,
+                               device="cpu")
     Lt = tsemi.level_tensors(tL, "cpu")
     U, C = tL["M"].shape[0], tL["updown"].shape[0]
     T = np.random.default_rng(seed).normal(size=(U, C, 3))
@@ -75,7 +76,8 @@ def test_fused_strip_indices_are_device_int64():
     """The cross-macro strip gathers are built once, as int64 tensors: 3 *
     2**s slots a macro."""
     _, _, tc, tL = _levels({}, n_split=3)
-    top = tfused.FusedOperator(tL, tc.physics, tc.dt, tc.theta)
+    top = tfused.FusedOperator(tL, tc.physics, tc.dt, tc.theta,
+                               device="cpu")
     assert top.nb == 3 * 2 ** 3
     for name in ("halo_idx", "halo_perm", "intra_rows", "slot_of",
                  "own_rows", "grad_rows", "bnd_c"):

@@ -243,7 +243,8 @@ def test_rect_step_is_the_cli_build():
     from p_a_multigrids_tpu_torch.config import RectConfig
     from p_a_multigrids_tpu_torch.models import transport_rect
     _, T3, _, _ = transport_rect.solve(RectConfig(no_ele_row=20,
-                                                  no_ele_col=2), ntime=3)
+                                                  no_ele_col=2),
+                                       device="cpu", ntime=3)
     torch.testing.assert_close(T, T3, rtol=0, atol=0)
     assert T_cli.shape == T.shape
 

@@ -87,7 +87,7 @@ def test_solve_matches_jax(case):
     jc = jcfg.RectConfig(dtype="float64", **CASES[case])
     tc = tcfg.RectConfig(dtype="float64", **CASES[case])
     jp, jT, jdt, jn = jrect.solve(jc)
-    tp, tT, tdt, tn = trect.solve(tc)
+    tp, tT, tdt, tn = trect.solve(tc, device="cpu")
     assert (tdt, tn) == (jdt, jn) and tn > 5
     np.testing.assert_allclose(tT.numpy(), np.asarray(jT), rtol=1e-12,
                                atol=1e-12)
@@ -109,7 +109,7 @@ def test_step_from_jax_tables_matches_jax():
     np.testing.assert_allclose(tstep(torch.tensor(T)).numpy(),
                                np.asarray(jstep(jnp.asarray(T))),
                                rtol=1e-12, atol=1e-12)
-    own = trect.build_problem(tc)
+    own = trect.build_problem(tc, device="cpu")
     for key in trect.TABLE_KEYS:
         np.testing.assert_allclose(own.tables[key].numpy(),
                                    tp.tables[key].numpy(), rtol=1e-13,
@@ -122,7 +122,7 @@ def test_rect_moving_box():
     cfg = tcfg.RectConfig(no_ele_row=100, no_ele_col=1, time=250.0,
                           u=(2 * 0.01428571, 0.0), direct_solver=True,
                           dtype="float64")
-    problem, T, dt, ntime = trect.solve(cfg)
+    problem, T, dt, ntime = trect.solve(cfg, device="cpu")
     T = T.numpy()
     xs = problem.x_all[:, 0, :]
     com = (xs * T).sum() / T.sum()
@@ -138,8 +138,8 @@ def test_rect_jacobi_matches_direct():
                             u=(0.05, 0.0), direct_solver=True,
                             dtype="float64")
     cfg_j = dataclasses.replace(cfg_d, direct_solver=False, njac_its=50)
-    _, Td, _, _ = trect.solve(cfg_d)
-    _, Tj, _, _ = trect.solve(cfg_j)
+    _, Td, _, _ = trect.solve(cfg_d, device="cpu")
+    _, Tj, _, _ = trect.solve(cfg_j, device="cpu")
     assert np.allclose(Td.numpy(), Tj.numpy(), atol=1e-6)
 
 
@@ -147,7 +147,8 @@ def test_initial_box_paints_the_bottom_row():
     """With cols > 1 the box paints elements lo-1:hi by flat index: the
     bottom row of cells only, as in the JAX package."""
     cfg = tcfg.RectConfig(no_ele_row=10, no_ele_col=3, dtype="float64")
-    T0 = trect.initial_condition(trect.build_problem(cfg)).numpy()
+    T0 = trect.initial_condition(trect.build_problem(cfg, device="cpu")
+                                 ).numpy()
     assert T0[:10].sum() == (10 // 2 - 10 // 5 + 1) * 4
     assert T0[10:].sum() == 0.0
 

@@ -43,11 +43,7 @@ def _run(name, A, d, Binv, b, x0, colors, lib, arr):
         solve = (lambda r: r / arr(d))
         return lib.chebyshev(*args, solve, roots, 3)
     if name == "block_jacobi_inv":
-        if lib is jsm:
-            return lib.block_jacobi_inv(*args, arr(Binv), 0.8, 5)
-        # the port takes the inverse blocks as a solve callable
-        solve = lambda r: torch.einsum("bij,bj->bi", arr(Binv), r)
-        return lib.block_jacobi_solve(*args, solve, 0.8, 5)
+        return lib.block_jacobi_inv(*args, arr(Binv), 0.8, 5)
     if name == "jacobi":
         return lib.jacobi(*args, arr(d), 0.7, 5)
     if name == "richardson":
