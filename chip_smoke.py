@@ -90,8 +90,21 @@ operator given no device land on the card, bit for bit as with it;
 smoothers.block_jacobi_inv over the zero-round K1 apply on the bench
 stand-in's fine level (three sweeps, three K1 launches) against
 block_jacobi_solve and the plain apply; BSR.to_dense on the card and
-StencilOperator.lam_max_estimate against their host versions.  Every phase
-prints its numbers; any failure raises and
+StencilOperator.lam_max_estimate against their host versions.
+
+Then float64 (slice 11, phase 35): kernels K1 and K2 in double on every
+path, through the same entry points with --f64 / dtype="float64": the
+bench stand-in (its fine level in K1's streaming tier) held to the JAX
+package's float64 pin bench:s2:l2, the annulus CLI held to its pin
+annulus_geo:s3:cli and to the JAX package's float64 run, the production
+amg CLI and the PCG gate, one 6-level W-cycle of the level sweep with each
+of its phases held to phase_reference, mode 6 at 256 x 256 (BiCGStab's
+iterations and the drop it reaches beside float32's) and mode 10; K1 in
+each tier and K2 in both variants against their plain versions, the
+checked builds' bits against the unchecked ones, each path's launches
+against its float32 run's, and each kernel timed beside its float32 twin,
+its bound at 8 bytes a value and, for the apply and K2, the library call.
+Every phase prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -957,6 +970,784 @@ def api_phase(card: str):
           f"lam_max_estimate {lam} against {lam_fn}")
 
 
+# Phase 35 (slice 11): float64 on the card.  Every path runs kernels K1 and
+# K2 in double: (a) the bench stand-in (the geometric configuration, its
+# fine level in K1's streaming tier, and the bench:s2:l2 pin's solver), (b)
+# the annulus CLI (pin annulus_geo:s3:cli), the production amg CLI and the
+# PCG gate, (c) one W-cycle of the level sweep at 6 levels (C = 1024), each
+# of its phases held to phase_reference, (d) mode 6 at 256 x 256 and (e)
+# mode 10.  K1 is held to phase_reference within F64_K1_RTOL of the
+# largest |output| (float32's 1e-4 for sums of ~40 terms in another order,
+# compounded over up to 17 rounds, scaled by 2^-53 / 2^-24 is ~2e-13), K2
+# to rowop_reference within F64_K2_RTOL of the largest |y|.
+F64_K1_RTOL = 1e-11
+F64_K2_RTOL = 1e-12
+# Host-CPU float64 references of the same commands with --f64: the JAX
+# package (python -m p_a_multigrids_tpu ... --cpu --f64: residual_history
+# and L1_error as it prints them) and the port's plain path (--device cpu
+# --f64: krylov_iterations).  The PCG gate's L1 is 5.13e-6 in both
+# packages.
+F64_GATE = {"L1_error": 5.132632683954287e-06, "krylov_iterations": [7]}
+F64_AMG_CLI = {"residual_history": [5.390337523148096e-05,
+                                    1.393946998348345e-05],
+               "L1_error": 0.1368395671694575, "krylov_iterations": [5, 4]}
+F64_ANNULUS_CLI = {"residual_history": [0.3923203566060553,
+                                        0.13198252984595443],
+                   "L1_error": 0.5644250344646894,
+                   "krylov_iterations": [7, 6]}
+F64_MODE10_CLI = {"residual_history": [0.8622281629539676,
+                                       0.4848760015803071],
+                  "L1_error": 0.769568097216069}
+# A float64 CLI result against its host reference: the mode-10 history and
+# L1 (no Krylov stop) to 1e-9 relative; the L1 of an iterate where PCG
+# stopped (a 1e-6 or 1e-8 drop) to 1e-7, since two summation orders move
+# that iterate (the gate's L1 on the H100 and on the host CPU: 1.05e-9
+# apart), and its Krylov count within one.  The
+# production amg CLI's SA setup depends on the host's BLAS thread count:
+# its f64 L1 is 0.13684553896 with 1 or 8 OpenBLAS threads and
+# 0.13683956715 with 4 (the port, --device cpu --f64, on an x86 host with
+# OpenBLAS 0.3.27), 4.4e-5 apart,
+# so its L1 is held to 1e-4.
+F64_CLI_REL = 1e-9
+F64_KRYLOV_REL = 1e-7
+F64_SA_REL = 1e-4
+# (f): every mode and the CLI's options at small sizes ({tmp}: a directory
+# of the run), each in float32 and in float64 on the card; --devices 2
+# against CPU ranks; the distributed solver at 2 ranks (tests'
+# DIST_CASE's configuration)
+F64_CLI_MATRIX = (
+    [["--mode", "1", "--rows", "40", "--cols", "8"]]
+    + [["--mode", str(m), "--rows", "8", "--cols", "8", "--ic", "x*y",
+        "--ntime", "2"] for m in (2, 3, 4, 5, 6)]
+    + [["--mode", "7", "--rows", "8", "--cols", "8", "--n-split", "2",
+        "--dt", "5e-8", "--ntime", "2"],
+       ["--mode", "8", "--rows", "8", "--cols", "8"],
+       ["--mode", "9", "--rows", "8", "--cols", "8", "--ntime", "2"],
+       ["--mode", "9", "--rows", "8", "--cols", "8", "--levels", "1",
+        "--amg", "--krylov"],
+       ["--mode", "9", "--rows", "8", "--cols", "8", "--krylov", "--u", "1",
+        "0", "--dt", "0.01"],
+       ["--mode", "9", "--rows", "8", "--cols", "8", "--theta", "0.5"],
+       ["--mode", "9", "--rows", "1", "--cols", "1", "--n-split", "7",
+        "--levels", "2", "--ntime", "1"],
+       ["--mode", "9", "--rows", "8", "--cols", "8", "--levels", "1",
+        "--amg", "--krylov", "--debug"],
+       ["--mode", "9", "--rows", "8", "--cols", "8", "--levels", "1",
+        "--amg", "--krylov", "--profile", "{tmp}/prof"],
+       ["--mode", "10", "--rows", "8", "--cols", "8", "--n-split", "2",
+        "--ntime", "2"]]
+    + [["--mode", "9", "--rows", "8", "--cols", "8", "--solver", s,
+        "--omega", w] for s, w in (("jacobi", "0.8"),
+                                   ("gauss_seidel", "0.5"),
+                                   ("richardson", "0.01"),
+                                   ("direct", "0.8"))])
+F64_DIST_ARGS = ["--mode", "9", "--rows", "4", "--cols", "4", "--ntime", "2",
+                 "--devices", "2"]
+F64_DIST_CASE = dict(kind="stencil", mesh=[16, 4, 0.25, 0.25],
+                     cfg=dict(n_split=2, multi_levels=2, dt=0.05, ntime=2,
+                              n_multigrid=2), ntime=2, serial=True)
+
+
+def unit_counts(sv) -> dict:
+    """K1 and K2 launches and K1 rounds of one operator apply and one
+    homogeneous preconditioning cycle of sv (a PCG iteration's kernels,
+    half a BiCGStab iteration's), from T0's right-hand side."""
+    import torch
+
+    from p_a_multigrids_tpu_torch.ops import phase as K
+    from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+
+    def now():
+        return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
+                "k1_deep": K.KERNEL.launches_deep,
+                "k2_rowop": K2.KERNEL.launches}
+
+    b_t = sv._rhs_t(to_t(sv.initial_condition()))
+    before = now()
+    sv._apply_t(0, b_t, False)
+    sv._vcycle_t(0, torch.zeros_like(b_t), b_t, hom=True)
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in now().items()}
+
+
+def krylov_drop(sv) -> tuple:
+    """The first step's Krylov solve of sv from T0 as the step runs it
+    (``_solve_system_t``'s system, method, stop and iteration cap):
+    (iterations, the smallest residual 2-norm over the right-hand side's,
+    which the stop compares with cfg.krylov_tol)."""
+    import torch
+
+    from p_a_multigrids_tpu_torch.ops import krylov
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+
+    cfg = sv.cfg
+    T_t = to_t(sv.initial_condition())
+    b_t = sv._rhs_t(T_t)
+    b_lin = b_t - sv._apply_t(0, torch.zeros_like(b_t), True)
+    method = krylov.bicgstab if cfg.physics.advection else krylov.pcg
+    _, it, rn = method(lambda v: sv._apply_t(0, v, False), b_lin, T_t,
+                       precond=lambda r: sv._vcycle_t(
+                           0, torch.zeros_like(r), r, hom=True),
+                       tol=cfg.krylov_tol, maxiter=cfg.krylov_maxiter)
+    return it, float(rn) / float(torch.linalg.vector_norm(b_lin))
+
+
+def f64_phase(card: str, f32: dict) -> list:
+    """Phase 35: float64 on every path of the card, through the entry
+    points a user calls (the CLI, SemiSolver, the profiling helpers' solver
+    builders).  Each path's K1 / K2 launches and K1 rounds equal the f32
+    run's on the same path (``f32``: counts from the earlier phases); where
+    a Krylov solve stops after another number of iterations, the counts
+    differ by that many iterations' kernels (``unit_counts``), and by
+    nothing else.  Only K1's tier may differ (one launch a phase either
+    way).  Returns the kernels line's float64 entries."""
+    import numpy as np
+    import torch
+
+    from p_a_multigrids_tpu_torch import __main__ as cli
+    from p_a_multigrids_tpu_torch.mesh import gmsh
+    from p_a_multigrids_tpu_torch.models import semi
+    from p_a_multigrids_tpu_torch.ops import phase as K
+    from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops import stencil
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+    from p_a_multigrids_tpu_torch.utils import debugging
+    from p_a_multigrids_tpu_torch.utils.profiling import (
+        MODE6_ARGS, MODE6_N, MODE10_ARGS, _trace, bench_solver, bound_ms,
+        bsr_matrix, event_ms, kernel_class, least_bytes, painted_mesh,
+        rowop_least_bytes, stencil_bsr_matrix, sweep_solver, trace_kernels,
+        vcycle_profile, window_profile)
+    from p_a_multigrids_tpu_torch.validation import history as pins_mod
+
+    dev = torch.device("cuda", 0)
+    f64 = torch.float64
+    rng = np.random.default_rng(35)
+    pins = pins_mod.load_pins()
+    t_phase = time.perf_counter()
+    count_keys = ("k1_phase", "k1_rounds", "k1_deep", "k2_rowop")
+    # the worst |kernel - plain| by kernel entry, and the launches of the
+    # main runs below by K1 tier and of K2
+    errs = dict.fromkeys(("small", "resident", "stream", "apply", "k2"), 0.0)
+    main_launches = {"k1_tiers": dict.fromkeys(K.TIERS, 0), "k2_rowop": 0,
+                     "apply": 0}
+
+    def counts_zero():
+        K.KERNEL.reset()
+        K.CHECKED.reset()
+        K2.KERNEL.launches = K2.CHECKED.launches = 0
+
+    def read_counts():
+        return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
+                "k1_deep": K.KERNEL.launches_deep,
+                "k1_tiers": {k: v for k, v in K.KERNEL.by_tier.items() if v},
+                "k2_rowop": K2.KERNEL.launches,
+                "k1_checked": K.CHECKED.launches,
+                "k2_checked": K2.CHECKED.launches}
+
+    def main_run(path, fn):
+        """fn() as one of this phase's main runs: counts set to 0 just
+        before, read just after; a run that launches no kernel or a
+        checked one fails."""
+        counts_zero()
+        out = fn()
+        torch.cuda.synchronize()
+        c = read_counts()
+        check(c["k1_phase"] + c["k2_rowop"] > 0
+              and c["k1_checked"] + c["k2_checked"] == 0,
+              f"f64 {path}: launches {c}")
+        for t, n in c["k1_tiers"].items():
+            main_launches["k1_tiers"][t] += n
+        main_launches["k2_rowop"] += c["k2_rowop"]
+        return out, c
+
+    def same_counts(path, c64, c32, its64=(), its32=(), unit=None,
+                    per_iteration=1):
+        """c64 == c32 on count_keys, apart from (sum(its64) - sum(its32))
+        Krylov iterations of per_iteration x ``unit`` kernels each."""
+        extra = (sum(its64) - sum(its32)) * per_iteration
+        want = {k: c32[k] + (extra * unit[k] if unit else 0)
+                for k in count_keys}
+        got = {k: c64[k] for k in count_keys}
+        say("launches", path=path, f64=got, f32={k: c32[k]
+                                                 for k in count_keys},
+            f64_tiers=c64["k1_tiers"], f32_tiers=c32.get("k1_tiers"),
+            krylov_f64=list(its64), krylov_f32=list(its32),
+            iteration_kernels=unit)
+        check(got == want, f"f64 {path}: launches {got}, the f32 run's "
+              f"{c32} with {extra} more Krylov iterations gives {want}")
+
+    def rand(shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=f64, device=dev)
+
+    def k1_parity(name, op, x, bp, coefs, want_z, tier=None, entry=None):
+        """One float64 K1 launch (in ``tier`` when given) against
+        phase_reference, and the checked build's bits against it."""
+        n0 = K.KERNEL.launches
+        xk, zk = K.phase_on_tier(op, x, bp, coefs, want_z, tier)
+        torch.cuda.synchronize()
+        used = K.KERNEL.plan(op, tier).tier
+        check(K.KERNEL.launches - n0 == 1, f"f64 {name}: "
+              f"{K.KERNEL.launches - n0} launches")
+        xr, zr = K.phase_reference(op, x, bp, coefs, want_z)
+        pairs = [("x", xk, xr)] + ([("z", zk, zr)] if want_z else [])
+        for which, got, ref in pairs:
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            key = entry or used
+            errs[key] = max(errs[key], err)
+            say("parity", phase=35, case=name, out=which, dtype="float64",
+                C=op.C, U=op.U, tier=used, rounds=len(coefs) + int(want_z),
+                max_abs_err=f"{err:.3e}", max_ref=f"{scale:.3e}",
+                rel=f"{err / scale:.3e}", tol=F64_K1_RTOL)
+            check(got.dtype == f64 and bool(torch.isfinite(got).all()),
+                  f"f64 {name} {which}: {got.dtype}, finite "
+                  f"{bool(torch.isfinite(got).all())}")
+            check(err <= F64_K1_RTOL * scale, f"f64 {name} {which}: "
+                  f"|K1 - plain| {err:.3e} > {F64_K1_RTOL} * {scale:.3e}")
+        san = debugging.Sanitizer(dev)
+        op.sanitizer = san.site(f"f64 {name}", op.U)
+        c0 = K.CHECKED.launches
+        xc, zc = K.phase_on_tier(op, x, bp, coefs, want_z, tier)
+        torch.cuda.synchronize()
+        op.sanitizer = None
+        san.raise_on_fault()
+        check(K.CHECKED.launches - c0 == 1 and torch.equal(xc, xk)
+              and (not want_z or torch.equal(zc, zk)),
+              f"f64 {name}: the checked K1 build differs from the unchecked")
+        return used
+
+    def k2_parity(name, op):
+        """One float64 K2 launch against rowop_reference, and the checked
+        build's bits against it; returns the variant."""
+        x = rand((3, op.n_src))
+        n0 = K2.KERNEL.launches
+        y = op(x)
+        torch.cuda.synchronize()
+        check(K2.KERNEL.launches - n0 == 1, f"f64 {name}: K2 launches")
+        ref = K2.rowop_reference(*op.tables(), x)
+        err = float((y - ref).abs().max())
+        scale = float(ref.abs().max())
+        errs["k2"] = max(errs["k2"], err)
+        san = debugging.Sanitizer(dev)
+        op.sanitizer = san.site(f"f64 {name}", 0)
+        yc = op(x)
+        torch.cuda.synchronize()
+        op.sanitizer = None
+        san.raise_on_fault()
+        say("parity", phase=35, kernel="k2", case=name, dtype="float64",
+            N=op.n_out, D=op.D, S=op.n_src, variant=op.variant,
+            lanes=op.lanes, max_abs_err=f"{err:.3e}", max_ref=f"{scale:.3e}",
+            tol=F64_K2_RTOL, checked_bits_equal=bool(torch.equal(yc, y)))
+        check(y.dtype == f64 and bool(torch.isfinite(y).all())
+              and err <= F64_K2_RTOL * scale,
+              f"f64 {name}: |K2 - plain| {err:.3e} > {F64_K2_RTOL} * "
+              f"{scale:.3e}")
+        check(torch.equal(yc, y), f"f64 {name}: the checked K2 build "
+              "differs from the unchecked")
+        return op.variant
+
+    def time_pair(run_k, run_p, reps):
+        """ms a call by CUDA events, in turns plain, kernel, kernel, plain
+        after 3 warm-up calls of each."""
+        for fn in (run_k, run_p):
+            for _ in range(3):
+                fn()
+        times = {"plain": [], "kernel": []}
+        for label, fn in (("plain", run_p), ("kernel", run_k),
+                          ("kernel", run_k), ("plain", run_p)):
+            times[label].append(event_ms(fn, reps))
+        return sum(times["kernel"]) / 2, sum(times["plain"]) / 2
+
+    def device_us(fn, cls, reps):
+        """Device time of one call's ``cls`` kernels (all kernels: None),
+        torch.profiler."""
+        ks = [k for k in _trace(fn, reps)
+              if cls is None or kernel_class(k[0]) == cls]
+        return sum(d for _, _, d in ks) / reps
+
+    def f32_run(op, x, bp, coefs):
+        """The same phase on a float32 twin of op (its tables cast)."""
+        op32 = stencil.StencilOperator(op._data, torch.float32, dev)
+        x32, bp32 = x.float(), bp.float()
+        return lambda: K.phase(op32, x32, bp32, coefs)
+
+    def time_entry(name, run_k, run_p, run_32, cls, nbytes, lib, **kv):
+        """The timings of one kernels-line entry: ms (kernel) and plain_ms
+        by CUDA events, device us of the float64 kernel, of its float32
+        twin and of the library call (``lib``: a callable or None), the
+        bound of nbytes over 3.35 TB/s."""
+        ms, plain_ms = time_pair(run_k, run_p, 20)
+        us64 = [device_us(run_k, cls, 20) for _ in range(2)]
+        us32 = [device_us(run_32, cls, 20) for _ in range(2)]
+        lib_ms = lib_us = None
+        if lib is not None:
+            for _ in range(3):
+                lib()
+            lib_ms = event_ms(lib, 20)
+            lib_us = device_us(lib, None, 5)
+        t = {"name": name, "ms": ms, "plain_ms": plain_ms,
+             "device_us": min(us64), "f32_device_us": min(us32),
+             "bound_ms": bound_ms(nbytes), "library_ms": lib_ms}
+        say("time", phase=35, case=name, dtype="float64", ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}",
+            device_us=[f"{v:.2f}" for v in us64],
+            f32_device_us=[f"{v:.2f}" for v in us32],
+            least_MB=f"{nbytes / 1e6:.2f}",
+            bound_us=f"{1e3 * t['bound_ms']:.2f}",
+            library_ms=None if lib_ms is None else f"{lib_ms:.5f}",
+            library_device_us=None if lib_us is None else f"{lib_us:.2f}",
+            card=repr(card), **kv)
+        return t
+
+    timed = {}
+
+    def profile(path, p, **kv):
+        """A path's device time by kernel class (torch.profiler), wall ms
+        by CUDA events and the device's idle share, a cycle or a step."""
+        say("profile", phase=35, path=path, dtype="float64",
+            by_class={k: f"{v['device_us']:.2f}us/{v['launches']:g}"
+                      for k, v in sorted(p["by_class"].items())},
+            busy_us=f"{p['device_busy_us']:.2f}",
+            ms=f"{p['wall_ms_cuda_events']:.4f}",
+            idle_share=f"{p['device_idle_share']:.2f}", card=repr(card),
+            **kv)
+
+    # (a) the bench stand-in, float64: the geometric configuration (its fine
+    # level streams in float64, resident in float32), one cycle's counts,
+    # K1 in each level's tier; then the pin's solver (point Jacobi: every K1
+    # launch a zero-round apply) held to bench:s2:l2 ---------------------
+    t0 = time.perf_counter()
+    bench = bench_solver(dev, dtype="float64")
+    op0, op1 = bench.ops
+    lim4, lim8 = K.KERNEL.limits(0, 4), K.KERNEL.limits(0, 8)
+    say("setup", phase=35, config="bench_f64", dof=3 * op0.C * op0.U,
+        levels=[(op.C, op.U, K.KERNEL.plan(op).tier) for op in bench.ops],
+        f32_tiers=[K.phase_plan(op.C, op.U, *lim4).tier
+                   for op in bench.ops],
+        limits_f32=lim4, limits_f64=lim8,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    check(K.KERNEL.plan(op0).tier == "stream"
+          and K.phase_plan(op0.C, op0.U, *lim4).tier == "resident",
+          "the bench fine level in float64 is not in the streaming tier")
+    x0, b0, x1, b1 = (rand((3, op.C, op.U)) for op in (op0, op0, op1, op1))
+    coefs0 = bench._phase_coefs(0, bench.cfg.n_smooth)
+    bp0 = op0._bp(b0, True)
+    k1_parity("bench_fine_cheb6_z", op0, x0, bp0, coefs0, True)
+    k1_parity("bench_coarse_cheb8", op1, x1, op1._bp(b1, False),
+              bench._phase_coefs(1, bench.cfg.coarse_sweeps), False)
+    k1_parity("bench_apply_l0", op0, x0, torch.zeros_like(x0), [], True,
+              entry="apply")
+    k1_parity("bench_apply_l1", op1, x1, torch.zeros_like(x1), [], True,
+              entry="apply")
+    xt = to_t(bench.initial_condition())
+    bt = bench._rhs_t(xt)
+    _, c = main_run("bench_cycle", lambda: bench._vcycle_t(0, xt, bt))
+    same_counts("bench_cycle", c, f32["bench_cycle"])
+    check(c["k1_tiers"].get("stream", 0) > 0, f"bench f64 cycle {c}")
+    profile("bench_vcycle_f64", vcycle_profile(bench, 10))
+    timed["stream"] = time_entry(
+        "k1_phase_f64_stream", lambda: K.phase(op0, x0, bp0, coefs0),
+        lambda: K.phase_reference(op0, x0, bp0, coefs0),
+        f32_run(op0, x0, bp0, coefs0), "k1_phase", least_bytes(op0, 8), None, C=op0.C, U=op0.U,
+        tier="stream", f32_tier="resident", rounds=len(coefs0) + 1)
+    zeros0 = torch.zeros_like(x0)
+    A, xv = stencil_bsr_matrix(op0), x0.reshape(3, -1).T.reshape(-1)
+    lib_z = (A @ xv).reshape(-1, 3).T.reshape(x0.shape)
+    lib_err = float((lib_z - K.phase(op0, x0, zeros0, [])[1]).abs().max())
+    check(A.dtype == f64 and lib_err <= 1e-12 * float(lib_z.abs().max()),
+          f"f64 apply: the BSR yardstick differs from K1 by {lib_err:.3e}")
+    timed["apply"] = time_entry(
+        "k1_phase_apply_f64", lambda: K.phase(op0, x0, zeros0, []),
+        lambda: K.phase_reference(op0, x0, zeros0, []),
+        f32_run(op0, x0, zeros0, []), "k1_phase", least_bytes(op0, 8, planes=2), lambda: A @ xv, C=op0.C,
+        U=op0.U, tier="stream", library_max_abs_err=f"{lib_err:.3e}")
+    del bench, op0, op1, A, xv, lib_z, x0, b0, x1, b1, bp0, zeros0, xt, bt
+
+    key = "bench:s2:l2"
+    pin = pins[key]
+    mesh = pins_mod.spec_mesh("bench", 2)
+    check(pins_mod.mesh_hash(mesh) == pin["x_hash"], f"{key}: X hash")
+    p_sv = semi.SemiSolver(semi.build_problem(
+        mesh, pins_mod.spec_config(2, 2, dtype="float64")), dev)
+    hist, c = main_run(key, lambda: pins_mod.residual_history(
+        p_sv, len(pin["residual_linf"])))
+    main_launches["apply"] += c["k1_phase"]
+    fails = pins_mod.hold(hist, pin, rel=pins_mod.F64_REL, floor="f64_floor")
+    say("pin", phase=35, spec=key, dtype="float64",
+        residual_linf=[f"{v:.10e}" for v in hist],
+        jax_f64=[f"{v:.10e}" for v in pin["residual_linf"]],
+        distance=[f"{abs(g - w):.3e}" for g, w in
+                  zip(hist, pin["residual_linf"])],
+        allowed=[f"{pins_mod.F64_REL * w + 2 * pin['f64_floor']:.3e}"
+                 for w in pin["residual_linf"]], fails=fails)
+    check(not fails, f"{key} in float64 against its pin: {fails}")
+    check(c["k1_rounds"] == c["k1_phase"],
+          f"{key}: a K1 launch that was not a zero-round apply")
+    same_counts(key, c, f32[key])
+    del p_sv, mesh
+
+    # (b) the annulus CLI (--mode 9 --krylov on the .geo annulus, n_split 3,
+    # 393,216 DOF) in float64: its V-cycle history held to its pin, its PCG
+    # run against the JAX package's; the production amg CLI and the PCG
+    # gate in float64 ---------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        geo_path = f"{tmp}/annulus.geo"
+        with open(geo_path, "w") as f:
+            f.write(pins_mod.ANNULUS_GEO)
+        key = "annulus_geo:s3:cli"
+        pin = pins[key]
+        ann_args = pins_mod.CLI_ARGS + ["--mesh", geo_path, "--n-split", "3",
+                                        "--f64", "--device", "cuda"]
+        (a_out, T_a, a_sv), c = main_run("annulus_cli",
+                                         lambda: cli.run(ann_args))
+        check(T_a.dtype == f64, f"{key}: the CLI's state is {T_a.dtype}")
+        unit = unit_counts(a_sv)
+        c_ann, its_ann, u_ann = f32["annulus_cli"]
+        check(unit == u_ann, f"annulus: a Krylov iteration launches {unit} "
+              f"in float64, {u_ann} in float32")
+        same_counts("annulus_cli", c, c_ann, a_out["krylov_iterations"],
+                    its_ann, unit)
+        say("main", phase=35, path="annulus_cli_f64", dof=T_a.numel(),
+            krylov_iterations=a_out["krylov_iterations"],
+            f32_krylov_iterations=its_ann,
+            cpu_krylov_iterations=F64_ANNULUS_CLI["krylov_iterations"],
+            residual_history=a_out["residual_history"],
+            jax_f64=F64_ANNULUS_CLI["residual_history"],
+            L1_error=a_out["L1_error"],
+            jax_f64_L1_error=F64_ANNULUS_CLI["L1_error"],
+            wall_s=a_out["wall_s"], card=repr(card))
+        check(abs(a_out["L1_error"] - F64_ANNULUS_CLI["L1_error"])
+              <= F64_KRYLOV_REL * F64_ANNULUS_CLI["L1_error"]
+              and all(abs(a - b) <= 1 for a, b in zip(
+                  a_out["krylov_iterations"],
+                  F64_ANNULUS_CLI["krylov_iterations"])),
+              f"annulus CLI in float64: {a_out}")
+        hist, c = main_run(key, lambda: pins_mod.residual_history(
+            a_sv, len(pin["residual_linf"])))
+        fails = pins_mod.hold(hist, pin, rel=pins_mod.F64_REL,
+                              floor="f64_floor")
+        say("pin", phase=35, spec=key, dtype="float64",
+            residual_linf=[f"{v:.10e}" for v in hist],
+            jax_f64=[f"{v:.10e}" for v in pin["residual_linf"]],
+            distance=[f"{abs(g - w):.3e}" for g, w in
+                      zip(hist, pin["residual_linf"])],
+            allowed=[f"{pins_mod.F64_REL * w + 2 * pin['f64_floor']:.3e}"
+                     for w in pin["residual_linf"]], fails=fails)
+        check(not fails, f"{key} in float64 against its pin: {fails}")
+        same_counts(key, c, f32[key])
+        T0_t = to_t(a_sv.initial_condition())
+        a_sv.krylov_iters.clear()
+        profile("annulus_step_f64", window_profile(
+            lambda: a_sv._step_t(T0_t), 2, window=1),
+                krylov_iterations=sorted(set(a_sv.krylov_iters)))
+        sa = a_sv.agg.rowops() if a_sv.agg is not None else {}
+        variants = {k2_parity(f"annulus_{n}", op) for n, op in sa.items()}
+        del a_sv, T_a, T0_t
+
+    amg_args = AMG_ARGS + ["--f64", "--device", "cuda"]
+    (m_out, T_m, m_sv), c = main_run("amg_cli", lambda: cli.run(amg_args))
+    unit = unit_counts(m_sv)
+    c_amg, its_amg, u_amg = f32["amg_cli"]
+    check(unit == u_amg, f"amg CLI: a Krylov iteration launches {unit} in "
+          f"float64, {u_amg} in float32")
+    same_counts("amg_cli", c, c_amg, m_out["krylov_iterations"], its_amg,
+                unit)
+    say("main", phase=35, path="amg_cli_f64", dof=T_m.numel(),
+        krylov_iterations=m_out["krylov_iterations"],
+        f32_krylov_iterations=its_amg,
+        cpu_krylov_iterations=F64_AMG_CLI["krylov_iterations"],
+        residual_history=m_out["residual_history"],
+        jax_f64=F64_AMG_CLI["residual_history"], L1_error=m_out["L1_error"],
+        jax_f64_L1_error=F64_AMG_CLI["L1_error"], wall_s=m_out["wall_s"],
+        card=repr(card))
+    check(T_m.dtype == f64 and abs(m_out["L1_error"]
+                                   - F64_AMG_CLI["L1_error"])
+          <= F64_SA_REL * F64_AMG_CLI["L1_error"]
+          and all(abs(a - b) <= 1 for a, b in zip(
+              m_out["krylov_iterations"], F64_AMG_CLI["krylov_iterations"])),
+          f"amg CLI in float64: {m_out}")
+    rowops = m_sv.agg.rowops()
+    variants |= {k2_parity(f"amg_{n}", op) for n, op in rowops.items()}
+    l0 = rowops["l0_op"]
+    xl = rand((3, l0.n_src))
+    l0_32 = K2.RowOp(l0.tables()[0].T.cpu().numpy(),
+                     l0.tables()[1].permute(3, 0, 1, 2).cpu().numpy(),
+                     l0.n_src, torch.float32, dev, l0.variant)
+    xl32 = xl.float()
+    A, xv = bsr_matrix(l0), xl.T.reshape(-1).contiguous()
+    lib_err = float(((A @ xv).reshape(l0.n_out, 3).T - l0(xl)).abs().max())
+    check(A.dtype == f64 and lib_err <= 1e-12 * float(l0(xl).abs().max()),
+          f"f64 l0_op: the BSR yardstick differs from K2 by {lib_err:.3e}")
+    timed["k2"] = time_entry(
+        "k2_rowop_f64", lambda: l0(xl),
+        lambda: K2.rowop_reference(*l0.tables(), xl), lambda: l0_32(xl32),
+        "k2_rowop", rowop_least_bytes(l0, 8), lambda: A @ xv,
+        rowop="l0_op", N=l0.n_out, D=l0.D, variant=l0.variant,
+        lanes=l0.lanes, library_max_abs_err=f"{lib_err:.3e}")
+    del m_sv, T_m, rowops, l0, l0_32, A, xv
+
+    (g_out, _, _), c = main_run("gate", lambda: cli.run(
+        GATE_ARGS + ["--f64", "--device", "cuda"]))
+    say("main", phase=35, path="gate_f64", launches=c,
+        krylov_iterations=g_out["krylov_iterations"],
+        cpu_krylov_iterations=F64_GATE["krylov_iterations"],
+        L1_error=g_out["L1_error"], cpu_L1_error=F64_GATE["L1_error"],
+        card=repr(card))
+    check(abs(g_out["L1_error"] - F64_GATE["L1_error"])
+          <= F64_KRYLOV_REL * F64_GATE["L1_error"]
+          and abs(g_out["krylov_iterations"][0]
+                  - F64_GATE["krylov_iterations"][0]) <= 1,
+          f"the PCG gate in float64: {g_out}")
+
+    # (c) one W-cycle of the level sweep at 6 levels (C = 1024 down to 4,
+    # 294,912 DOF) in float64, every phase held to phase_reference as it
+    # runs (models.semi.phase wrapped: the plain version adds no launch) --
+    t0 = time.perf_counter()
+    sweep = sweep_solver(dev, 6, dtype="float64")
+    say("setup", phase=35, config="sweep6_f64",
+        levels=[(op.C, op.U, K.KERNEL.plan(op).tier) for op in sweep.ops],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    real_phase = semi.phase
+    held = []
+
+    def phase_held(op, x_t, bp_t, coefs, want_z=True):
+        x, z = real_phase(op, x_t, bp_t, coefs, want_z)
+        xr, zr = K.phase_reference(op, x_t, bp_t, coefs, want_z)
+        tier = K.KERNEL.plan(op).tier
+        for got, ref in ((x, xr), (z, zr)) if want_z else ((x, xr),):
+            err = float((got - ref).abs().max())
+            held.append((op.C, tier, err, float(ref.abs().max())))
+            errs[tier] = max(errs[tier], err)
+        return x, z
+
+    xt = to_t(sweep.initial_condition())
+    bt = sweep._rhs_t(xt)
+    semi.phase = phase_held
+    try:
+        _, c = main_run("sweep6_cycle", lambda: sweep._vcycle_t(0, xt, bt))
+    finally:
+        semi.phase = real_phase
+    worst = max(e / s for _, _, e, s in held)
+    say("cycle", phase=35, config="sweep6_f64", k1_launches=c["k1_phase"],
+        k1_rounds=c["k1_rounds"], k1_deep=c["k1_deep"],
+        k1_tiers=c["k1_tiers"], phases_held=len(held),
+        worst_rel=f"{worst:.3e}", tol=F64_K1_RTOL,
+        by_c={C: f"{max(e / s for c2, _, e, s in held if c2 == C):.3e}"
+              for C in sorted({h[0] for h in held})})
+    same_counts("sweep6_cycle", c, f32["sweep6_cycle"])
+    check(worst <= F64_K1_RTOL and {t for _, t, _, _ in held}
+          >= {"small", "resident"},
+          f"the float64 W-cycle's phases: worst {worst:.3e}, tiers "
+          f"{sorted({t for _, t, _, _ in held})}")
+    opd = sweep.ops[0]
+    xd, bd = rand((3, opd.C, opd.U)), rand((3, opd.C, opd.U))
+    coefs_d = sweep._phase_coefs(0, sweep.cfg.n_smooth)
+    bpd = opd._bp(bd, True)
+    k1_parity("sweep_fine_cheb_z", opd, xd, bpd, coefs_d, True)
+    timed["resident"] = time_entry(
+        "k1_phase_f64_resident", lambda: K.phase(opd, xd, bpd, coefs_d),
+        lambda: K.phase_reference(opd, xd, bpd, coefs_d),
+        f32_run(opd, xd, bpd, coefs_d), "k1_phase", least_bytes(opd, 8), None, C=opd.C, U=opd.U,
+        tier=K.KERNEL.plan(opd).tier, rounds=len(coefs_d) + 1)
+    ops_small = [op for op in sweep.ops if op.C > 1
+                 and K.KERNEL.plan(op).tier == "small"]
+    check(bool(ops_small), "no level of the sweep in K1's small tier")
+    li = list(sweep.ops).index(ops_small[0])
+    ops = ops_small[0]
+    xs, bs = rand((3, ops.C, ops.U)), rand((3, ops.C, ops.U))
+    coefs_s = sweep._phase_coefs(li, sweep.cfg.n_smooth)
+    bps = ops._bp(bs, False)
+    k1_parity("sweep_small_cheb_z", ops, xs, bps, coefs_s, True)
+    timed["small"] = time_entry(
+        "k1_phase_f64_small", lambda: K.phase(ops, xs, bps, coefs_s),
+        lambda: K.phase_reference(ops, xs, bps, coefs_s),
+        f32_run(ops, xs, bps, coefs_s), "k1_phase", least_bytes(ops, 8), None, C=ops.C, U=ops.U,
+        tier="small", rounds=len(coefs_s) + 1)
+    del sweep, opd, ops, xd, bd, bpd, xs, bs, bps, xt, bt
+
+    # (d) mode 6 at 256 x 256 (131,072 elements, C = 1: K1 streams in
+    # float64) through the CLI: BiCGStab's iterations a step beside
+    # float32's; not gated (the float32 run's 1e-8 stop lies below its
+    # floor) ------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path6 = f"{tmp}/painted_{MODE6_N}.msh"
+        gmsh.write_msh(path6, painted_mesh(MODE6_N))
+        (m6_out, T6, m6_sv), c = main_run("mode6", lambda: cli.run(
+            MODE6_ARGS + ["--mesh", path6, "--f64", "--device", "cuda"]))
+    op6 = m6_sv.ops[0]
+    unit = unit_counts(m6_sv)
+    c6, its6, u6, drop6 = f32["mode6"]
+    check(unit == u6, f"mode 6: a BiCGStab half-iteration launches {unit} in "
+          f"float64, {u6} in float32")
+    its = list(m6_sv.krylov_iters)
+    drop = krylov_drop(m6_sv)
+    say("main", phase=35, path="mode6_f64", elements=m6_out["elements"],
+        tier=K.KERNEL.plan(op6).tier, krylov_iterations=its,
+        f32_krylov_iterations=its6, first_step_drop=f"{drop[1]:.3e}",
+        f32_first_step_drop=f"{drop6[1]:.3e}",
+        krylov_tol=m6_sv.cfg.krylov_tol, T_max=float(T6.abs().max()),
+        wall_s=m6_out["wall_s"], card=repr(card))
+    same_counts("mode6", c, c6, its, its6, unit, per_iteration=2)
+    T6_t = to_t(m6_sv.initial_condition())
+    m6_sv.krylov_iters.clear()
+    profile("mode6_step_f64", window_profile(lambda: m6_sv._step_t(T6_t), 1,
+                                             window=1),
+            krylov_iterations=sorted(set(m6_sv.krylov_iters)))
+    check(T6.dtype == f64 and bool(torch.isfinite(T6).all())
+          and float(T6.abs().max()) < 1.5 and (op6.C, op6.U) == (1, 131072)
+          and K.KERNEL.plan(op6).tier == "stream",
+          "mode 6 in float64: the state is not finite and bounded")
+    x6, b6 = rand((3, 1, op6.U)), rand((3, 1, op6.U))
+    k1_parity("mode6_cheb_z", op6, x6, op6._bp(b6, True),
+              m6_sv._phase_coefs(0, m6_sv.cfg.n_smooth), True)
+    k1_parity("mode6_apply", op6, x6, torch.zeros_like(x6), [], True,
+              entry="apply")
+    del m6_sv, T6, T6_t, op6, x6, b6
+
+    # (e) mode 10 at 393,216 DOF in float64: K2 on the assembled operator
+    # (131,072 x 4), one launch a sweep, as in float32 ---------------------
+    (t_out, _, t_sv), c = main_run("mode10", lambda: cli.run(
+        MODE10_ARGS + ["--f64", "--device", "cuda"]))
+    same_counts("mode10", c, f32["mode10"])
+    bsr_op = t_sv.A
+    variants.add(k2_parity("mode10_A_bsr", bsr_op))
+    say("main", phase=35, path="mode10_f64",
+        residual_history=t_out["residual_history"],
+        jax_f64=F64_MODE10_CLI["residual_history"],
+        L1_error=t_out["L1_error"], jax_f64_L1_error=F64_MODE10_CLI[
+            "L1_error"], wall_s=t_out["wall_s"], card=repr(card))
+    for got, want in zip(t_out["residual_history"] + [t_out["L1_error"]],
+                         F64_MODE10_CLI["residual_history"]
+                         + [F64_MODE10_CLI["L1_error"]]):
+        check(abs(got - want) <= F64_CLI_REL * abs(want),
+              f"mode 10 in float64: {got!r} against JAX's {want!r}")
+    xb = rand((3, bsr_op.n_src))
+    A, xv = bsr_matrix(bsr_op), xb.T.reshape(-1).contiguous()
+    ms, plain_ms = time_pair(lambda: bsr_op(xb), lambda: K2.rowop_reference(
+        *bsr_op.tables(), xb), 50)
+    for _ in range(3):
+        A @ xv
+    say("time", phase=35, case="mode10_A_bsr_f64", N=bsr_op.n_out,
+        D=bsr_op.D, variant=bsr_op.variant, ms=f"{ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}",
+        device_us=f"{device_us(lambda: bsr_op(xb), 'k2_rowop', 50):.2f}",
+        bound_us=f"{1e3 * bound_ms(rowop_least_bytes(bsr_op, 8)):.2f}",
+        library_ms=f"{event_ms(lambda: A @ xv, 50):.5f}",
+        library_device_us=f"{device_us(lambda: A @ xv, None, 5):.2f}",
+        card=repr(card))
+    check(variants == {"thread", "lanes"},
+          f"the float64 paths ran K2 variants {variants}")
+    del t_sv, bsr_op, A, xv
+
+    # (f) every mode and the CLI's options at small sizes, each command in
+    # float32 and in float64 on the card: the state is float64, and K1 /
+    # K2 (checked under --debug) launch wherever the float32 run's do, as
+    # often where no Krylov count differs; --devices 2 (gloo ranks sharing
+    # the card) against the same on CPU ranks, and the distributed
+    # solver's K1 / K2 launches on its ranks
+    launch_keys = count_keys + ("k1_checked", "k2_checked")
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv in F64_CLI_MATRIX:
+            argv = [a.format(tmp=tmp) for a in argv]
+            runs = {}
+            for dt, extra in (("float32", []), ("float64", ["--f64"])):
+                counts_zero()
+                out, T, _ = cli.run(argv + extra + ["--device", "cuda"])
+                torch.cuda.synchronize()
+                runs[dt] = (out, T, read_counts())
+            (o32, T32, c32), (o64, T64, c64) = runs["float32"], runs[
+                "float64"]
+            same_its = (o64.get("krylov_iterations")
+                        == o32.get("krylov_iterations"))
+            say("cli", phase=35, argv=" ".join(argv), dtype=str(T64.dtype),
+                f64={k: c64[k] for k in launch_keys},
+                f32={k: c32[k] for k in launch_keys},
+                krylov_f64=o64.get("krylov_iterations"),
+                krylov_f32=o32.get("krylov_iterations"),
+                wall_s=o64["wall_s"])
+            check(T64.dtype == f64 and bool(torch.isfinite(T64).all()),
+                  f"{argv} --f64: the state is {T64.dtype}")
+            check(all((c64[k] > 0) == (c32[k] > 0) for k in launch_keys)
+                  and (not same_its
+                       or all(c64[k] == c32[k] for k in launch_keys)),
+                  f"{argv} --f64: launches {c64}, float32 {c32}")
+            if "--profile" in argv:
+                traced = trace_kernels(f"{argv[argv.index('--profile') + 1]}"
+                                       "/trace.json")
+                n_traced = {cls: sum(kernel_class(k[0]) == cls
+                                     for k in traced)
+                            for cls in ("k1_phase", "k2_rowop")}
+                say("cli", phase=35, profile_traced=n_traced)
+                # the tracer can miss a kernel launched just after it
+                # starts (it traced 43 and 44 of this run's 45 K1 launches
+                # on an H100 80GB HBM3; utils/profiling.MARGIN_S); phase 33
+                # holds a full-width trace to every launch
+                check(all(0 < n_traced[k] <= c64[k] for k in n_traced),
+                      f"--profile --f64: traced {n_traced}, counted {c64}")
+    g_out = cli.run(F64_DIST_ARGS + ["--f64", "--device", "cuda"])[0]
+    c_out = cli.run(F64_DIST_ARGS + ["--f64", "--device", "cpu"])[0]
+    say("cli", phase=35, argv=" ".join(F64_DIST_ARGS + ["--f64"]),
+        cuda_L1_error=g_out["L1_error"], cpu_L1_error=c_out["L1_error"])
+    check(abs(g_out["L1_error"] - c_out["L1_error"])
+          <= F64_CLI_REL * abs(c_out["L1_error"]),
+          f"--devices 2 --f64: L1 {g_out['L1_error']} on the card, "
+          f"{c_out['L1_error']} on CPU ranks")
+    from p_a_multigrids_tpu_torch.parallel import cases, comm
+    dist_cases = [dict(F64_DIST_CASE, id=f"{name}_{dt}", cfg=dict(
+        F64_DIST_CASE["cfg"], dtype=dt, **kw))
+        for name, kw in (("geo", {}), ("amg", dict(amg=True,
+                                                   multi_levels=1,
+                                                   krylov=True)))
+        for dt in ("float32", "float64")]
+    res = comm.launch(cases.run_cases, 2, dev, args=(dist_cases,),
+                      timeout=600)[0]
+    for name in ("geo", "amg"):
+        r32, r64 = res[f"{name}_float32"], res[f"{name}_float64"]
+        diff = float(np.abs(r64["std"] - r64["serial"]).max())
+        scale = float(np.abs(r64["serial"]).max())
+        say("dist", phase=35, config=name, ranks=2, dtype="float64",
+            k1=r64["k1"], k2=r64["k2"], f32_k1=r32["k1"], f32_k2=r32["k2"],
+            krylov_f64=r64["krylov_iters"], krylov_f32=r32["krylov_iters"],
+            serial_krylov=r64["serial_krylov_iters"],
+            max_abs_diff_serial=f"{diff:.3e}", max_abs=f"{scale:.3e}")
+        check(r64["std"].dtype == np.float64 and r64["k1"] > 0
+              and (r64["k2"] > 0) == (name == "amg")
+              and (r64["krylov_iters"] != r32["krylov_iters"]
+                   or (r64["k1"], r64["k2"]) == (r32["k1"], r32["k2"])),
+              f"distributed {name} in float64: {r64['k1']} K1, "
+              f"{r64['k2']} K2 launches, float32 {r32['k1']}, {r32['k2']}")
+        # the geometric steps add in the serial order: the same bits; the
+        # amg PCG steps agree to 1e-9 in float64
+        check(diff == 0.0 if name == "geo" else diff <= 1e-9 * scale,
+              f"distributed {name} in float64: {diff:.3e} from serial")
+
+    say("f64", launches=main_launches, max_abs_err=errs,
+        seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(card))
+    entries = []
+    for key, src, repl in (
+            ("stream", "phase.cu", "pallas_stencil.py:176"),
+            ("resident", "phase.cu", "pallas_stencil.py:608"),
+            ("small", "phase.cu", "pallas_stencil.py:176"),
+            ("apply", "phase.cu", "pallas_stencil.py:176"),
+            ("k2", "spmv.cu", "pallas_bsr.py:144")):
+        t = timed[key]
+        launches = (main_launches["k2_rowop"] if key == "k2"
+                    else main_launches["apply"] if key == "apply"
+                    else main_launches["k1_tiers"][key])
+        check(launches > 0, f"{t['name']}: no launch on the float64 paths")
+        entries.append({
+            "name": t["name"], "route": "cuda",
+            "source": f"p_a_multigrids_tpu_torch/csrc/{src}",
+            "replaces": f"p_a_multigrids_tpu/ops/{repl}",
+            "launches": launches, "max_abs_err": errs[key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "device_us": t["device_us"],
+            "f32_device_us": t["f32_device_us"]})
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1188,6 +1979,9 @@ def main():
     k2_err = max(k2_parity(path, h.rowops()) for path, h in (
         ("amg", amg.agg), ("amg_cli", path_sv["amg_cli"].agg),
         ("defaults", path_sv["defaults"].agg)))
+    # the float32 runs' counts that phase 35 holds the float64 runs to
+    f32_ref = {}
+    amg_unit = unit_counts(path_sv["amg_cli"])
     del path_sv
 
     # 4. main paths through the CLI entry; each path's counts are set to 0
@@ -1250,6 +2044,7 @@ def main():
               f"CLI residual {got:.6g} not within 1% of {want}")
 
     amg_out, amg_counts = drive(AMG_ARGS)
+    f32_ref["amg_cli"] = (amg_counts, amg_out["krylov_iterations"], amg_unit)
     say("main", path="amg_pcg", launches=amg_counts,
         residual_history=amg_out["residual_history"],
         jax_cpu=AMG_CLI["residual_history"],
@@ -1318,6 +2113,7 @@ def main():
         check((c["k1_phase"], c["k1_rounds"]) == CYCLE_K1[key],
               f"{key}: K1 {c['k1_phase']} launches, {c['k1_rounds']} rounds "
               f"a cycle, expected {CYCLE_K1[key]}")
+        return c
 
     def pcg_to_1e6(sv):
         """PCG on sv's linear system from T0's right-hand side, x0 = 0, to a
@@ -1331,7 +2127,7 @@ def main():
                                            hom=True),
             tol=1e-6, maxiter=40)
 
-    cycle_counts("bench", solver)
+    f32_ref["bench_cycle"] = cycle_counts("bench", solver)
     bench = history(solver)
     say("bench", residual_history=[f"{v:.4e}" for v in bench])
     say("bench", jax_cpu=BENCH_HISTORY)
@@ -1538,7 +2334,7 @@ def main():
     # 12. the level sweep on the card: 10 cycles from T0 at levels 1-6, the
     # Galerkin configuration and the amg row; each run's counts are set to
     # 0 just before it and read just after it ------------------------------
-    cycle_counts(6, deep[6])
+    f32_ref["sweep6_cycle"] = cycle_counts(6, deep[6])
     sweep_deep_launches = 0
     wants = dict(SWEEP_HISTORY, galerkin4=GALERKIN4_HISTORY,
                  amg=DEEP_AMG_HISTORY)
@@ -1641,6 +2437,7 @@ def main():
           f"operator with {MODE10_SWEEPS} sweeps a step")
     k2_bsr_err = k2_parity("mode10", {"A_bsr": bsr_op})
     m10_out, m10_counts = drive(MODE10_ARGS)
+    f32_ref["mode10"] = m10_counts
     m10_cpu = cli.main(MODE10_ARGS + ["--device", "cpu"])
     ntime = len(m10_out["residual_history"])
     say("main", path="mode10", launches=m10_counts,
@@ -1796,6 +2593,8 @@ def main():
                       True, 1e-5))
         m6_argv = MODE6_ARGS + ["--mesh", paths[MODE6_N]]
         m6_out, m6_counts, T6, m6_run = drive_state(m6_argv)
+        f32_ref["mode6"] = (m6_counts, list(m6_run.krylov_iters),
+                            unit_counts(m6), krylov_drop(m6))
         T6_t = to_t(m6.initial_condition())
         m6._step_t(T6_t)
         m6.krylov_iters.clear()
@@ -2168,8 +2967,11 @@ def main():
         ann_sv = cli.setup(ann_args + ["--device", "cuda"])[2]
         torch.cuda.synchronize()
         ann_setup_s = time.perf_counter() - t0
+        counts_zero()
         ann_hist = pins_mod.residual_history(ann_sv,
                                              len(pin["residual_linf"]))
+        torch.cuda.synchronize()
+        f32_ref["annulus_geo:s3:cli"] = read_counts()
         fails = pins_mod.hold(ann_hist, pin)
         say("pin", spec="annulus_geo:s3:cli",
             residual_linf=[f"{v:.4e}" for v in ann_hist],
@@ -2178,6 +2980,8 @@ def main():
         check(not fails, f"annulus history against its pin: {fails}")
         del ann_sv
         ann_out, ann_counts, T_ann, ann_sv = drive_state(ann_args)
+        f32_ref["annulus_cli"] = (ann_counts, ann_out["krylov_iterations"],
+                                  unit_counts(ann_sv))
         T_t = to_t(T_ann)
         ann_ms = event_ms(lambda: ann_sv._step_t(T_t), 3)
         say("main", path="geo_annulus", macros=ann.num_elements,
@@ -2215,7 +3019,7 @@ def main():
             counts_zero()
             got = pins_mod.residual_history(p_sv, len(pin["residual_linf"]))
             torch.cuda.synchronize()
-            c = read_counts()
+            c = f32_ref[key] = read_counts()
             fails = pins_mod.hold(got, pin)
             say("pin", spec=key, k1=c["k1_phase"], k1_deep=c["k1_deep"],
                 k2=c["k2_rowop"], residual_linf=[f"{v:.4e}" for v in got],
@@ -2456,6 +3260,9 @@ def main():
     # 34. the entry points on the card, the last public names (slice 10) ----
     api_phase(card)
 
+    # 35. float64 on the card: K1 and K2 in double on every path (slice 11)
+    f64_entries = f64_phase(card, f32_ref)
+
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x
     # and z; a rowop's tables and vectors); a K1 phase has no library call,
@@ -2524,8 +3331,7 @@ def main():
         "launches": dist_k2_launches, "max_abs_err": kt2["err"],
         "ms": kt2["ms"], "plain_ms": kt2["plain_ms"],
         "bound_ms": kt2["bound_ms"], "bound_by": "bytes",
-        "library_ms": kt2["library_ms"]}]}),
-        flush=True)
+        "library_ms": kt2["library_ms"]}] + f64_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

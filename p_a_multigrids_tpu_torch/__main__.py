@@ -102,7 +102,8 @@ def _parser():
     ap.add_argument("--n-smooth", type=int, default=4)
     ap.add_argument("--n-multigrid", type=int, default=2)
     ap.add_argument("--f64", action="store_true",
-                    help="float64 (CPU only: kernels K1 and K2 are float32)")
+                    help="float64 on any device (kernels K1 and K2 take "
+                         "float32 and float64)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device: cuda runs kernel K1, cpu its plain "
                          "PyTorch version")
@@ -162,9 +163,6 @@ def _parse(argv):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(use --device cpu for the plain PyTorch path)")
-    if args.f64 and device.type != "cpu":
-        raise SystemExit("--f64 runs on --device cpu only: kernels K1 and K2 are "
-                         "float32")
     if args.devices and args.debug:
         raise SystemExit("--debug runs on one device: leave out --devices")
     return args, device
@@ -261,20 +259,26 @@ def setup(argv=None):
     return (args,) + _stepping_solver(args, device)
 
 
+def _rect_cfg(args):
+    """The RectConfig of mode 1 (the moving box on the --rows x --cols quad
+    mesh)."""
+    from .config import RectConfig
+
+    return RectConfig(no_ele_row=args.rows, no_ele_col=args.cols,
+                      u=tuple(args.u) if any(args.u)
+                      else (2 * 0.01428571, 0.0),
+                      dtype="float64" if args.f64 else "float32")
+
+
 def _rect(args, device, out):
     """Mode 1: the moving box on the --rows x --cols quad mesh; fills out
     with ntime, dt, t_range (and the curve files with --curves) and
     returns (T (E, 4), the problem)."""
     import numpy as np
 
-    from .config import RectConfig
     from .models import transport_rect
 
-    cfg = RectConfig(no_ele_row=args.rows, no_ele_col=args.cols,
-                     u=tuple(args.u) if any(args.u)
-                     else (2 * 0.01428571, 0.0),
-                     dtype="float64" if args.f64 else "float32")
-    problem, T, dt, ntime = transport_rect.solve(cfg, device)
+    problem, T, dt, ntime = transport_rect.solve(_rect_cfg(args), device)
     vals = T.cpu().numpy()
     out.update(ntime=ntime, dt=dt,
                t_range=[float(vals.min()), float(vals.max())])

@@ -77,6 +77,15 @@
 // 15-33 us against its 0.02-7.2 us bound: the barriers and the round's
 // L2 latency, not the bytes, bound it now.
 //
+// Scalar type.  Everything above holds in float32 and float64 alike: the
+// kernel is a template on its scalar T, instantiated for both, with the
+// same tiers, plan and arithmetic order (k1_phase_f32, k1_phase_f64).  A
+// pair keeps 30 values of T and 10 int32 words on chip (160 B in float32,
+// 280 B in float64) and the small tier 6 more values of T (184 / 328 B),
+// so in float64 fewer pairs fit a block: the small tier holds up to 708
+// pairs, and C = 16, U = 8192 (993 pairs a block, 278 KB) streams.  A
+// double phase moves twice the bytes of a float one.
+//
 // Memory ordering.  The state written in round r is read by other blocks
 // in round r + 1 after the grid barrier (release/acquire semantics); its
 // loads bypass L1 (ld.global.cg), so no SM can see a stale line of a
@@ -119,20 +128,21 @@ constexpr int kMaxRounds = 64;
 enum Tier { kSmall = 0, kResident = 1, kStream = 2 };
 enum CoefSource { kGlobal, kGlobalKeep, kShared };
 
+template <typename T>
 struct Args {
-  const float* __restrict__ x0;
-  const float* __restrict__ bp;
-  const float* __restrict__ Fp;
-  const float* __restrict__ Xp;
+  const T* __restrict__ x0;
+  const T* __restrict__ bp;
+  const T* __restrict__ Fp;
+  const T* __restrict__ Xp;
   const int* __restrict__ intra;
   const int* __restrict__ slot_ptr;
   const int* __restrict__ slot_idx;
   const int* __restrict__ src;
-  float* buf0;
-  float* buf1;
-  float* z_out;
+  T* buf0;
+  T* buf1;
+  T* z_out;
   int C, U, nb, rounds, slice;
-  float coef[kMaxRounds];
+  T coef[kMaxRounds];
 #ifdef PAMG_CHECKED
   int* record;   // the error record (checked.cuh)
   int site;      // the caller's name for this launch's operator
@@ -147,7 +157,8 @@ constexpr int kSubSlotPtr = 3, kSubSlotCount = 4, kSubSlotIdx = 5,
 
 // v, an index of pair t read from table `sub`, if it lies in [0, bound);
 // in the checked build a fault is recorded and 0 returned otherwise.
-__device__ __forceinline__ int in_range(const Args& a, int v, int bound,
+template <typename T>
+__device__ __forceinline__ int in_range(const Args<T>& a, int v, int bound,
                                         long long t, int sub) {
 #ifdef PAMG_CHECKED
   if (v < 0 || v >= bound) {
@@ -160,28 +171,32 @@ __device__ __forceinline__ int in_range(const Args& a, int v, int bound,
 }
 
 // In the checked build, records v, written for pair t as `sub`, unless it
-// is finite.
-__device__ __forceinline__ void expect_finite(const Args& a, float v,
+// is finite.  The record keeps the bits of v as a float32 in either
+// precision: converting a double Inf or NaN to float keeps it an Inf or a
+// NaN, and only those are recorded.
+template <typename T>
+__device__ __forceinline__ void expect_finite(const Args<T>& a, T v,
                                               long long t, int sub) {
 #ifdef PAMG_CHECKED
   if (!isfinite(v))
     pamg_checked::record_fault(a.record, 1, a.site, pamg_checked::kNonFinite,
-                               t, sub, __float_as_int(v), 0);
+                               t, sub, __float_as_int(static_cast<float>(v)),
+                               0);
 #endif
 }
 
 // What a pair keeps in shared memory on chip: Fp (27) and bp (3) as
-// floats, then as ints the offsets in a (C, U) plane of its three
+// values of T, then as ints the offsets in a (C, U) plane of its three
 // intra-macro neighbors, its number of cross-macro slots and, for each of
 // at most kMaxSlots slots, the offsets of its source and of its Xp blocks;
-// in the small tier also its state, x of two rounds (6 floats).
+// in the small tier also its state, x of two rounds (6 values of T).
 constexpr int kMaxSlots = 3;               // the single child at C = 1
-constexpr int kKeepFloats = 30;
+constexpr int kKeepVals = 30;
 constexpr int kKeepInts = 4 + 2 * kMaxSlots;
 
 // One round over this block's pairs.  kGlobal reads the coefficients and
 // index tables from device memory, kGlobalKeep also keeps them in shared
-// memory `keep` ([30][slice] floats, then [10][slice] ints), kShared reads
+// memory `keep` ([30][slice] values, then [10][slice] ints), kShared reads
 // them from there: then the round's only reads outside shared memory are
 // the x and Xp values, all at known addresses, in flight together.
 // Outside the small tier x is read from device memory and x_out written
@@ -190,21 +205,20 @@ constexpr int kKeepInts = 4 + 2 * kMaxSlots;
 // (kGlobalKeep) and from shared memory xs_in afterwards (kShared); every
 // round writes xs_out, and x_out and z_out in device memory when they are
 // not null (the last round).
-template <int kSrc, bool kBlock>
-__device__ __forceinline__ void relax_round(const Args& a, const float* x,
-                                            float* x_out, float* z_out,
-                                            float coef, float* keep,
-                                            const float* xs_in,
-                                            float* xs_out) {
+template <typename T, int kSrc, bool kBlock>
+__device__ __forceinline__ void relax_round(const Args<T>& a, const T* x,
+                                            T* x_out, T* z_out, T coef,
+                                            T* keep, const T* xs_in,
+                                            T* xs_out) {
   constexpr bool kFromBlock = kBlock && kSrc == kShared;
   const long long CU = static_cast<long long>(a.C) * a.U;
   const long long nbU = static_cast<long long>(a.nb) * a.U;
   const long long t0 = static_cast<long long>(blockIdx.x) * a.slice;
   const long long rest = CU - t0;
   const int len = rest < a.slice ? static_cast<int>(rest) : a.slice;
-  int* ikeep = reinterpret_cast<int*>(keep + kKeepFloats * a.slice);
+  int* ikeep = reinterpret_cast<int*>(keep + kKeepVals * a.slice);
   // dof j of the pair at offset q of a (C, U) plane, previous round
-  auto fetch = [&](int j, int q) -> float {
+  auto fetch = [&](int j, int q) -> T {
     return kFromBlock ? xs_in[j * a.slice + q] : __ldcg(x + j * CU + q);
   };
   for (int p = threadIdx.x; p < len; p += blockDim.x) {
@@ -254,23 +268,23 @@ __device__ __forceinline__ void relax_round(const Args& a, const float* x,
     }
 
     // intra-macro neighbor values x[j, nb_f(c), u]
-    float xn[3][3];
+    T xn[3][3];
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) xn[f][j] = fetch(j, q[f]);
     }
 
-    float acc[3];
+    T acc[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      float s = 0.0f;
+      T s = T(0);
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           const int k = (f * 3 + i) * 3 + j;
-          float w;
+          T w;
           if (kSrc == kShared) {
             w = keep[k * a.slice + p];
           } else {
@@ -284,12 +298,12 @@ __device__ __forceinline__ void relax_round(const Args& a, const float* x,
     }
 
     // cross-macro slots of the child, in slot order
-    float cross[3] = {0.0f, 0.0f, 0.0f};
+    T cross[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int k = 0; k < kMaxSlots; ++k) {
       if (k < ns) {
-        const float s0 = fetch(0, g[k]), s1 = fetch(1, g[k]),
-                    s2 = fetch(2, g[k]);
+        const T s0 = fetch(0, g[k]), s1 = fetch(1, g[k]),
+                s2 = fetch(2, g[k]);
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
           cross[i] += a.Xp[(i * 3 + 0) * nbU + su[k]] * s0
@@ -301,16 +315,16 @@ __device__ __forceinline__ void relax_round(const Args& a, const float* x,
 
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      float b;
+      T b;
       if (kSrc == kShared) {
         b = keep[(27 + i) * a.slice + p];
       } else {
         b = a.bp[i * CU + t];
         if (kSrc == kGlobalKeep) keep[(27 + i) * a.slice + p] = b;
       }
-      const float xi = fetch(i, static_cast<int>(t));
-      const float z = b - xi - (acc[i] + cross[i]);
-      const float xo = xi + coef * z;
+      const T xi = fetch(i, static_cast<int>(t));
+      const T z = b - xi - (acc[i] + cross[i]);
+      const T xo = xi + coef * z;
       expect_finite(a, xo, t, i);
       if (z_out != nullptr) expect_finite(a, z, t, kSubZ + i);
       if (kBlock) xs_out[i * a.slice + p] = xo;
@@ -320,51 +334,54 @@ __device__ __forceinline__ void relax_round(const Args& a, const float* x,
   }
 }
 
-template <int kTier>
-__global__ void __launch_bounds__(1024) phase_kernel(const Args a) {
-  extern __shared__ float keep[];
+template <typename T, int kTier>
+__global__ void __launch_bounds__(1024) phase_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* keep = reinterpret_cast<T*>(smem);
   const int last = a.rounds - 1;
   if constexpr (kTier == kSmall) {
     // the state ping-pongs in shared memory, [2][3][slice] after the kept
     // coefficients and offsets; device memory sees x0 and the last round's
     // x and z only
-    float* xs = keep + (kKeepFloats + kKeepInts) * a.slice;
+    T* xs = reinterpret_cast<T*>(
+        reinterpret_cast<int*>(keep + kKeepVals * a.slice)
+        + kKeepInts * a.slice);
     for (int r = 0; r <= last; ++r) {
-      float* x_out = r < last ? nullptr : ((r & 1) ? a.buf1 : a.buf0);
-      float* z_out = r < last ? nullptr : a.z_out;
-      float* xs_out = xs + (r & 1) * 3 * a.slice;
+      T* x_out = r < last ? nullptr : ((r & 1) ? a.buf1 : a.buf0);
+      T* z_out = r < last ? nullptr : a.z_out;
+      T* xs_out = xs + (r & 1) * 3 * a.slice;
       if (r == 0) {
-        relax_round<kGlobalKeep, true>(a, a.x0, x_out, z_out, a.coef[r],
-                                       keep, nullptr, xs_out);
+        relax_round<T, kGlobalKeep, true>(a, a.x0, x_out, z_out, a.coef[r],
+                                          keep, nullptr, xs_out);
       } else {
-        relax_round<kShared, true>(a, nullptr, x_out, z_out, a.coef[r],
-                                   keep, xs + ((r - 1) & 1) * 3 * a.slice,
-                                   xs_out);
+        relax_round<T, kShared, true>(a, nullptr, x_out, z_out, a.coef[r],
+                                      keep, xs + ((r - 1) & 1) * 3 * a.slice,
+                                      xs_out);
       }
       __syncthreads();
     }
     return;
   }
   for (int r = 0; r <= last; ++r) {
-    const float* x = r == 0 ? a.x0 : ((r & 1) ? a.buf0 : a.buf1);
-    float* x_out = (r & 1) ? a.buf1 : a.buf0;
-    float* z_out = r == last ? a.z_out : nullptr;
+    const T* x = r == 0 ? a.x0 : ((r & 1) ? a.buf0 : a.buf1);
+    T* x_out = (r & 1) ? a.buf1 : a.buf0;
+    T* z_out = r == last ? a.z_out : nullptr;
     if constexpr (kTier == kStream) {
-      relax_round<kGlobal, false>(a, x, x_out, z_out, a.coef[r], keep,
-                                  nullptr, nullptr);
+      relax_round<T, kGlobal, false>(a, x, x_out, z_out, a.coef[r], keep,
+                                     nullptr, nullptr);
     } else if (r == 0) {
-      relax_round<kGlobalKeep, false>(a, x, x_out, z_out, a.coef[r], keep,
-                                      nullptr, nullptr);
+      relax_round<T, kGlobalKeep, false>(a, x, x_out, z_out, a.coef[r], keep,
+                                         nullptr, nullptr);
     } else {
-      relax_round<kShared, false>(a, x, x_out, z_out, a.coef[r], keep,
-                                  nullptr, nullptr);
+      relax_round<T, kShared, false>(a, x, x_out, z_out, a.coef[r], keep,
+                                     nullptr, nullptr);
     }
     if (r < last) cg::this_grid().sync();
   }
 }
 
 // Allow up to the card's opt-in shared memory per block, once per kernel.
-template <int kTier>
+template <typename T, int kTier>
 cudaError_t allow_shared_memory() {
   static cudaError_t done = cudaErrorNotReady;
   if (done == cudaErrorNotReady) {
@@ -375,64 +392,34 @@ cudaError_t allow_shared_memory() {
           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (done == cudaSuccess)
       done = cudaFuncSetAttribute(
-          phase_kernel<kTier>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          phase_kernel<T, kTier>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           optin);
   }
   return done;
 }
 
-}  // namespace
-
-// The card's numbers the host plan needs: SMs, opt-in shared memory per
-// block, and how many 1024-thread blocks of the streaming tier an SM holds
-// at once.  Returns a CUDA error code, 0 on success.
-extern "C" int k1_phase_limits(int* sm_count, int* smem_optin,
-                               int* stream_blocks_per_sm) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
-                                 dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        stream_blocks_per_sm, phase_kernel<kStream>, 1024, 0);
-  return static_cast<int>(err);
-}
-
-// One phase of `rounds` rounds (1..64) with step sizes coefs[0..rounds) on
-// `stream`, in the tier and launch shape the host planned: `grid` blocks of
-// `threads`, `slice` pairs a block, `smem` bytes of dynamic shared memory
-// (46 * 4 * slice small, 40 * 4 * slice resident, 0 streaming).  Round r reads x0 (r = 0) or the
-// buffer round r - 1 wrote and writes buf0 (r even) or buf1 (r odd); the
-// last round also writes z_out unless it is null.  The checked build
-// records its first fault in `record` (checked.cuh) as operator `site`;
-// the unchecked build ignores both.  Returns the launch's CUDA error code,
-// 0 when it was accepted.
-extern "C" int k1_phase(const void* x0, const void* bp, const void* Fp,
-                        const void* Xp, const void* intra,
-                        const void* slot_ptr, const void* slot_idx,
-                        const void* src, void* buf0, void* buf1, void* z_out,
-                        const float* coefs, int rounds, int C, int U, int nb,
-                        int tier, int grid, int threads, int slice, int smem,
-                        void* stream, void* record, int site) {
+template <typename T>
+int launch_phase(const void* x0, const void* bp, const void* Fp,
+                 const void* Xp, const void* intra, const void* slot_ptr,
+                 const void* slot_idx, const void* src, void* buf0,
+                 void* buf1, void* z_out, const T* coefs, int rounds, int C,
+                 int U, int nb, int tier, int grid, int threads, int slice,
+                 int smem, void* stream, void* record, int site) {
   if (rounds < 1 || rounds > kMaxRounds || grid < 1 || threads < 1
       || (tier == kSmall && grid != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.x0 = static_cast<const float*>(x0);
-  a.bp = static_cast<const float*>(bp);
-  a.Fp = static_cast<const float*>(Fp);
-  a.Xp = static_cast<const float*>(Xp);
+  Args<T> a;
+  a.x0 = static_cast<const T*>(x0);
+  a.bp = static_cast<const T*>(bp);
+  a.Fp = static_cast<const T*>(Fp);
+  a.Xp = static_cast<const T*>(Xp);
   a.intra = static_cast<const int*>(intra);
   a.slot_ptr = static_cast<const int*>(slot_ptr);
   a.slot_idx = static_cast<const int*>(slot_idx);
   a.src = static_cast<const int*>(src);
-  a.buf0 = static_cast<float*>(buf0);
-  a.buf1 = static_cast<float*>(buf1);
-  a.z_out = static_cast<float*>(z_out);
+  a.buf0 = static_cast<T*>(buf0);
+  a.buf1 = static_cast<T*>(buf1);
+  a.z_out = static_cast<T*>(z_out);
   a.C = C;
   a.U = U;
   a.nb = nb;
@@ -451,23 +438,89 @@ extern "C" int k1_phase(const void* x0, const void* bp, const void* Fp,
   void* params[] = {&a};
   cudaError_t err;
   if (tier == kSmall) {
-    err = allow_shared_memory<kSmall>();
+    err = allow_shared_memory<T, kSmall>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    phase_kernel<kSmall><<<grid, threads, smem, s>>>(a);
+    phase_kernel<T, kSmall><<<grid, threads, smem, s>>>(a);
     err = cudaSuccess;
   } else if (tier == kResident) {
-    err = allow_shared_memory<kResident>();
+    err = allow_shared_memory<T, kResident>();
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(phase_kernel<kResident>), dim3(grid),
+        reinterpret_cast<const void*>(phase_kernel<T, kResident>), dim3(grid),
         dim3(threads), params, smem, s);
   } else if (tier == kStream) {
     err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(phase_kernel<kStream>), dim3(grid),
+        reinterpret_cast<const void*>(phase_kernel<T, kStream>), dim3(grid),
         dim3(threads), params, 0, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The card's numbers the host plan needs for state of `itemsize` bytes (4:
+// float32, 8: float64): SMs, opt-in shared memory per block, and how many
+// 1024-thread blocks of that type's streaming tier an SM holds at once.
+// Returns a CUDA error code, 0 on success.
+extern "C" int k1_phase_limits(int itemsize, int* sm_count, int* smem_optin,
+                               int* stream_blocks_per_sm) {
+  if (itemsize != 4 && itemsize != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = itemsize == 4
+        ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              stream_blocks_per_sm, phase_kernel<float, kStream>, 1024, 0)
+        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              stream_blocks_per_sm, phase_kernel<double, kStream>, 1024, 0);
+  return static_cast<int>(err);
+}
+
+// One phase of `rounds` rounds (1..64) with step sizes coefs[0..rounds) on
+// `stream`, in the tier and launch shape the host planned: `grid` blocks of
+// `threads`, `slice` pairs a block, `smem` bytes of dynamic shared memory
+// ((36 * itemsize + 40) * slice small, (30 * itemsize + 40) * slice
+// resident, 0 streaming).  Round r reads x0 (r = 0) or the buffer round
+// r - 1 wrote and writes buf0 (r even) or buf1 (r odd); the last round also
+// writes z_out unless it is null.  Every array and coefs are float32
+// (k1_phase_f32) or float64 (k1_phase_f64); the index tables int32.  The
+// checked build records its first fault in `record` (checked.cuh) as
+// operator `site`; the unchecked build ignores both.  Returns the launch's
+// CUDA error code, 0 when it was accepted.
+extern "C" int k1_phase_f32(const void* x0, const void* bp, const void* Fp,
+                            const void* Xp, const void* intra,
+                            const void* slot_ptr, const void* slot_idx,
+                            const void* src, void* buf0, void* buf1,
+                            void* z_out, const float* coefs, int rounds,
+                            int C, int U, int nb, int tier, int grid,
+                            int threads, int slice, int smem, void* stream,
+                            void* record, int site) {
+  return launch_phase<float>(x0, bp, Fp, Xp, intra, slot_ptr, slot_idx, src,
+                             buf0, buf1, z_out, coefs, rounds, C, U, nb,
+                             tier, grid, threads, slice, smem, stream,
+                             record, site);
+}
+
+extern "C" int k1_phase_f64(const void* x0, const void* bp, const void* Fp,
+                            const void* Xp, const void* intra,
+                            const void* slot_ptr, const void* slot_idx,
+                            const void* src, void* buf0, void* buf1,
+                            void* z_out, const double* coefs, int rounds,
+                            int C, int U, int nb, int tier, int grid,
+                            int threads, int slice, int smem, void* stream,
+                            void* record, int site) {
+  return launch_phase<double>(x0, bp, Fp, Xp, intra, slot_ptr, slot_idx,
+                              src, buf0, buf1, z_out, coefs, rounds, C, U,
+                              nb, tier, grid, threads, slice, smem, stream,
+                              record, site);
 }

@@ -47,6 +47,13 @@
 //   the check that holds it).  Rows of more than 1,024 slots (48 KB of sums
 //   a block) take the thread variant.
 //
+// Scalar type: both variants are templates on their scalar T, instantiated
+// for float32 and float64 (k2_rowop_f32, k2_rowop_f64) with the same
+// plan, layouts and summation order.  In float64 a slot costs 72 B of vals
+// (twice the bytes), the lanes load each quad of values as two 16-byte
+// loads, and a block's slot sums take 24 B a slot, so the lanes variant
+// takes rows of up to 512 slots (48 KB of sums a block).
+//
 // The checked build (-DPAMG_CHECKED, checked.cuh; `--debug`): every column
 // a thread reads from `cols` is compared with S, the number of source rows
 // it addresses, and every y it writes is tested with isfinite.  The first
@@ -83,30 +90,40 @@ __device__ __forceinline__ int in_range(const Check& k, int c, int S,
   return c;
 }
 
-// In the checked build, records y[i, n] = v unless it is finite.
-__device__ __forceinline__ void expect_finite(const Check& k, float v,
+// In the checked build, records y[i, n] = v unless it is finite (as the
+// bits of v converted to float32, which keeps a double Inf or NaN one).
+template <typename T>
+__device__ __forceinline__ void expect_finite(const Check& k, T v,
                                               long long n, int i) {
 #ifdef PAMG_CHECKED
   if (!isfinite(v))
     pamg_checked::record_fault(k.record, 2, k.site,
                                pamg_checked::kNonFinite, n, i,
-                               __float_as_int(v), 0);
+                               __float_as_int(static_cast<float>(v)), 0);
 #endif
 }
 
+// Four consecutive values of T, loaded together: one 16-byte load of
+// float32, two of float64.
+template <typename T> struct Quad;
+template <> struct Quad<float> { using type = float4; };
+struct __align__(16) DoubleQuad { double x, y, z, w; };
+template <> struct Quad<double> { using type = DoubleQuad; };
+
+template <typename T>
 __global__ void rowop_thread_kernel(const int* __restrict__ cols,
-                                    const float* __restrict__ vals,
-                                    const float* __restrict__ x,
-                                    float* __restrict__ y, int N, int D,
+                                    const T* __restrict__ vals,
+                                    const T* __restrict__ x,
+                                    T* __restrict__ y, int N, int D,
                                     int S, const Check chk) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const long long NN = N;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+  T a0 = T(0), a1 = T(0), a2 = T(0);
   for (int d = 0; d < D; ++d) {
     const long long c = in_range(chk, cols[d * NN + n], S, n, d);
-    const float x0 = x[c], x1 = x[S + c], x2 = x[2LL * S + c];
-    const float* v = vals + d * 9 * NN + n;   // v[(3i + j) * N]
+    const T x0 = x[c], x1 = x[S + c], x2 = x[2LL * S + c];
+    const T* v = vals + d * 9 * NN + n;   // v[(3i + j) * N]
     a0 += v[0 * NN] * x0 + v[1 * NN] * x1 + v[2 * NN] * x2;
     a1 += v[3 * NN] * x0 + v[4 * NN] * x1 + v[5 * NN] * x2;
     a2 += v[6 * NN] * x0 + v[7 * NN] * x1 + v[8 * NN] * x2;
@@ -122,13 +139,12 @@ __global__ void rowop_thread_kernel(const int* __restrict__ cols,
 // one slot's three sums, block v[0..9) (3i + j) against x[:, c], written
 // as the thread variant writes them, so that both compile to the same
 // multiply-adds
-__device__ __forceinline__ void slot_sums(float* out,
-                                          const float* __restrict__ x,
-                                          long long S, int c, float v0,
-                                          float v1, float v2, float v3,
-                                          float v4, float v5, float v6,
-                                          float v7, float v8) {
-  const float x0 = x[c], x1 = x[S + c], x2 = x[2 * S + c];
+template <typename T>
+__device__ __forceinline__ void slot_sums(T* out, const T* __restrict__ x,
+                                          long long S, int c, T v0, T v1,
+                                          T v2, T v3, T v4, T v5, T v6,
+                                          T v7, T v8) {
+  const T x0 = x[c], x1 = x[S + c], x2 = x[2 * S + c];
   out[0] = v0 * x0 + v1 * x1 + v2 * x2;
   out[1] = v3 * x0 + v4 * x1 + v5 * x2;
   out[2] = v6 * x0 + v7 * x1 + v8 * x2;
@@ -140,31 +156,33 @@ __device__ __forceinline__ void slot_sums(float* out,
 // order, the thread variant's order, so that both variants give the same
 // bits (padding slots add exact zeros).  Rows past N compute row N - 1
 // and store nothing, so every lane of a warp reaches __syncwarp.
-template <int G>
+template <typename T, int G>
 __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
-                                   const float4* __restrict__ vals,
-                                   const float* __restrict__ x,
-                                   float* __restrict__ y, int N, int Q,
+                                   const typename Quad<T>::type* __restrict__
+                                       vals,
+                                   const T* __restrict__ x,
+                                   T* __restrict__ y, int N, int Q,
                                    int S, const Check chk) {
-  extern __shared__ float sums[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sums = reinterpret_cast<T*>(smem);
   const long long g = (static_cast<long long>(blockIdx.x) * blockDim.x
                        + threadIdx.x);
   const long long row = g / G;
   const int lane = static_cast<int>(g % G);
   const long long n = row < N ? row : N - 1;
   const int4* cr = cols + n * Q;
-  const float4* vr = vals + n * 9 * Q;
-  float* rs = sums + static_cast<long long>(threadIdx.x / G) * Q * 12;
+  const typename Quad<T>::type* vr = vals + n * 9 * Q;
+  T* rs = sums + static_cast<long long>(threadIdx.x / G) * Q * 12;
   for (int q = lane; q < Q; q += G) {
     const int4 cq = cr[q];
     const int4 c = make_int4(in_range(chk, cq.x, S, n, 4 * q),
                              in_range(chk, cq.y, S, n, 4 * q + 1),
                              in_range(chk, cq.z, S, n, 4 * q + 2),
                              in_range(chk, cq.w, S, n, 4 * q + 3));
-    float4 v[9];
+    typename Quad<T>::type v[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) v[k] = vr[k * Q + q];
-    float* o = rs + q * 12;
+    T* o = rs + q * 12;
     slot_sums(o, x, S, c.x, v[0].x, v[1].x, v[2].x, v[3].x, v[4].x, v[5].x,
               v[6].x, v[7].x, v[8].x);
     slot_sums(o + 3, x, S, c.y, v[0].y, v[1].y, v[2].y, v[3].y, v[4].y,
@@ -176,7 +194,7 @@ __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
   }
   __syncwarp();
   if (lane == 0 && row < N) {
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+    T a0 = T(0), a1 = T(0), a2 = T(0);
     for (int d = 0; d < 4 * Q; ++d) {
       a0 += rs[3 * d];
       a1 += rs[3 * d + 1];
@@ -191,7 +209,7 @@ __global__ void rowop_lanes_kernel(const int4* __restrict__ cols,
   }
 }
 
-template <int G>
+template <typename T, int G>
 cudaError_t launch_lanes(const void* cols, const void* vals, const void* x,
                          void* y, int N, int Q, int S, cudaStream_t s,
                          const Check chk) {
@@ -199,26 +217,19 @@ cudaError_t launch_lanes(const void* cols, const void* vals, const void* x,
   const long long total = static_cast<long long>(N) * G;
   const unsigned int blocks =
       static_cast<unsigned int>((total + threads - 1) / threads);
-  const size_t smem = static_cast<size_t>(threads / G) * Q * 12 * sizeof(float);
+  const size_t smem = static_cast<size_t>(threads / G) * Q * 12 * sizeof(T);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  rowop_lanes_kernel<G><<<blocks, threads, smem, s>>>(
-      static_cast<const int4*>(cols), static_cast<const float4*>(vals),
-      static_cast<const float*>(x), static_cast<float*>(y), N, Q, S, chk);
+  rowop_lanes_kernel<T, G><<<blocks, threads, smem, s>>>(
+      static_cast<const int4*>(cols),
+      static_cast<const typename Quad<T>::type*>(vals),
+      static_cast<const T*>(x), static_cast<T*>(y), N, Q, S, chk);
   return cudaSuccess;
 }
 
-}  // namespace
-
-// y (3, N) <- block-row operator (cols, vals) applied to x (3, S), on
-// `stream`.  lanes = 1: the thread variant, tables (D, N) / (D, 3, 3, N);
-// lanes = 4, 8, 16 or 32: the lane-group variant, tables (N, D) /
-// (N, 3, 3, D) with D a multiple of 4.  The checked build records its
-// first fault in `record` (checked.cuh) as operator `site`; the unchecked
-// build ignores both.  Returns cudaGetLastError() after the launch: 0 when
-// it was accepted.
-extern "C" int k2_rowop(const void* cols, const void* vals, const void* x,
-                        void* y, int N, int D, int S, int lanes,
-                        void* stream, void* record, int site) {
+template <typename T>
+int launch_rowop(const void* cols, const void* vals, const void* x, void* y,
+                 int N, int D, int S, int lanes, void* stream, void* record,
+                 int site) {
   if (N <= 0) return 0;
 #ifdef PAMG_CHECKED
   if (record == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -229,23 +240,49 @@ extern "C" int k2_rowop(const void* cols, const void* vals, const void* x,
     const int threads = 256;
     const unsigned int blocks =
         static_cast<unsigned int>((N + threads - 1) / threads);
-    rowop_thread_kernel<<<blocks, threads, 0, s>>>(
-        static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<float*>(y), N, D, S, chk);
+    rowop_thread_kernel<T><<<blocks, threads, 0, s>>>(
+        static_cast<const int*>(cols), static_cast<const T*>(vals),
+        static_cast<const T*>(x), static_cast<T*>(y), N, D, S, chk);
   } else {
     cudaError_t err = cudaErrorInvalidValue;
     if (D % 4 != 0) {
       // the 16-byte loads need whole quads of slots
     } else if (lanes == 4) {
-      err = launch_lanes<4>(cols, vals, x, y, N, D / 4, S, s, chk);
+      err = launch_lanes<T, 4>(cols, vals, x, y, N, D / 4, S, s, chk);
     } else if (lanes == 8) {
-      err = launch_lanes<8>(cols, vals, x, y, N, D / 4, S, s, chk);
+      err = launch_lanes<T, 8>(cols, vals, x, y, N, D / 4, S, s, chk);
     } else if (lanes == 16) {
-      err = launch_lanes<16>(cols, vals, x, y, N, D / 4, S, s, chk);
+      err = launch_lanes<T, 16>(cols, vals, x, y, N, D / 4, S, s, chk);
     } else if (lanes == 32) {
-      err = launch_lanes<32>(cols, vals, x, y, N, D / 4, S, s, chk);
+      err = launch_lanes<T, 32>(cols, vals, x, y, N, D / 4, S, s, chk);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// y (3, N) <- block-row operator (cols, vals) applied to x (3, S), on
+// `stream`.  lanes = 1: the thread variant, tables (D, N) / (D, 3, 3, N);
+// lanes = 4, 8, 16 or 32: the lane-group variant, tables (N, D) /
+// (N, 3, 3, D) with D a multiple of 4.  vals, x and y are float32
+// (k2_rowop_f32) or float64 (k2_rowop_f64), cols int32.  The checked build
+// records its first fault in `record` (checked.cuh) as operator `site`; the
+// unchecked build ignores both.  Returns cudaGetLastError() after the
+// launch: 0 when it was accepted.
+extern "C" int k2_rowop_f32(const void* cols, const void* vals,
+                            const void* x, void* y, int N, int D, int S,
+                            int lanes, void* stream, void* record,
+                            int site) {
+  return launch_rowop<float>(cols, vals, x, y, N, D, S, lanes, stream,
+                             record, site);
+}
+
+extern "C" int k2_rowop_f64(const void* cols, const void* vals,
+                            const void* x, void* y, int N, int D, int S,
+                            int lanes, void* stream, void* record,
+                            int site) {
+  return launch_rowop<double>(cols, vals, x, y, N, D, S, lanes, stream,
+                              record, site);
 }

@@ -616,7 +616,7 @@ class SemiSolver(nn.Module):
       problem: ``build_problem``'s host tables.
       device:  where the state and all operator buffers live; a CUDA device
         runs every stencil-path operator apply and phase through kernel K1
-        (float32 only).
+        (float32 or float64, cfg.dtype).
       host:    optional precomputed host parts, as
         ``convert.solver_from_numpy`` passes them: on the stencil path
         {"stencil": [StencilData], "lam_max": [float] or None,

@@ -146,7 +146,8 @@ class AssembledSemiSolver(semi.SemiSolver):
     Args:
       problem: ``semi.build_problem``'s host tables (level 0 is used).
       device:  where the state, the operator and all buffers live; a CUDA
-        device runs each sweep's product through kernel K2 (float32 only).
+        device runs each sweep's product through kernel K2 (float32 or
+        float64, cfg.dtype).
       host:    optional precomputed host parts {"stencil0": StencilData,
         "A_bsr": bsr.BSR, "offset": (U, C, 3) array}, as
         ``convert.assembled_from_numpy`` passes them; what is not given is
@@ -235,9 +236,9 @@ class AssembledSemiSolver(semi.SemiSolver):
 
 def direct_inverse(solver: AssembledSemiSolver) -> torch.Tensor:
     """The inverse of the assembled operator on the solver's device, in the
-    run dtype (float32 on the GPU, as the JAX package inverts in the run
-    dtype): densified there by index (3E x 3E, 5.9 GB in float32 at the
-    CLI defaults' 38,400 DOF) and freed once inverted."""
+    run dtype, as the JAX package inverts in the run dtype: densified there
+    by index (3E x 3E, 5.9 GB in float32 and 11.8 GB in float64 at the CLI
+    defaults' 38,400 DOF) and freed once inverted."""
     A = bsr.to_dense(solver.A)
     Ainv = torch.linalg.inv(A)
     del A

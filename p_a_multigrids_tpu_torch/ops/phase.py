@@ -12,7 +12,9 @@ On a CUDA tensor a whole phase is one launch of the hand-written kernel in
 n_split 4 and 5) of ``p_a_multigrids_tpu/ops/pallas_stencil.py``: one
 kernel gathers children through an index table at any C, runs every round
 with a barrier over its blocks between rounds, and keeps the coefficients
-in shared memory where they fit (``phase_plan`` picks the tier).  On a CPU
+in shared memory where they fit (``phase_plan`` picks the tier).  The
+kernel takes float32 (``k1_phase_f32``) and float64 (``k1_phase_f64``)
+state, as the TPU kernels took the operator's dtype.  On a CPU
 tensor the plain PyTorch version ``phase_reference`` runs instead; it is
 also what the tests and ``chip_smoke.py`` hold the kernel against.  There
 is no fallback: on a CUDA tensor the kernel builds and launches, or this
@@ -43,12 +45,26 @@ DEEP_C = 64
 # split into launches of at most this many rounds
 MAX_ROUNDS = 64
 MAX_THREADS = 1024
-# bytes of a (child, macro) pair kept on chip: Fp (27 floats), bp (3) and
-# 10 int32 index locations (csrc/phase.cu kKeepFloats, kKeepInts), and in
-# the small tier its state of two rounds (6 floats)
-RESIDENT_BYTES = 40 * 4
-SMALL_BYTES = 46 * 4
 TIERS = ("small", "resident", "stream")
+# the state dtypes kernel K1 takes: the library's entry and the ctypes
+# scalar of the step sizes
+DTYPES = {torch.float32: ("k1_phase_f32", ctypes.c_float),
+          torch.float64: ("k1_phase_f64", ctypes.c_double)}
+
+
+def resident_bytes(itemsize: int) -> int:
+    """Bytes of a (child, macro) pair kept on chip with values of
+    ``itemsize`` bytes: Fp (27 values), bp (3) and 10 int32 index locations
+    (csrc/phase.cu kKeepVals, kKeepInts): 160 in float32, 280 in
+    float64."""
+    return 30 * itemsize + 40
+
+
+def small_bytes(itemsize: int) -> int:
+    """``resident_bytes`` plus the pair's state of two rounds (6 values),
+    which the small tier keeps on chip too: 184 in float32, 328 in
+    float64."""
+    return 36 * itemsize + 40
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +84,10 @@ def _ceil(a: int, b: int) -> int:
 
 
 def phase_plan(C: int, U: int, sm_count: int, smem_per_block: int,
-               stream_blocks_per_sm: int, tier: str | None = None
-               ) -> PhasePlan:
-    """The tier and launch shape of K1 for a (3, C, U) level on a card with
+               stream_blocks_per_sm: int, tier: str | None = None,
+               itemsize: int = 4) -> PhasePlan:
+    """The tier and launch shape of K1 for a (3, C, U) level of values of
+    ``itemsize`` bytes (4: float32, 8: float64) on a card with
     ``sm_count`` SMs, ``smem_per_block`` bytes of opt-in shared memory a
     block and room for ``stream_blocks_per_sm`` 1024-thread streaming
     blocks an SM.  The first tier that fits, unless ``tier`` names one
@@ -85,15 +102,15 @@ def phase_plan(C: int, U: int, sm_count: int, smem_per_block: int,
     if tier not in (None,) + TIERS:
         raise ValueError(f"phase_plan: unknown tier {tier!r}")
     pairs = C * U
+    small, resident = small_bytes(itemsize), resident_bytes(itemsize)
     round32 = lambda n: min(MAX_THREADS, 32 * _ceil(n, 32))
-    if tier in (None, "small") and pairs * SMALL_BYTES <= smem_per_block:
-        return PhasePlan("small", 1, round32(pairs), pairs,
-                         pairs * SMALL_BYTES)
+    if tier in (None, "small") and pairs * small <= smem_per_block:
+        return PhasePlan("small", 1, round32(pairs), pairs, pairs * small)
     if tier in (None, "resident"):
         sl = _ceil(pairs, sm_count)
-        if sl * RESIDENT_BYTES <= smem_per_block:
+        if sl * resident <= smem_per_block:
             return PhasePlan("resident", _ceil(pairs, sl), round32(sl), sl,
-                             sl * RESIDENT_BYTES)
+                             sl * resident)
     if tier in (None, "stream"):
         sl = _ceil(pairs, sm_count * stream_blocks_per_sm)
         return PhasePlan("stream", _ceil(pairs, sl), MAX_THREADS, sl, 0)
@@ -102,7 +119,8 @@ def phase_plan(C: int, U: int, sm_count: int, smem_per_block: int,
 
 
 class PhaseKernel:
-    """ctypes binding of ``k1_phase`` with its counts.
+    """ctypes binding of ``k1_phase_f32`` and ``k1_phase_f64`` with their
+    counts, which both dtypes share.
 
     ``launches`` grows by one for every kernel launch and nowhere else (one
     per phase of up to MAX_ROUNDS rounds), ``rounds`` by the rounds that
@@ -123,7 +141,7 @@ class PhaseKernel:
         self.by_tier = dict.fromkeys(TIERS, 0)
         self.build_info: dict | None = None
         self._lib = None
-        self._limits: dict[int, tuple] = {}
+        self._limits: dict[tuple, tuple] = {}
         self._plans: dict[tuple, PhasePlan] = {}
 
     def reset(self):
@@ -131,60 +149,70 @@ class PhaseKernel:
         self.launches = self.launches_deep = self.rounds = 0
         self.by_tier = dict.fromkeys(TIERS, 0)
 
-    def function(self):
+    def function(self, dtype: torch.dtype = torch.float32):
+        """The library's entry for state of ``dtype`` (built and bound at
+        the first call)."""
         if self._lib is None:
             lib, self.build_info = cuda_build.load(
                 "phase", ("PAMG_CHECKED",) if self.checked else ())
-            lib.k1_phase.argtypes = [ctypes.c_void_p] * 11 + [
-                ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 9 + [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-            lib.k1_phase.restype = ctypes.c_int
-            lib.k1_phase_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            for name, scalar in DTYPES.values():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 11 + [
+                    ctypes.POINTER(scalar)] + [ctypes.c_int] * 9 + [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                fn.restype = ctypes.c_int
+            lib.k1_phase_limits.argtypes = [ctypes.c_int] + [
+                ctypes.POINTER(ctypes.c_int)] * 3
             lib.k1_phase_limits.restype = ctypes.c_int
             self._lib = lib
-        return self._lib.k1_phase
+        return getattr(self._lib, DTYPES[dtype][0])
 
-    def limits(self, dev: int) -> tuple:
+    def limits(self, dev: int, itemsize: int) -> tuple:
         """(SMs, opt-in shared memory a block, streaming blocks an SM) of
-        this build on card ``dev`` (``k1_phase_limits``)."""
-        if dev not in self._limits:
+        this build's kernel for values of ``itemsize`` bytes on card
+        ``dev`` (``k1_phase_limits``)."""
+        key = (dev, itemsize)
+        if key not in self._limits:
             self.function()
             vals = [ctypes.c_int() for _ in range(3)]
-            err = self._lib.k1_phase_limits(*map(ctypes.byref, vals))
+            err = self._lib.k1_phase_limits(itemsize,
+                                            *map(ctypes.byref, vals))
             if err != 0:
                 raise RuntimeError(f"kernel K1: reading the card's "
                                    f"limits failed: CUDA error {err}")
-            self._limits[dev] = tuple(v.value for v in vals)
-        return self._limits[dev]
+            self._limits[key] = tuple(v.value for v in vals)
+        return self._limits[key]
 
     def plan(self, op: StencilOperator, tier: str | None = None
              ) -> PhasePlan:
-        """``phase_plan`` for op's level on op's card, cached per shape;
-        a checked instance's is the unchecked build's plan."""
+        """``phase_plan`` for op's level and dtype on op's card, cached
+        per shape; a checked instance's is the unchecked build's plan."""
+        dev = op.Fp_t.device.index or 0
+        itemsize = op.Fp_t.element_size()
         if self._plan_from is not None:
             plan = self._plan_from.plan(op, tier)
-            dev = op.Fp_t.device.index or 0
-            own, base = self.limits(dev)[2], self._plan_from.limits(dev)[2]
+            own = self.limits(dev, itemsize)[2]
+            base = self._plan_from.limits(dev, itemsize)[2]
             if plan.tier == "stream" and own < base:
                 raise RuntimeError(
                     f"kernel K1, checked build: {own} streaming blocks fit "
                     f"an SM, the unchecked build's plan needs {base}")
             return plan
-        dev = op.Fp_t.device.index or 0
-        key = (dev, op.C, op.U, tier)
+        key = (dev, op.C, op.U, tier, itemsize)
         if key not in self._plans:
-            self._plans[key] = phase_plan(op.C, op.U, *self.limits(dev),
-                                          tier=tier)
+            self._plans[key] = phase_plan(op.C, op.U,
+                                          *self.limits(dev, itemsize),
+                                          tier=tier, itemsize=itemsize)
         return self._plans[key]
 
     def launch(self, op: StencilOperator, x, bp, buf0, buf1, z_out,
                coefs, plan: PhasePlan, stream: int):
-        """Launch one phase of len(coefs) rounds (a ctypes float array) on
-        ``stream``: round r reads x (r = 0) or the buffer round r - 1
-        wrote, writes buf0 (r even) or buf1 (r odd), and the last round
-        writes z_out unless it is None.  A checked instance records its
+        """Launch one phase of len(coefs) rounds (a ctypes array of the
+        state's scalar) on ``stream``: round r reads x (r = 0) or the
+        buffer round r - 1 wrote, writes buf0 (r even) or buf1 (r odd), and
+        the last round writes z_out unless it is None.  A checked instance records its
         first fault in the error record of op's sanitizer site."""
-        fn = self.function()
+        fn = self.function(x.dtype)
         record, site = None, 0
         if self.checked:
             record = op.sanitizer.sanitizer.record.data_ptr()
@@ -222,12 +250,14 @@ def _round_coefs(coefs, want_z: bool, dtype: torch.dtype) -> list[float]:
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_rounds(coefs: tuple, want_z: bool) -> tuple:
-    """The float32 step sizes of a phase on the card as ctypes arrays of at
-    most MAX_ROUNDS rounds each, one a launch; cached, since a cycle runs
-    the same few phases again and again."""
-    rounds = _round_coefs(coefs, want_z, torch.float32)
-    return tuple((ctypes.c_float * len(rounds[k:k + MAX_ROUNDS]))(
+def _launch_rounds(coefs: tuple, want_z: bool, dtype: torch.dtype) -> tuple:
+    """The step sizes of a phase on the card in the state's ``dtype``, as
+    ctypes arrays (c_float or c_double) of at most MAX_ROUNDS rounds each,
+    one a launch; cached, since a cycle runs the same few phases again and
+    again."""
+    rounds = _round_coefs(coefs, want_z, dtype)
+    scalar = DTYPES[dtype][1]
+    return tuple((scalar * len(rounds[k:k + MAX_ROUNDS]))(
         *rounds[k:k + MAX_ROUNDS]) for k in range(0, len(rounds), MAX_ROUNDS))
 
 
@@ -267,7 +297,8 @@ def phase(op: StencilOperator, x_t, bp_t, coefs, want_z: bool = True):
       coefs: per-round step sizes (1/root_k or omega)
       want_z: add the coef-0 round and return its z; False returns None
     Returns (x_new, z).  CPU tensors run ``phase_reference``; CUDA tensors
-    (float32 only) launch kernel K1 once, in the tier ``phase_plan`` picks.
+    (float32 or float64) launch kernel K1 once, in the tier ``phase_plan``
+    picks.
     """
     return phase_on_tier(op, x_t, bp_t, coefs, want_z, None)
 
@@ -285,9 +316,10 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
         return x, z
     if x_t.device.type != "cuda":
         raise ValueError(f"phase: unsupported device {x_t.device}")
-    if x_t.dtype != torch.float32:
-        raise TypeError(f"kernel K1 takes float32 state, got {x_t.dtype}")
-    chunks = _launch_rounds(tuple(map(float, coefs)), want_z)
+    if x_t.dtype not in DTYPES:
+        raise TypeError(f"kernel K1 takes float32 or float64 state, got "
+                        f"{x_t.dtype}")
+    chunks = _launch_rounds(tuple(map(float, coefs)), want_z, x_t.dtype)
     if not chunks:
         return x_t, None
     with torch.cuda.device(x_t.device):

@@ -11,7 +11,9 @@ tensor every application is one launch of the hand-written kernel in
 ``csrc/spmv.cu`` (the port of the TPU kernel ``PallasSpMV._kernel``,
 ``p_a_multigrids_tpu/ops/pallas_bsr.py``), in the variant ``rowop_plan``
 picks from the operator's width: one thread per row for narrow operators,
-a group of lanes per row for wide ones.  On a CPU tensor
+a group of lanes per row for wide ones, in float32 (``k2_rowop_f32``) or
+float64 (``k2_rowop_f64``), as the TPU kernel took the dtype of its
+values.  On a CPU tensor
 the plain PyTorch version ``rowop_reference`` runs instead; it is also what
 the tests and ``chip_smoke.py`` hold the kernel against.  There is no
 fallback: on a CUDA tensor the kernel builds and launches, or this module
@@ -33,24 +35,31 @@ from torch import nn
 
 from ..utils import cuda_build
 
-# lane groups for operators of LANES_MIN_D to LANES_MAX_D slots a row: on
-# the H100 they beat one thread a row from D = 8 on (32,768 x 13: 5.29 us
-# against 6.33) and lose below (32,768 x 5: 4.12 against 3.33); above
-# LANES_MAX_D slots the slot sums of a block's rows outgrow 48 KB of shared
-# memory
+# lane groups for operators of LANES_MIN_D to lanes_max_d(itemsize) slots a
+# row: on the H100 they beat one thread a row from D = 8 on (32,768 x 13:
+# 5.29 us against 6.33) and lose below (32,768 x 5: 4.12 against 3.33)
 LANES_MIN_D = 8
-LANES_MAX_D = 1024
+# the state dtypes kernel K2 takes, by the name of their entry
+DTYPES = {torch.float32: "k2_rowop_f32", torch.float64: "k2_rowop_f64"}
 
 
-def rowop_plan(n_out: int, D: int, variant: str | None = None
-               ) -> tuple[str, int, int]:
-    """(variant, lanes, Dp) of K2 for an operator of D slots a row:
-    ("thread", 1, D), or ("lanes", G, Dp) with D padded to Dp, a multiple of
-    4 (the 16-byte loads), and G = 4, 8, 16 or 32 lanes a row, the power of
-    two that gives each lane about one quad of slots.  ``variant`` forces
-    one; None chooses by the shape."""
+def lanes_max_d(itemsize: int) -> int:
+    """The widest row the lanes variant takes: above it the slot sums of a
+    block's 4 rows of 32 lanes (3 values of ``itemsize`` bytes a slot)
+    outgrow 48 KB of shared memory, so no launch needs the opt-in
+    attribute: 1,024 slots in float32, 512 in float64."""
+    return 48 * 1024 // (4 * 3 * itemsize)
+
+
+def rowop_plan(n_out: int, D: int, variant: str | None = None,
+               itemsize: int = 4) -> tuple[str, int, int]:
+    """(variant, lanes, Dp) of K2 for an operator of D slots a row of
+    values of ``itemsize`` bytes: ("thread", 1, D), or ("lanes", G, Dp) with
+    D padded to Dp, a multiple of 4 (the 16-byte loads), and G = 4, 8, 16
+    or 32 lanes a row, the power of two that gives each lane about one quad
+    of slots.  ``variant`` forces one; None chooses by the shape."""
     if variant is None:
-        variant = ("lanes" if LANES_MIN_D <= D <= LANES_MAX_D
+        variant = ("lanes" if LANES_MIN_D <= D <= lanes_max_d(itemsize)
                    else "thread")
     if variant == "thread":
         return "thread", 1, D
@@ -61,7 +70,8 @@ def rowop_plan(n_out: int, D: int, variant: str | None = None
 
 
 class SpMVKernel:
-    """ctypes binding of ``k2_rowop`` with its launch count.
+    """ctypes binding of ``k2_rowop_f32`` and ``k2_rowop_f64`` with their
+    launch count, which both dtypes share.
 
     ``launches`` grows by one for every kernel launch and nowhere else; the
     library is built at the first launch (``cuda_build.load``), with
@@ -71,23 +81,26 @@ class SpMVKernel:
         self.checked = checked
         self.launches = 0
         self.build_info: dict | None = None
-        self._fn = None
+        self._lib = None
 
-    def function(self):
-        if self._fn is None:
+    def function(self, dtype: torch.dtype = torch.float32):
+        """The library's entry for values of ``dtype`` (built and bound at
+        the first call)."""
+        if self._lib is None:
             lib, self.build_info = cuda_build.load(
                 "spmv", ("PAMG_CHECKED",) if self.checked else ())
-            fn = lib.k2_rowop
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            for name in DTYPES.values():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return getattr(self._lib, DTYPES[dtype])
 
     def launch(self, op: "RowOp", x_t, y_t, stream: int):
         """y_t <- op(x_t) on ``stream``; a checked instance records its
         first fault in the error record of op's sanitizer site."""
-        fn = self.function()
+        fn = self.function(x_t.dtype)
         record, site = None, 0
         if self.checked:
             record = op.sanitizer.sanitizer.record.data_ptr()
@@ -132,7 +145,9 @@ class RowOp(nn.Module):
         self.n_out, self.D, self.n_src = int(N), int(D), int(n_src)
         # the checked step's site of this operator (utils.debugging.attach)
         self.sanitizer = None
-        self.variant, self.lanes, self.Dp = rowop_plan(N, D, variant)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        self.variant, self.lanes, self.Dp = rowop_plan(N, D, variant,
+                                                       itemsize)
         np_dtype = torch.empty((), dtype=dtype).numpy().dtype
         vals = np.asarray(vals, np_dtype)
         if self.variant == "thread":
@@ -182,8 +197,8 @@ def _check(op: RowOp, x_t):
 def rowop(op: RowOp, x_t):
     """y = op x on op's device: (3, S) -> (3, N).
 
-    CPU tensors run ``rowop_reference``; CUDA tensors (float32 only) launch
-    kernel K2 once.
+    CPU tensors run ``rowop_reference``; CUDA tensors (float32 or float64)
+    launch kernel K2 once.
     """
     _check(op, x_t)
     if x_t.device.type == "cpu":
@@ -193,8 +208,9 @@ def rowop(op: RowOp, x_t):
         return y_t
     if x_t.device.type != "cuda":
         raise ValueError(f"rowop: unsupported device {x_t.device}")
-    if x_t.dtype != torch.float32:
-        raise TypeError(f"kernel K2 takes float32 vectors, got {x_t.dtype}")
+    if x_t.dtype not in DTYPES:
+        raise TypeError(f"kernel K2 takes float32 or float64 vectors, got "
+                        f"{x_t.dtype}")
     y_t = torch.empty((3, op.n_out), dtype=x_t.dtype, device=x_t.device)
     with torch.cuda.device(x_t.device):
         stream = torch.cuda.current_stream(x_t.device).cuda_stream

@@ -19,7 +19,7 @@ Case kinds (a dict with "id" and "kind"):
   from the initial condition, or from the checkpoint ``load``; optionally
   saved to ``save``; with ``serial`` the serial twin's steps from the same
   state on rank 0, with the ghost report, the Krylov counts and the K1
-  launches of the distributed steps (0 on the CPU);
+  and K2 launches of the distributed steps (0 on the CPU);
 - ``semi``: a ``DistributedSemiSolver``, ``ntime`` steps;
 - ``imports``: the modules of jax or of the JAX package the ranks loaded
   (none: a rank runs the port alone).
@@ -35,6 +35,7 @@ import torch
 from ..config import Physics, SemiConfig
 from ..mesh import structured
 from ..ops import phase as K1
+from ..ops import spmv as K2
 from ..ops.fused import from_t, to_t
 
 
@@ -73,6 +74,7 @@ def _stencil(comm, case):
     dist = DistributedStencilSolver(mesh, config(case["cfg"]), comm,
                                     mesh_shape=case.get("mesh_shape"))
     K1.KERNEL.reset()
+    K2.KERNEL.launches = 0
     step0 = 0
     if case.get("load"):
         T_t, step0 = dist.load_checkpoint(case["load"])
@@ -84,7 +86,8 @@ def _stencil(comm, case):
         dist.save_checkpoint(case["save"], T_t, step0 + case["ntime"])
     out = dict(std=dist.to_std(T_t), ghost=dist.ghost_report(),
                krylov_iters=list(dist.krylov_iters), step=step0,
-               n_active=dist.n_active, U=dist.U, k1=K1.KERNEL.launches)
+               n_active=dist.n_active, U=dist.U, k1=K1.KERNEL.launches,
+               k2=K2.KERNEL.launches)
     if case.get("serial") and comm.rank == 0:
         # the serial twin from the same state, on the same mesh
         serial = dist.serial

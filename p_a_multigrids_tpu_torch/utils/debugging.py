@@ -131,6 +131,8 @@ class Sanitizer:
             raise IndexError(
                 f"{where}: {table} of {pos} holds {f['value']}, outside "
                 f"[0, {f['bound']}) (the kernel's error record)")
+        # a non-finite value's bits as a float32, in float64 runs too: the
+        # kernels store (float)v, which keeps an Inf or a NaN one
         value = np.int32(f["value"]).view(np.float32)
         what = (("x", "z")[f["sub"] // 3] + f" dof {f['sub'] % 3}"
                 if f["kernel"] == 1 else f"y dof {f['sub']}")

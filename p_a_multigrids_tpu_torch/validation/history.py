@@ -261,6 +261,13 @@ def load_pins(path: str | None = None) -> dict:
         return json.load(f)
 
 
+# a float64 history against its pin, on the card as on the CPU: the same
+# float64 iteration in another summation order, so within 1e-8 of each
+# cycle plus twice the pin's f64_floor (hold(..., rel=F64_REL,
+# floor="f64_floor"))
+F64_REL = 1e-8
+
+
 def hold(got, pin: dict, rel: float = 0.02, floor: str = "f32_floor"
          ) -> list[str]:
     """A history against a float64 pin: each cycle within ``rel`` of the

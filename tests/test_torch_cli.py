@@ -200,6 +200,25 @@ def test_cuda_device_without_card_exits():
         tcli.main(SMALL)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--mode", "9"], ["--mode", "9", "--amg", "--krylov", "--debug"],
+    ["--mode", "6", "--profile", "prof"], ["--mode", "9", "--devices", "2"],
+    ["--mode", "1"], ["--mode", "10"]],
+    ids=["mode9", "mode9_amg_debug", "mode6_profile", "devices", "mode1",
+         "mode10"])
+def test_f64_parses_for_the_card(argv, monkeypatch):
+    """--f64 --device cuda is accepted (kernels K1 and K2 take float64),
+    and every configuration the CLI builds gets float64."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    args, device = tcli._parse(argv + ["--f64", "--device", "cuda"])
+    assert device.type == "cuda" and args.f64
+    for build in (tcli._semi_cfg, tcli._transport_cfg, tcli._rect_cfg):
+        assert build(args).dtype == "float64", build.__name__
+    args, _ = tcli._parse(argv + ["--device", "cuda"])
+    for build in (tcli._semi_cfg, tcli._transport_cfg, tcli._rect_cfg):
+        assert build(args).dtype == "float32", build.__name__
+
+
 @pytest.mark.parametrize("extra,mode", [
     ([], 9), (["--solver", "jacobi"], 9), (["--mode", "1"], 1),
     (["--debug", "--ic", "x*y", "--analytical", "x", "--vtk-interval",

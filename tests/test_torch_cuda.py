@@ -58,16 +58,16 @@ def _k1_matches_plain(op, x, bp, coefs, want_z, rtol, tier=None):
     return used
 
 
-def _k1_level(n_split, cuda, mesh=(6, 5, 0.2, 0.25)):
+def _k1_level(n_split, cuda, mesh=(6, 5, 0.2, 0.25), dtype=torch.float32):
     cfg = SemiConfig(n_split=n_split, multi_levels=1, dt=0.05)
     L = semi.build_problem(structured.tri_mesh(*mesh), cfg).levels[0]
     data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
-    op = stencil.StencilOperator(data, torch.float32, cuda)
+    op = stencil.StencilOperator(data, dtype, cuda)
     cheb = [1.0 / r for r in smoothers.chebyshev_roots(
         stencil.lam_max_estimate(data), 6, 0.1)]
     rng = np.random.default_rng(n_split)
-    x, b = (torch.tensor(rng.normal(size=(3, op.C, op.U)),
-                         dtype=torch.float32, device=cuda)
+    x, b = (torch.tensor(rng.normal(size=(3, op.C, op.U)), dtype=dtype,
+                         device=cuda)
             for _ in range(2))
     return op, cheb, x, b
 
@@ -113,20 +113,72 @@ def test_k1_splits_a_long_phase(cuda):
     _k1_matches_plain(op, x, op._bp(b, True), coefs, True, 1e-4)
 
 
-def test_k1_refuses_float64(cuda):
-    cfg = SemiConfig(n_split=1, multi_levels=1, dt=0.05, dtype="float64")
-    L = semi.build_problem(structured.tri_mesh(2, 2, 0.5, 0.5), cfg).levels[0]
-    op = stencil.StencilOperator(
-        stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta),
-        torch.float64, cuda)
-    x = torch.zeros((3, op.C, op.U), dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
+# float64: the same sums in another order, each with products rounded at
+# 2^-53 instead of 2^-24, so 1e-11 of the largest |output| for a phase
+# (1e-4 in float32) and 1e-12 for K2 (1e-5)
+F64_K1_RTOL = 1e-11
+F64_K2_RTOL = 1e-12
+
+
+def _k1_f64_level(tier, cuda):
+    """A float64 level that phase_plan puts in ``tier``: n_split 2 on 4 x 4
+    macros (512 pairs, at most 708 in the small tier), n_split 3 on
+    12 x 10 (15,360 pairs, 117 a block: resident) and n_split 2 on
+    128 x 32 (131,072 pairs, 993 a block: 278 KB, so it streams)."""
+    n_split, mesh = {"small": (2, (4, 4, 0.25, 0.25)),
+                     "resident": (3, (12, 10, 1 / 12, 0.1)),
+                     "stream": (2, (128, 32, 3 / 128, 1 / 128))}[tier]
+    return _k1_level(n_split, cuda, mesh, torch.float64)
+
+
+@pytest.mark.parametrize("tier", ["small", "resident", "stream"])
+def test_k1_float64_matches_plain(cuda, tier):
+    """K1 in float64 in the tier its plan picks for the level (the bench's
+    fine level streams in float64, it is resident in float32): a
+    Chebyshev phase with z, a 3-round phase without and the zero-round
+    apply, one launch each, within F64_K1_RTOL of phase_reference."""
+    op, cheb, x, b = _k1_f64_level(tier, cuda)
+    assert K.KERNEL.plan(op).tier == tier
+    for coefs, want_z, bp in ((cheb, True, op._bp(b, True)),
+                              ([0.8] * 3, False, op._bp(b, False)),
+                              ([], True, torch.zeros_like(x))):
+        assert _k1_matches_plain(op, x, bp, coefs, want_z,
+                                 F64_K1_RTOL) == tier
+
+
+@pytest.mark.parametrize("n_split", [0, 4, 5])
+def test_k1_float64_at_c1_and_deep(cuda, n_split):
+    """K1 in float64 at C = 1 (three cross slots a child) and in K3's
+    regime (C = 256, 1024), in its own tier and forced to stream."""
+    op, cheb, x, b = _k1_level(n_split, cuda, dtype=torch.float64)
+    for tier in (None, "stream"):
+        _k1_matches_plain(op, x, op._bp(b, True), cheb, True, F64_K1_RTOL,
+                          tier)
+
+
+def test_k1_float64_splits_a_long_phase(cuda):
+    """A float64 phase of more than MAX_ROUNDS rounds: two launches handing
+    the state on."""
+    op, _, x, b = _k1_level(2, cuda, dtype=torch.float64)
+    coefs = [0.3] * (K.MAX_ROUNDS + 5)
+    _k1_matches_plain(op, x, op._bp(b, True), coefs, True, F64_K1_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_k1_refuses_half_types(cuda, dtype):
+    """Neither TPU kernel took 16-bit state, so K1 does not either."""
+    op = _k1_level(1, cuda)[0].to(dtype)
+    assert op.Fp_t.dtype == dtype
+    x = torch.zeros((3, op.C, op.U), dtype=dtype, device=cuda)
+    n0 = K.KERNEL.launches
+    with pytest.raises(TypeError, match="float32 or float64"):
         K.phase(op, x, x, [0.5])
+    assert K.KERNEL.launches == n0
 
 
-def _k2_matches_plain(op, x):
+def _k2_matches_plain(op, x, rtol=1e-5):
     """One K2 launch against rowop_reference: f32 sums of 3*D products
-    (D <= 144) in another order, so 1e-5 of the largest |output|."""
+    (D <= 144) in another order, so 1e-5 of the largest |output| (rtol)."""
     n0 = spmv.KERNEL.launches
     got = op(x)
     torch.cuda.synchronize()
@@ -135,7 +187,7 @@ def _k2_matches_plain(op, x):
     assert got.shape == want.shape == (3, op.n_out)
     assert bool(torch.isfinite(got).all())
     err = float((got - want).abs().max())
-    assert err <= 1e-5 * float(want.abs().max())
+    assert err <= rtol * float(want.abs().max())
 
 
 @pytest.mark.parametrize("variant", ["thread", "lanes"])
@@ -205,12 +257,57 @@ def test_k2_variants_agree_bit_for_bit(cuda):
         assert torch.equal(got[0], got[1])
 
 
-def test_k2_refuses_float64(cuda):
+@pytest.mark.parametrize("variant", ["thread", "lanes"])
+@pytest.mark.parametrize("shape", [(1000, 1000, 13), (300, 1000, 25),
+                                   (1000, 300, 3), (513, 2047, 141),
+                                   (40, 60, 512)])
+def test_k2_float64_matches_plain(cuda, shape, variant):
+    """K2 in float64, square and rectangular, both variants (up to 512
+    slots a row in the lanes variant: 48 KB of float64 slot sums a
+    block), within F64_K2_RTOL of rowop_reference; the two variants give
+    the same bits."""
+    n_out, n_src, D = shape
+    rng = np.random.default_rng(D + 1)
+    cols = rng.integers(0, n_src, size=(n_out, D))
+    vals = rng.normal(size=(n_out, D, 3, 3))
+    op = spmv.RowOp(cols, vals, n_src, torch.float64, cuda, variant)
+    assert op.variant == variant and op.vals_t.dtype == torch.float64
+    x = torch.tensor(rng.normal(size=(3, n_src)), dtype=torch.float64,
+                     device=cuda)
+    _k2_matches_plain(op, x, F64_K2_RTOL)
+    other = "lanes" if variant == "thread" else "thread"
+    assert torch.equal(op(x), spmv.RowOp(cols, vals, n_src, torch.float64,
+                                         cuda, other)(x))
+
+
+def test_k2_float64_on_an_sa_hierarchy(cuda):
+    """Every rowop of a float64 SA hierarchy, as the float64 solver builds
+    it (the host tables in float64)."""
+    cfg = SemiConfig(n_split=2, multi_levels=1, dt=0.05, dtype="float64")
+    mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+    L = semi.build_problem(mesh, cfg).levels[0]
+    data = stencil.build_stencil(L, cfg.physics, cfg.dt, cfg.theta)
+    h = agg.AggHierarchy(agg.build_hierarchy(
+        data, splitting.child_coords(mesh.X, 2), max_dense_dof=256,
+        strength=0.5, always=True, dtype=np.float64), torch.float64, cuda)
+    rng = np.random.default_rng(5)
+    variants = set()
+    for op in h.rowops().values():
+        x = torch.tensor(rng.normal(size=(3, op.n_src)),
+                         dtype=torch.float64, device=cuda)
+        _k2_matches_plain(op, x, F64_K2_RTOL)
+        variants.add(op.variant)
+    assert variants == {"thread", "lanes"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_k2_refuses_half_types(cuda, dtype):
     op = spmv.RowOp(np.zeros((4, 2), np.int64), np.ones((4, 2, 3, 3)), 4,
-                    torch.float64, cuda)
+                    torch.float32, cuda).to(dtype)
+    assert op.vals_t.dtype == dtype
     n0 = spmv.KERNEL.launches
-    with pytest.raises(TypeError, match="float32"):
-        op(torch.zeros((3, 4), dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        op(torch.zeros((3, 4), dtype=dtype, device=cuda))
     assert spmv.KERNEL.launches == n0
 
 
@@ -255,6 +352,37 @@ def test_mode10_step_on_the_card_matches_cpu(cuda):
     assert spmv.KERNEL.launches - n0 == gpu.sweeps() == 8
     want = cpu._step(T)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("kw", [{}, {"amg": True, "multi_levels": 1,
+                                     "krylov": True}, "mode10"],
+                         ids=["geometric", "amg_krylov", "mode10"])
+def test_float64_step_on_the_card_matches_cpu(cuda, kw):
+    """A float64 step on the card (K1 and K2 in float64) against the same
+    step on the CPU: float64 sums in another order, 1e-10 of the largest
+    value; the card's state stays float64."""
+    from p_a_multigrids_tpu_torch.ops.fused import to_t
+    n1, n2 = K.KERNEL.launches, spmv.KERNEL.launches
+    if kw == "mode10":
+        gpu, cpu = _mode10(cuda, "float64"), _mode10("cpu", "float64")
+        T = cpu.initial_condition()
+        got, want = gpu._step(T.to(cuda)), cpu._step(T)
+    else:
+        cfg = SemiConfig(**{**dict(n_split=2, multi_levels=2, dt=0.05,
+                                   dtype="float64"), **kw})
+        mesh = structured.tri_mesh(12, 10, 1 / 12, 1 / 10)
+        gpu, cpu = (semi.SemiSolver(semi.build_problem(mesh, cfg), d)
+                    for d in (cuda, "cpu"))
+        T_t = to_t(cpu.initial_condition())
+        got, want = gpu._step_t(T_t.to(cuda)), cpu._step_t(T_t)
+        if kw:
+            assert gpu.krylov_iters == cpu.krylov_iters
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float64
+    assert (K.KERNEL.launches > n1) == (kw != "mode10")
+    assert (spmv.KERNEL.launches > n2) == bool(kw)
+    assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(
         want.abs().max())
 
 
@@ -383,6 +511,55 @@ def test_checked_k1_is_bit_identical(cuda, tier):
     san.raise_on_fault()
 
 
+@pytest.mark.parametrize("tier", ["small", "resident", "stream"])
+def test_checked_k1_float64_is_bit_identical(cuda, tier):
+    """The checked build of K1 in float64 gives the unchecked build's bits
+    in each tier, with a clean error record."""
+    op, cheb, x, b = _k1_f64_level(tier, cuda)
+    runs = []
+    for checked in (False, True):
+        san = _checked(op) if checked else None
+        if not checked:
+            op.sanitizer = None
+        c0 = K.CHECKED.launches
+        runs.append(K.phase(op, x, op._bp(b, True), cheb, True))
+        torch.cuda.synchronize()
+        assert K.CHECKED.launches - c0 == int(checked)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert K.CHECKED.plan(op).tier == tier
+    san.raise_on_fault()
+
+
+@pytest.mark.parametrize("variant", ["thread", "lanes"])
+def test_checked_k2_float64_is_bit_identical(cuda, variant):
+    rng = np.random.default_rng(6)
+    op = spmv.RowOp(rng.integers(0, 700, size=(500, 27)),
+                    rng.normal(size=(500, 27, 3, 3)), 700, torch.float64,
+                    cuda, variant)
+    x = torch.tensor(rng.normal(size=(3, 700)), dtype=torch.float64,
+                     device=cuda)
+    plain = op(x)
+    san = _checked(op)
+    c0 = spmv.CHECKED.launches
+    got = op(x)
+    torch.cuda.synchronize()
+    assert spmv.CHECKED.launches - c0 == 1
+    assert torch.equal(got, plain)
+    san.raise_on_fault()
+
+
+def test_checked_kernel_float64_nonfinite_raises(cuda):
+    """A float64 non-finite value is recorded as a float32 Inf / NaN and
+    raises FloatingPointError naming it."""
+    op, cheb, x, b = _k1_f64_level("small", cuda)
+    op.Fp_t.view(-1)[0] = float("inf")
+    san = _checked(op)
+    K.phase(op, x, op._bp(b, True), cheb, True)
+    with pytest.raises(FloatingPointError, match=r"wrote (inf|nan|-inf)"):
+        san.raise_on_fault()
+
+
 def test_checked_k2_is_bit_identical(cuda):
     """Every rowop of an SA hierarchy, both variants, checked == unchecked
     bit for bit."""
@@ -420,8 +597,10 @@ def _debug_pair(cuda, **kw):
 
 
 @pytest.mark.parametrize("kw", [{}, {"amg": True, "multi_levels": 1,
-                                     "krylov": True}],
-                         ids=["geometric", "amg_krylov"])
+                                     "krylov": True},
+                                {"amg": True, "multi_levels": 1,
+                                 "krylov": True, "dtype": "float64"}],
+                         ids=["geometric", "amg_krylov", "amg_krylov_f64"])
 def test_checked_step_is_bit_identical(cuda, kw):
     """A clean checked run on the card gives the unchecked run's bits, with
     as many checked launches as the unchecked run makes."""
@@ -498,6 +677,29 @@ def test_distributed_on_the_card_equals_serial(cuda, ranks):
                     timeout=300)[0]["geo"]
     np.testing.assert_array_equal(r["std"], r["serial"])
     assert r["k1"] > 0
+
+
+@pytest.mark.parametrize("kw", [{}, {"amg": True, "multi_levels": 1,
+                                     "krylov": True}],
+                         ids=["geometric", "amg_krylov"])
+def test_distributed_float64_on_the_card(cuda, kw):
+    """2 ranks sharing the card in float64: K1 (and K2 with amg) launch on
+    the ranks, the state stays float64, the geometric steps equal the
+    serial solver's bit for bit and the amg PCG steps agree with it to
+    1e-9 of the largest value."""
+    from p_a_multigrids_tpu_torch.parallel import cases, comm
+
+    case = dict(DIST_CASE, cfg=dict(DIST_CASE["cfg"], dtype="float64", **kw))
+    r = comm.launch(cases.run_cases, 2, cuda, args=([case],),
+                    timeout=300)[0]["geo"]
+    assert r["std"].dtype == np.float64 and r["k1"] > 0
+    assert (r["k2"] > 0) == bool(kw)
+    if kw:
+        assert r["krylov_iters"] == r["serial_krylov_iters"]
+        np.testing.assert_allclose(r["std"], r["serial"], rtol=0,
+                                   atol=1e-9 * np.abs(r["serial"]).max())
+    else:
+        np.testing.assert_array_equal(r["std"], r["serial"])
 
 
 def test_k1_on_an_extended_domain_matches_plain(cuda):

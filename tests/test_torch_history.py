@@ -118,6 +118,26 @@ def test_port_float32_holds_pin(spec, pins):
     assert history.hold(got, pin) == []
 
 
+@pytest.mark.parametrize("key", ["tri_sn2:s3:l2", "tri_sn2:s3:amg"])
+def test_port_float64_holds_pin_at_the_cards_tolerance(key, pins):
+    """The card's float64 rule (chip_smoke.py phase 35), here on the CPU:
+    the port's plain path in float64, through the solver a user builds,
+    holds the JAX package's pin within history.F64_REL of each cycle plus
+    twice its float64 floor."""
+    from p_a_multigrids_tpu_torch.models import semi as msemi
+
+    name, n_split, levels = key.split(":")
+    levels = levels if levels == "amg" else int(levels[1:])
+    pin = pins[key]
+    solver = msemi.SemiSolver(msemi.build_problem(
+        history.spec_mesh(name, levels),
+        history.spec_config(int(n_split[1:]), levels, dtype="float64")),
+        "cpu")
+    got = history.residual_history(solver, len(pin["residual_linf"]))
+    assert history.hold(got, pin, rel=history.F64_REL,
+                        floor="f64_floor") == []
+
+
 def test_hold_reports_failures(pins):
     pin = pins["tri_sn2:s3:amg"]
     w = pin["residual_linf"]

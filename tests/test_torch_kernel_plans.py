@@ -1,8 +1,12 @@
 """The host plans of kernels K1 and K2 on an H100's numbers (no card
 needed): which tier of K1 each main-path level gets, with its launch shape,
-and which variant of K2 each SA operator shape gets."""
+and which variant of K2 each SA operator shape gets, in float32 and in
+float64."""
+
+import ctypes
 
 import pytest
+import torch
 
 from p_a_multigrids_tpu_torch.ops import phase as K
 from p_a_multigrids_tpu_torch.ops import spmv
@@ -38,8 +42,8 @@ def test_phase_plan_tiers(C, U, tier):
         assert p.grid <= H100["sm_count"]
     else:
         assert p.grid <= H100["sm_count"] * H100["stream_blocks_per_sm"]
-    assert p.smem == p.slice * {"small": K.SMALL_BYTES, "stream": 0,
-                                "resident": K.RESIDENT_BYTES}[tier]
+    assert p.smem == p.slice * {"small": K.small_bytes(4), "stream": 0,
+                                "resident": K.resident_bytes(4)}[tier]
     assert p.smem <= H100["smem_per_block"]
 
 
@@ -52,7 +56,7 @@ def test_phase_plan_on_chip_sizes():
     assert K.phase_plan(1024, 96, **H100).smem == 745 * 160
     assert K.phase_plan(1, 1263, **H100).tier == "small"
     assert K.phase_plan(1, 1264, **H100).tier == "resident"
-    assert 1024 * 1152 * K.RESIDENT_BYTES > 132 * H100["smem_per_block"]
+    assert 1024 * 1152 * K.resident_bytes(4) > 132 * H100["smem_per_block"]
 
 
 def test_phase_plan_forced_tiers():
@@ -90,3 +94,70 @@ def test_rowop_plan_forced_variants():
     assert spmv.rowop_plan(10, 1, "lanes") == ("lanes", 4, 4)
     with pytest.raises(ValueError, match="unknown variant"):
         spmv.rowop_plan(10, 10, "warp")
+
+
+def test_phase_plan_bytes_a_pair():
+    """30 values of the state's type and 10 int32 words a pair kept on
+    chip, 6 values more in the small tier."""
+    assert (K.resident_bytes(4), K.small_bytes(4)) == (160, 184)
+    assert (K.resident_bytes(8), K.small_bytes(8)) == (280, 328)
+
+
+@pytest.mark.parametrize("C, U, tier, smem", [
+    (16, 8192, "stream", 0),             # bench-geometric fine level:
+                                         # 993 x 280 B = 278 KB a block
+    (1024, 96, "resident", 745 * 280),   # level sweep level 0: 209 KB
+    (4, 96, "small", 384 * 328),         # level sweep's coarse C = 4
+    (1, 708, "small", 708 * 328),        # the largest small level
+    (1, 709, "resident", 6 * 280),
+    (16, 1152, "resident", 140 * 280),   # CLI main path (24 x 24)
+    (1, 131072, "stream", 0),            # mode 6 at 256 x 256: 993 pairs
+])
+def test_phase_plan_float64(C, U, tier, smem):
+    """The float64 plans at the H100's figures: the small tier holds up to
+    708 pairs (1,263 in float32), C = 16, U = 8192 no longer fits a block
+    of 227 KB and streams, C = 1024, U = 96 stays resident."""
+    p = K.phase_plan(C, U, itemsize=8, **H100)
+    assert (p.tier, p.smem) == (tier, smem)
+    assert (p.grid - 1) * p.slice < C * U <= p.grid * p.slice
+    assert p.smem <= H100["smem_per_block"]
+
+
+def test_phase_plan_float32_unchanged_by_itemsize_argument():
+    for C, U in ((16, 8192), (1024, 96), (4, 96), (1, 1263), (1, 131072),
+                 (1024, 1152)):
+        assert K.phase_plan(C, U, **H100) == K.phase_plan(C, U, itemsize=4,
+                                                          **H100)
+    assert K.phase_plan(16, 8192, **H100).tier == "resident"
+
+
+@pytest.mark.parametrize("dtype, scalar", [(torch.float32, ctypes.c_float),
+                                           (torch.float64, ctypes.c_double)])
+def test_launch_rounds_in_the_state_dtype(dtype, scalar):
+    """The ctypes step sizes of a launch are _round_coefs in the state's
+    dtype, bit for bit, cut into launches of at most MAX_ROUNDS rounds."""
+    coefs = tuple(1.0 / (0.1 + 0.37 * k) for k in range(K.MAX_ROUNDS + 9))
+    chunks = K._launch_rounds(coefs, True, dtype)
+    assert [len(c) for c in chunks] == [K.MAX_ROUNDS, 10]
+    assert all(c._type_ is scalar for c in chunks)
+    want = K._round_coefs(coefs, True, dtype)
+    got = [v for c in chunks for v in c]
+    assert torch.equal(torch.tensor(got, dtype=torch.float64),
+                       torch.tensor(want, dtype=torch.float64))
+    if dtype == torch.float64:
+        assert got == list(coefs) + [0.0]
+        assert got != K._round_coefs(coefs, True, torch.float32)
+
+
+def test_rowop_plan_float64():
+    """In float64 the lanes variant takes rows of up to 512 slots (48 KB
+    of slot sums a block of 4 rows), wider rows one thread a row; below
+    that the variant, lanes and padding are float32's."""
+    assert spmv.lanes_max_d(4) == 1024 and spmv.lanes_max_d(8) == 512
+    assert spmv.rowop_plan(300, 512, itemsize=8) == ("lanes", 32, 512)
+    assert spmv.rowop_plan(300, 513, itemsize=8) == ("thread", 1, 513)
+    assert spmv.rowop_plan(300, 513) == ("lanes", 32, 516)
+    for n_out, D in ((513, 141), (2047, 63), (32768, 13), (32768, 5),
+                     (131072, 3)):
+        assert (spmv.rowop_plan(n_out, D, itemsize=8)
+                == spmv.rowop_plan(n_out, D))
