@@ -104,6 +104,11 @@ each tier and K2 in both variants against their plain versions, the
 checked builds' bits against the unchecked ones, each path's launches
 against its float32 run's, and each kernel timed beside its float32 twin,
 its bound at 8 bytes a value and, for the apply and K2, the library call.
+Then the port's bench (slice 12, phase 36): ``python -m
+p_a_multigrids_tpu_torch.bench`` in a process of its own, its JSON line
+held to validation/bench_pins.json (the root bench.py's functions on the
+JAX package): no section in error, K1 and K2 both ran, each rho within 2%
+plus its pin's float32 floor, PCG iterations within one, the L1 gate.
 Every phase prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
@@ -1748,6 +1753,83 @@ def f64_phase(card: str, f32: dict) -> list:
     return entries
 
 
+# Phase 36 (slice 12): the port's bench, ``python -m
+# p_a_multigrids_tpu_torch.bench`` in a process of its own on the card (the
+# JAX system's second entry surface, bench.py), held to
+# validation/bench_pins.json: the root bench.py's functions on the JAX
+# package, CPU, float32 (scripts/torch_record_bench.py).  Each rho within
+# BENCH_REL of its pin plus the pin's floor (the distance float32 rounding
+# alone puts between the JAX float32 and float64 values), PCG iterations
+# within one.  The gate is held to its own bound, L1 < 0.01: the card's
+# float32 L1 (~9.8e-4) is not the JAX XLA path's (~1.0e-4).
+BENCH_REL = 0.02
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 36: the bench's JSON line, checked; returns it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "p_a_multigrids_tpu_torch", "validation",
+                           "bench_pins.json")) as f:
+        pins = json.load(f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "p_a_multigrids_tpu_torch.bench"], cwd=here,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr[-6000:])
+    lines = proc.stdout.splitlines()
+    say("bench", phase=36, rc=proc.returncode, wall_s=f"{wall:.1f}",
+        lines=len(lines), card=repr(card))
+    check(len(lines) == 1, f"bench printed {len(lines)} lines on stdout")
+    print(lines[0], flush=True)
+    out = json.loads(lines[0])
+    extra = out["extra"]
+    check(proc.returncode == 0 and not extra["errors"],
+          f"bench exit {proc.returncode}, errors {extra['errors']}")
+    sweep = extra["level_sweep_2split_nsplit5"]
+    rows = {"geometric": extra["geometric"], "amg": extra["amg"],
+            "amg.v11": extra["amg"]["v11"],
+            **{f"sweep.{k}": v for k, v in sweep.items()
+               if isinstance(v, dict)}}
+    bad = sorted(k for k, v in rows.items() if "error" in v)
+    check(not bad, f"bench sections with an error: {bad}")
+    launches = extra["launches"]
+    say("bench", phase=36, k1_phase=extra["k1_phase"],
+        k2_spmv=extra["k2_spmv"], k1_tiers=extra["k1_tiers"],
+        launches=json.dumps(launches))
+    check(extra["k1_phase"] and extra["k2_spmv"]
+          and min(launches.values()) > 0,
+          "bench: K1 and K2 did not both run the bench (K1 at C > 64 too)")
+    check(extra["ndof"] == 393216, f"bench ndof {extra['ndof']}")
+
+    def hold(name, got, pin):
+        allowed = BENCH_REL * abs(pin["rho"]) + pin["floor"]
+        dist = abs(got - pin["rho"])
+        say("pin", phase=36, name=name, rho=got, pin=f"{pin['rho']:.6f}",
+            distance=f"{dist:.2e}", allowed=f"{allowed:.2e}")
+        check(dist <= allowed, f"bench {name}: rho {got} not within "
+              f"{allowed:.2e} of {pin['rho']:.6f}")
+
+    hold("geometric", extra["geometric"]["rho"], pins["geometric"])
+    hold("amg", extra["rho"], pins["amg"])
+    for k, pin in pins["level_sweep"].items():
+        hold(f"sweep.{k}", sweep[k]["rho"], pin)
+    for name, got, pin in (
+            ("amg", extra["amg"]["pcg_its_to_1e6"],
+             pins["amg"]["pcg_its_to_1e6"]),
+            ("amg.v11", extra["amg"]["v11"]["pcg_its_to_1e6"],
+             pins["amg"]["v11"]["pcg_its_to_1e6"])):
+        say("pin", phase=36, name=f"{name}.pcg_its", got=got, pin=pin)
+        check(abs(got - pin) <= 1, f"bench {name}: {got} PCG iterations, "
+              f"pin {pin}")
+    say("bench", phase=36, l1_err=extra["l1_err"],
+        jax_f32_l1=pins["gate"]["l1_err"],
+        l1_gate_passed=extra["l1_gate_passed"])
+    check(extra["l1_gate_passed"], f"bench gate: L1 {extra['l1_err']}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3262,6 +3344,9 @@ def main():
 
     # 35. float64 on the card: K1 and K2 in double on every path (slice 11)
     f64_entries = f64_phase(card, f32_ref)
+
+    # 36. the port's bench in a process of its own (slice 12) --------------
+    bench_phase(card)
 
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x

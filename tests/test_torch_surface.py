@@ -5,7 +5,10 @@ counterpart of the same name in the same module of the port, apart from
 the TPU mechanisms listed in ``LEFT_OUT``; the two CLIs take the same
 options apart from the port's ``--device``; each subpackage imports the
 same submodules; and no ``device`` parameter of the port defaults to the
-CPU."""
+CPU.  The JAX system's two root surfaces have theirs too: every key of
+``bench.py``'s JSON line is a key of the port bench's (``bench.py``'s TPU
+names under the port's, ``RENAMED``), and each public function of
+``__graft_entry__.py`` is a function of the port's ``entry`` module."""
 
 import argparse
 import ast
@@ -44,6 +47,12 @@ LEFT_OUT = {
                               "of K1 and K2 (utils.debugging.Sanitizer, "
                               "-DPAMG_CHECKED)",
 }
+
+
+# bench.py's JSON keys that name a TPU mechanism, and the port's for them
+RENAMED = {"pallas_spmv": "k2_spmv", "pallas_phase": "k1_phase",
+           "pallas_phase_impl": "k1_tiers",
+           "spmv_xla_gnnz_s": "spmv_library_gnnz_s"}
 
 
 def _modules(root: pathlib.Path) -> dict:
@@ -197,3 +206,45 @@ def test_no_device_parameter_defaults_to_the_cpu():
             found += [f"{module}:{fn.lineno} {arg.arg}" for arg, d in pairs
                       if arg.arg == "device" and d is not None and _cpu(d)]
     assert not found, f"device defaults to the CPU: {found}"
+
+
+def result_keys(path: pathlib.Path) -> set:
+    """The dotted keys of the dict literal a file assigns to ``result``,
+    into its nested dict literals (of a conditional value, the first
+    branch)."""
+    tree = ast.parse(path.read_text())
+    node = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                and [ast.unparse(t) for t in n.targets] == ["result"])
+
+    def keys(node, prefix: str) -> set:
+        if isinstance(node, ast.IfExp):
+            node = node.body
+        if not isinstance(node, ast.Dict):
+            return set()
+        out = set()
+        for k, v in zip(node.keys, node.values):
+            if isinstance(k, ast.Constant):
+                out |= {prefix + k.value} | keys(v, f"{prefix}{k.value}.")
+        return out
+
+    return keys(node, "")
+
+
+def test_bench_json_has_the_bench_py_keys():
+    want = {".".join(RENAMED.get(p, p) for p in k.split("."))
+            for k in result_keys(REPO / "bench.py")}
+    got = result_keys(PORT / "bench.py")
+    assert len(want) > 20 and "extra.geometric.rho" in want
+    missing = sorted(want - got)
+    assert not missing, f"the port's bench JSON lacks {missing}"
+    tpu = sorted(k for k in got if k.split(".")[-1] in RENAMED)
+    assert not tpu, f"the port's bench JSON keeps the TPU names {tpu}"
+
+
+def test_graft_entry_functions_have_counterparts():
+    graft = ast.parse((REPO / "__graft_entry__.py").read_text())
+    want = {n.name for n in graft.body
+            if isinstance(n, ast.FunctionDef) and _public(n.name)}
+    assert want == {"entry", "dryrun_multichip"}
+    missing = sorted(want - bound(PORT_MODULES["entry"]))
+    assert not missing, f"the port's entry module lacks {missing}"
