@@ -109,6 +109,13 @@ p_a_multigrids_tpu_torch.bench`` in a process of its own, its JSON line
 held to validation/bench_pins.json (the root bench.py's functions on the
 JAX package): no section in error, K1 and K2 both ran, each rho within 2%
 plus its pin's float32 floor, PCG iterations within one, the L1 gate.
+Then the distributed bench (slice 13, phase 37): ``python -m
+p_a_multigrids_tpu_torch.bench_dist`` on one rank (nccl) and on four ranks
+sharing the card (gloo), its JSON lines held to
+validation/bench_dist_pins.json (the JAX package's distributed solver):
+every ghost report and model, work fraction and halo window equal to the
+pins, the distributed state to the serial twin's (geometric within 1e-6,
+sharded SA within 2%), K1 and K2 launched on the ranks.
 Every phase prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
@@ -1637,6 +1644,7 @@ def f64_phase(card: str, f32: dict) -> list:
         D=bsr_op.D, variant=bsr_op.variant, ms=f"{ms:.5f}",
         plain_ms=f"{plain_ms:.5f}",
         device_us=f"{device_us(lambda: bsr_op(xb), 'k2_rowop', 50):.2f}",
+        least_MB=f"{rowop_least_bytes(bsr_op, 8) / 1e6:.2f}",
         bound_us=f"{1e3 * bound_ms(rowop_least_bytes(bsr_op, 8)):.2f}",
         library_ms=f"{event_ms(lambda: A @ xv, 50):.5f}",
         library_device_us=f"{device_us(lambda: A @ xv, None, 5):.2f}",
@@ -1828,6 +1836,130 @@ def bench_phase(card: str) -> dict:
         l1_gate_passed=extra["l1_gate_passed"])
     check(extra["l1_gate_passed"], f"bench gate: L1 {extra['l1_err']}")
     return out
+
+
+# Phase 37 (slice 13): the distributed bench, ``python -m
+# p_a_multigrids_tpu_torch.bench_dist`` in processes of its own on the card:
+# --devices 1 (retention: one rank under nccl) and --devices 4 (dist8 and
+# overhead: four ranks sharing the card under gloo, which checks the
+# machinery, not scaling), held to validation/bench_dist_pins.json (the
+# JAX package's DistributedStencilSolver on the CPU,
+# scripts/torch_record_bench_dist.py): every ghost report, ghost model,
+# work fraction, amg_dist_engaged and halo window W equal to the pins,
+# integers exactly and fractions within DIST_PIN_TOL (the JAX rounding to
+# four digits).  The distributed state after a window's calls from T0 is
+# held to the serial twin's: within DIST_BITS_REL where no sharded SA
+# correction runs (the same arithmetic: bit for bit in phase 32), within
+# phase 32's 2% band where one does (the SA restriction sums in another
+# order).  K1 launched on every rank, K2 on every rank with SA rows.
+BENCH_DIST_TIMEOUT_S = 900
+BENCH_DIST_WORLDS = (1, 4)
+DIST_PIN_TOL = 1e-4
+DIST_BITS_REL = 1e-6
+DIST_BAND_REL = 0.02
+
+
+def _hold_levels(name: str, got: list, pin: list):
+    """A ghost report or model against its pin: integer keys exactly, the
+    fractions within DIST_PIN_TOL."""
+    check(len(got) == len(pin), f"{name}: {len(got)} levels, pin "
+          f"{len(pin)}")
+    for g, w in zip(got, pin):
+        for k, v in g.items():
+            if k.endswith("_frac"):
+                check(abs(v - w[k]) <= DIST_PIN_TOL,
+                      f"{name} level {g['level']}: {k} {v} against {w[k]}")
+            else:
+                check(v == w[k], f"{name} level {g['level']}: {k} {v} "
+                      f"against {w[k]}")
+
+
+def _hold_run(name: str, r: dict, unit: str, card: str):
+    """One configuration's launches and its state against the twin's."""
+    k1, k2 = r["launches"]["k1_phase"], r["launches"]["k2_rowop"]
+    tol = DIST_BAND_REL if r.get("amg_dist_engaged") else DIST_BITS_REL
+    say("bench_dist", phase=37, config=name, k1=k1, k2=k2,
+        sa_rows=r["sa_rows"], dist_vs_serial_rel=r["dist_vs_serial_rel"],
+        allowed=tol, setup_s=f"{r['setup_s']:.1f}")
+    check(min(k1) > 0, f"{name}: a rank launched no K1: {k1}")
+    check(all(n > 0 for n, has in zip(k2, r["sa_rows"]) if has),
+          f"{name}: a rank with SA rows launched no K2: {k2}")
+    check(math.isfinite(r["dist_vs_serial_rel"])
+          and r["dist_vs_serial_rel"] <= tol,
+          f"{name}: distributed state {r['dist_vs_serial_rel']:.3e} from "
+          f"the serial twin's (allowed {tol})")
+    ms = {k: v for k, v in r.items() if k.endswith(f"ms_per_{unit}")}
+    say("time", phase=37, config=name, card=repr(card),
+        **{k: f"{v:.4f}" for k, v in ms.items()},
+        staging_share=f"{r['staging_share']:.3f}",
+        wait_share=f"{r['wait_share']:.3f}")
+
+
+def bench_dist_phase(card: str) -> dict:
+    """Phase 37: the distributed bench's JSON lines, checked; returns them
+    by world size."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "p_a_multigrids_tpu_torch", "validation",
+                           "bench_dist_pins.json")) as f:
+        pins = json.load(f)
+    lines = {}
+    for n in BENCH_DIST_WORLDS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "p_a_multigrids_tpu_torch.bench_dist",
+             "--devices", str(n)], cwd=here, capture_output=True, text=True,
+            timeout=BENCH_DIST_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        sys.stderr.write(proc.stderr[-6000:])
+        out_lines = proc.stdout.splitlines()
+        say("bench_dist", phase=37, devices=n, rc=proc.returncode,
+            wall_s=f"{wall:.1f}", lines=len(out_lines), card=repr(card))
+        check(len(out_lines) == 1,
+              f"bench_dist printed {len(out_lines)} lines on stdout")
+        print(out_lines[0], flush=True)
+        out = lines[n] = json.loads(out_lines[0])
+        check(proc.returncode == 0 and not out["errors"],
+              f"bench_dist --devices {n}: exit {proc.returncode}, errors "
+              f"{out['errors']}")
+        check(out["backend"] == ("nccl" if n == 1 else "gloo")
+              and out["ranks_per_card"] == n,
+              f"--devices {n}: {out['backend']}, {out['ranks_per_card']} "
+              "ranks a card")
+    hold_bench_dist(lines, pins, card)
+    return lines
+
+
+def hold_bench_dist(lines: dict, pins: dict, card: str):
+    """Phase 37's holds on the lines of --devices 1 and
+    BENCH_DIST_WORLDS[-1]."""
+    for name, r in lines[1]["retention"]["configs"].items():
+        pin = pins["retention"][name]
+        _hold_levels(f"retention {name} ghost_model_at_D8",
+                     r["ghost_model_at_D8"], pin["ghost_model_at_D8"])
+        check(r["d1_ghost_zones_empty"] and r["k1_phase_dist"]
+              and r["amg_tables_built"] == (name == "production_amg"),
+              f"retention {name}: {r}")
+        _hold_run(f"retention.{name}", r, "cycle", card)
+    n = BENCH_DIST_WORLDS[-1]
+    configs = lines[n]["dist8"]["configs"]
+    check(set(configs) == set(pins["dist8"][f"D{n}"]),
+          f"dist8 configs {sorted(configs)}")
+    for name, r in configs.items():
+        pin = pins["dist8"][f"D{n}"][name]
+        _hold_levels(f"dist8 {name} ghost_report", r["ghost_report"],
+                     pin["ghost_report"])
+        check(abs(r["per_chip_work_fraction"] - pin["per_chip_work_fraction"])
+              <= DIST_PIN_TOL and r["amg_dist_engaged"]
+              == pin["amg_dist_engaged"] and r["mesh_shape"]
+              == pin["mesh_shape"], f"dist8 {name}: {r} against {pin}")
+        _hold_run(f"dist8.{name}", r, "cycle", card)
+    ov, pin = lines[n]["overhead"], pins["overhead"][f"D{n}"]
+    _hold_levels("overhead ghost_report", ov["ghost_report"],
+                 pin["ghost_report"])
+    check(ov["halo_window_W"] == pin["halo_window_W"]
+          and ov["n_macro"] == pin["U"], f"overhead: W {ov['halo_window_W']}"
+          f", pin {pin['halo_window_W']}; {ov['n_macro']} macros")
+    _hold_run("overhead", ov, "step", card)
 
 
 def main():
@@ -3347,6 +3479,11 @@ def main():
 
     # 36. the port's bench in a process of its own (slice 12) --------------
     bench_phase(card)
+
+    # 37. the distributed bench in processes of their own (slice 13) -------
+    t37 = time.perf_counter()
+    bench_dist_phase(card)
+    say("bench_dist", phase=37, wall_s=f"{time.perf_counter() - t37:.1f}")
 
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x

@@ -84,6 +84,74 @@ def band(data: StencilData) -> int:
     return int(np.abs(hs // C - np.arange(hs.shape[0])[:, None]).max())
 
 
+def ghost_plan(W: int, R: int, U_loc: int, U: int, frac: float,
+               D: int) -> tuple[int, int, int]:
+    """(chunk, He, He_mid): the ghost depth and chunking of a level's
+    phases of R rounds on D ranks of U_loc macros (U in all), band W.
+
+    ``chunk`` is the largest k with 2 (k + 1) W within ``frac`` of U_loc
+    (at least 1); the last chunk of a phase runs on He = (chunk + 1) W
+    macros a side, the chunks before it, which only advance x, on He_mid =
+    chunk W.  He_mid is He where the phases do not split or the band does
+    not shrink (no mid geometry).  One rank or W = 0 needs no halo."""
+    if D == 1 or W == 0:
+        return R, 0, 0
+    cap = max(frac, 0.0) * U_loc
+    ks = [k for k in range(1, R + 1) if 2 * (k + 1) * W <= cap]
+    chunk = max(ks) if ks else 1
+    He = min((chunk + 1) * W, U)
+    He_mid = min(chunk * W, U) if chunk < R else He
+    return chunk, He, He_mid
+
+
+def ghost_level(li: int, W: int, R: int, chunk: int, He: int, He_mid: int,
+                U_loc: int) -> dict:
+    """One level of ``ghost_report``: ``redundant_frac`` is the
+    round-averaged fraction of extra ghost rows a round relaxes against a
+    rank's interior, the chunks that only advance x on He_mid rows a side,
+    the last chunk, of ``final = R - chunk ((R - 1) // chunk)`` rounds, on
+    He; ``n_exchanges`` is the ring exchanges of x a phase (1: the classic
+    deep ghost)."""
+    final = R - chunk * ((R - 1) // chunk) if R else 0
+    n_mid = R - final if He_mid < He else 0
+    avg = 2.0 * (n_mid * He_mid + (R - n_mid) * He) / max(R, 1) / U_loc
+    return dict(level=li, W=W, He=He, He_mid=He_mid, chunk=chunk, rounds=R,
+                U_loc=U_loc, redundant_frac=round(avg, 4),
+                n_exchanges=-(-R // chunk))
+
+
+def level_rounds(serial: semi.SemiSolver, li: int) -> int:
+    """The most rounds a phase of level li runs: its smoothing phases, and
+    on the coarsest level of several also its coarse phase."""
+    cfg = serial.cfg
+    nl = len(serial.ops)
+    R = len(serial._phase_coefs(li, cfg.n_smooth))
+    if li == nl - 1 and nl > 1:
+        R = max(R, len(serial._phase_coefs(li, cfg.coarse_sweeps)))
+    return R
+
+
+def ghost_model_at(serial: semi.SemiSolver, cfg: SemiConfig,
+                   D: int) -> list[dict]:
+    """The ghost report the distributed solver on D ranks would give, from
+    its serial twin's levels (``ghost_plan`` and ``ghost_level``, as the
+    solver's own ``ghost_report``): per level ``level, W, rounds, chunk,
+    He, He_mid, U_loc, redundant_frac`` and ``deep_ghost_frac``, the
+    redundant fraction of one deep-ghost chunk a phase.  U is the twin's,
+    padded to a multiple of D as the solver pads it."""
+    U_loc = -(-serial.ops[0].U // D)
+    U = D * U_loc
+    out = []
+    for li, op in enumerate(serial.ops):
+        W, R = band(op._data), level_rounds(serial, li)
+        lv = ghost_level(li, W, R, *ghost_plan(
+            W, R, U_loc, U, cfg.dist_ghost_max_frac, D), U_loc)
+        del lv["n_exchanges"]
+        lv["deep_ghost_frac"] = round(2 * min((R + 1) * W, U) / U_loc, 4)
+        out.append(lv)
+    return out
+
+
 def _tier(op: StencilOperator, like: StencilOperator):
     """K1's tier for ``op`` on the card: the serial level ``like``'s tier
     wherever ``op`` fits it, so that both run the same code (None on the
@@ -98,16 +166,16 @@ def _tier(op: StencilOperator, like: StencilOperator):
 class _Phase:
     """One level's extended-domain operators: ``op`` on the final
     geometry (He), ``op_mid`` on the geometry of the chunks that only
-    advance x (He_mid), or None where the phases do not split or the band
-    does not shrink; ``tier``/``tier_mid`` are K1's tiers for each."""
+    advance x (He_mid), or None where He_mid is He (``ghost_plan``);
+    ``tier``/``tier_mid`` are K1's tiers for each."""
     op: StencilOperator
     He: int
+    He_mid: int
     chunk: int
     rounds: int
     W: int
     tier: str | None
     op_mid: StencilOperator | None = None
-    He_mid: int = 0
     tier_mid: str | None = None
 
 
@@ -177,28 +245,16 @@ class DistributedStencilSolver:
 
     # -- setup: extended-domain operators -----------------------------------
     def _build_phase(self, li: int) -> _Phase:
-        """Level li's ghost depth, chunking and extended-domain operators
-        (the JAX package's ``_build_phases``): ``chunk`` is the largest k
-        with 2 (k + 1) W within ``dist_ghost_max_frac`` of U_loc (at least
-        1); He = (chunk + 1) W, He_mid = chunk W; one rank or W = 0 needs
-        no halo.  A geometry that does not build raises."""
-        cfg = self.cfg
+        """Level li's ghost depth, chunking (``ghost_plan``) and
+        extended-domain operators (the JAX package's ``_build_phases``).
+        A geometry that does not build raises."""
         serial_op = self.serial.ops[li]
-        R = len(self._coefs[li])
-        if li == len(self.p.levels) - 1:
-            R = max(R, len(self._coefs_coarse))
-        W = band(serial_op._data)
+        W, R = band(serial_op._data), level_rounds(self.serial, li)
+        chunk, He, He_mid = ghost_plan(W, R, self.U_loc, self.U,
+                                       self.cfg.dist_ghost_max_frac, self.D)
         if self.D == 1:
-            return _Phase(serial_op, 0, R, R, W,
+            return _Phase(serial_op, He, He_mid, chunk, R, W,
                           _tier(serial_op, serial_op))
-        if W == 0:
-            chunk, He, He_mid = R, 0, 0
-        else:
-            cap = max(cfg.dist_ghost_max_frac, 0.0) * self.U_loc
-            ks = [k for k in range(1, R + 1) if 2 * (k + 1) * W <= cap]
-            chunk = max(ks) if ks else 1
-            He = min((chunk + 1) * W, self.U)
-            He_mid = min(chunk * W, self.U)
 
         def geometry(H):
             op = StencilOperator(
@@ -208,36 +264,17 @@ class DistributedStencilSolver:
             return op, _tier(op, serial_op)
 
         op, tier = geometry(He)
-        ph = _Phase(op, He, chunk, R, W, tier)
-        # a mid-chunk geometry pays off only when phases split and the band
-        # shrinks
-        if chunk < R and He_mid < He:
+        ph = _Phase(op, He, He_mid, chunk, R, W, tier)
+        if He_mid < He:
             ph.op_mid, ph.tier_mid = geometry(He_mid)
-            ph.He_mid = He_mid
         return ph
 
     def ghost_report(self) -> list[dict]:
-        """Per level, the deep-ghost cost of the sharded phases.
-
-        ``redundant_frac``: the round-averaged fraction of extra ghost rows
-        a round relaxes against this rank's interior; the chunks that only
-        advance x run on He_mid rows a side, the last chunk, of ``final =
-        R - chunk ((R - 1) // chunk)`` rounds, on He.  ``n_exchanges`` is
-        the ring exchanges of x a phase (1: the classic deep ghost).
-        """
-        out = []
-        for li, ph in enumerate(self._phases):
-            R, chunk = ph.rounds, ph.chunk
-            final = R - chunk * ((R - 1) // chunk) if R else 0
-            He_mid = ph.He_mid if ph.op_mid is not None else ph.He
-            n_mid = R - final if ph.op_mid is not None else 0
-            avg = (2.0 * (n_mid * He_mid + (R - n_mid) * ph.He)
-                   / max(R, 1) / self.U_loc)
-            out.append(dict(
-                level=li, W=ph.W, He=ph.He, He_mid=He_mid, chunk=chunk,
-                rounds=R, U_loc=self.U_loc, redundant_frac=round(avg, 4),
-                n_exchanges=-(-R // chunk)))
-        return out
+        """Per level, the deep-ghost cost of the sharded phases
+        (``ghost_level``)."""
+        return [ghost_level(li, ph.W, ph.rounds, ph.chunk, ph.He, ph.He_mid,
+                            self.U_loc)
+                for li, ph in enumerate(self._phases)]
 
     # -- setup: the sharded SA hierarchy --------------------------------------
     def _build_agg_dist(self):

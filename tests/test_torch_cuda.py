@@ -11,6 +11,7 @@ device the kernel tests skip; the build test runs only where there is no
 CUDA compiler.
 """
 
+import json
 import os
 
 import numpy as np
@@ -677,6 +678,28 @@ def test_distributed_on_the_card_equals_serial(cuda, ranks):
                     timeout=300)[0]["geo"]
     np.testing.assert_array_equal(r["std"], r["serial"])
     assert r["k1"] > 0
+
+
+def test_bench_dist_retention_on_the_card(cuda, monkeypatch, capsys):
+    """The distributed bench's retention section at a small size, one rank
+    under nccl: K1 ran every distributed cycle (K2 with amg), the geometric
+    state equals the serial twin's bit for bit, amg within float32
+    summation order, and the line carries the card's name."""
+    from p_a_multigrids_tpu_torch import bench_dist
+
+    monkeypatch.setattr(bench_dist, "DIST8_MESH", (16, 4, 0.25, 0.25))
+    monkeypatch.setattr(bench_dist, "RETENTION_CYCLES", 2)
+    monkeypatch.setattr(bench_dist, "REPS", 1)
+    assert bench_dist.main(["--devices", "1", "--section", "retention"]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert (line["backend"], line["ranks_per_card"]) == ("nccl", 1)
+    assert line["device"][0].startswith(torch.cuda.get_device_name(0))
+    for name, r in line["retention"]["configs"].items():
+        assert r["k1_phase_dist"] and r["launches"]["k1_phase"][0] > 0
+        assert (r["launches"]["k2_rowop"][0] > 0) == r["amg_tables_built"]
+        assert r["dist_vs_serial_rel"] <= (0.0 if name == "geometric"
+                                           else 1e-5)
+        assert r["retention_factor"] > 0
 
 
 @pytest.mark.parametrize("kw", [{}, {"amg": True, "multi_levels": 1,

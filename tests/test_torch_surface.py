@@ -8,10 +8,17 @@ same submodules; and no ``device`` parameter of the port defaults to the
 CPU.  The JAX system's two root surfaces have theirs too: every key of
 ``bench.py``'s JSON line is a key of the port bench's (``bench.py``'s TPU
 names under the port's, ``RENAMED``), and each public function of
-``__graft_entry__.py`` is a function of the port's ``entry`` module."""
+``__graft_entry__.py`` is a function of the port's ``entry`` module.  The
+JAX system's three distributed measurement scripts have one counterpart,
+``bench_dist``: every key of each script's JSON is a key of its section of
+the port's line (``DIST_RENAMED``), which the test runs on CPU ranks at a
+small size (~15 s; the rest of the file reads sources only)."""
 
 import argparse
 import ast
+import contextlib
+import io
+import json
 import pathlib
 
 import pytest
@@ -19,6 +26,7 @@ import pytest
 from p_a_multigrids_tpu import __main__ as jcli
 
 from p_a_multigrids_tpu_torch import __main__ as tcli
+from p_a_multigrids_tpu_torch import bench_dist
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX = REPO / "p_a_multigrids_tpu"
@@ -248,3 +256,118 @@ def test_graft_entry_functions_have_counterparts():
     assert want == {"entry", "dryrun_multichip"}
     missing = sorted(want - bound(PORT_MODULES["entry"]))
     assert not missing, f"the port's entry module lacks {missing}"
+
+
+# the JAX distributed scripts, the port's section of each, and their TPU
+# names under the port's (a key named after D = 8 carries the run's N, or
+# the model's M)
+DIST_SCRIPTS = {"bench_dist8.py": "dist8", "bench_dist_tpu.py": "retention",
+                "bench_distributed.py": "overhead"}
+DIST_RENAMED = {"pallas": "kernels", "pallas_phase_dist": "k1_phase_dist",
+                "ideal_speedup_at_D8": "ideal_speedup_at_D{N}",
+                "ghost_model_at_D8": "ghost_model_at_D{M}"}
+
+
+def _path(node) -> list | None:
+    """The keys of a subscript chain ``name[k1][k2]`` ("*" for a key that
+    is not a constant), or [] for a bare name."""
+    keys = []
+    while isinstance(node, ast.Subscript):
+        k = node.slice
+        keys.append(k.value if isinstance(k, ast.Constant) else "*")
+        node = node.value
+    return keys[::-1] if isinstance(node, ast.Name) else None
+
+
+def script_json_keys(path: pathlib.Path) -> set:
+    """The dotted keys of the JSON a script writes: of every dict literal
+    it assigns to a name or a subscript of one (into nested dict
+    literals), and of the ``dict(...)`` records of a function that fills a
+    key's list ("*" for a list's item or a non-constant key)."""
+    tree = ast.parse(path.read_text())
+    records = {f.name: {kw.arg for c in ast.walk(f) if isinstance(c, ast.Call)
+                        and ast.unparse(c.func) == "dict"
+                        for kw in c.keywords}
+               for f in tree.body if isinstance(f, ast.FunctionDef)}
+
+    def keys(node, prefix: str) -> set:
+        if isinstance(node, ast.Call) and records.get(
+                ast.unparse(node.func)):
+            return {f"{prefix}*.{k}" for k in records[ast.unparse(node.func)]}
+        if not isinstance(node, ast.Dict):
+            return set()
+        out = set()
+        for k, v in zip(node.keys, node.values):
+            if isinstance(k, ast.Constant):
+                out |= {prefix + k.value} | keys(v, f"{prefix}{k.value}.")
+        return out
+
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict):
+            for t in node.targets:
+                path = _path(t)
+                if path is not None:
+                    out |= keys(node.value, "".join(f"{k}." for k in path))
+    return out
+
+
+def line_keys(obj, prefix: str = "") -> set:
+    """The dotted keys of a JSON value: "*" for a list's item and for each
+    configuration under ``configs``."""
+    out = set()
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            name = "*" if prefix.endswith("configs.") else k
+            out |= {prefix + name} | line_keys(v, f"{prefix}{name}.")
+    elif isinstance(obj, list):
+        for v in obj:
+            out |= line_keys(v, f"{prefix}*.")
+    return out
+
+
+def test_dist_scripts_keys_are_read():
+    keys = {s: script_json_keys(REPO / "scripts" / s) for s in DIST_SCRIPTS}
+    assert {"configs.*.ghost_report", "configs.*.ideal_speedup_at_D8",
+            "pallas", "backend"} <= keys["bench_dist8.py"]
+    assert {"configs.*.ghost_model_at_D8.*.deep_ghost_frac",
+            "configs.*.pallas_phase_dist"} <= keys["bench_dist_tpu.py"]
+    assert {"halo_window_W", "overhead_factor"} <= keys[
+        "bench_distributed.py"]
+
+
+@pytest.fixture(scope="module")
+def dist_lines():
+    """The port's distributed bench on the CPU at a small size, one window
+    of one call: at --devices 2 (dist8, overhead) and 1 (retention)."""
+    lines = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bench_dist, "DIST8_MESH", (8, 4, 0.25, 0.25))
+        mp.setattr(bench_dist, "OVERHEAD_MESH", (4, 4, 0.25, 0.25))
+        for name in ("DIST8_CYCLES", "RETENTION_CYCLES", "OVERHEAD_STEPS",
+                     "REPS"):
+            mp.setattr(bench_dist, name, 1)
+        for n in (2, 1):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = bench_dist.main(["--device", "cpu", "--devices", str(n)])
+            assert rc == 0
+            lines[n] = json.loads(buf.getvalue())
+    return lines
+
+
+@pytest.mark.parametrize("script", list(DIST_SCRIPTS))
+def test_bench_dist_json_has_the_scripts_keys(dist_lines, script):
+    section = DIST_SCRIPTS[script]
+    n = 1 if section == "retention" else 2
+    got = line_keys(dist_lines[n][section])
+    rename = {k: v.format(N=n, M=8) for k, v in DIST_RENAMED.items()}
+    want = {".".join(rename.get(p, p) for p in k.split("."))
+            for k in script_json_keys(REPO / "scripts" / script)}
+    missing = sorted(want - got)
+    assert not missing, f"the port's {section} section lacks {missing}"
+    tpu = sorted(k for k in got if "pallas" in k)
+    assert not tpu, f"the port's {section} section keeps the TPU names {tpu}"
+    assert dist_lines[n][section]["backend"] == "gloo"
+    text = json.dumps(dist_lines[n])
+    assert "cpu-virtual" not in text and "interpret" not in text
