@@ -116,6 +116,14 @@ validation/bench_dist_pins.json (the JAX package's distributed solver):
 every ghost report and model, work fraction and halo window equal to the
 pins, the distributed state to the serial twin's (geometric within 1e-6,
 sharded SA within 2%), K1 and K2 launched on the ranks.
+Then the knob sweep (slice 14, phase 38): K1 on the fine phase of each
+Chebyshev degree (16, 12, 10) and K2 on every rowop of the one-sweep SA
+hierarchies at agg_target 4 and 8 against their plain versions, then
+``python -m p_a_multigrids_tpu_torch.tune_amg`` in a process of its own,
+its seven cases held to validation/tune_amg_pins.json (the JAX system's
+scripts/tune_amg.py on the JAX package): no case in error, K1 and K2 in
+every case, each rho within 2% plus its pin's float32 floor, PCG
+iterations within one.
 Every phase prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
@@ -1692,11 +1700,7 @@ def f64_phase(card: str, f32: dict) -> list:
                                      for k in traced)
                             for cls in ("k1_phase", "k2_rowop")}
                 say("cli", phase=35, profile_traced=n_traced)
-                # the tracer can miss a kernel launched just after it
-                # starts (it traced 43 and 44 of this run's 45 K1 launches
-                # on an H100 80GB HBM3; utils/profiling.MARGIN_S); phase 33
-                # holds a full-width trace to every launch
-                check(all(0 < n_traced[k] <= c64[k] for k in n_traced),
+                check(all(n_traced[k] == c64[k] > 0 for k in n_traced),
                       f"--profile --f64: traced {n_traced}, counted {c64}")
     g_out = cli.run(F64_DIST_ARGS + ["--f64", "--device", "cuda"])[0]
     c_out = cli.run(F64_DIST_ARGS + ["--f64", "--device", "cpu"])[0]
@@ -1960,6 +1964,87 @@ def hold_bench_dist(lines: dict, pins: dict, card: str):
           and ov["n_macro"] == pin["U"], f"overhead: W {ov['halo_window_W']}"
           f", pin {pin['halo_window_W']}; {ov['n_macro']} macros")
     _hold_run("overhead", ov, "step", card)
+
+
+# Phase 38 (slice 14): the knob sweep, ``python -m
+# p_a_multigrids_tpu_torch.tune_amg`` in a process of its own on the card
+# (the JAX system's scripts/tune_amg.py), held to
+# validation/tune_amg_pins.json: the script's own rho_linear and pcg_ms on
+# the JAX package, CPU, float32 (scripts/torch_record_tune_amg.py).  Each
+# rho within BENCH_REL of its pin plus the pin's floor, PCG iterations
+# within one, K1 and K2 launched in every case.  Before it, the kernels at
+# the shapes its cases give them that no earlier phase met: every K2 rowop
+# of the one-sweep hierarchies at agg_target 8 and 4, and the fine phase
+# of each Chebyshev degree (16, 12, 10), in this process.
+TUNE_TIMEOUT_S = 600
+TUNE_PARITY = ("deg16-sw1-t8", "deg12-sw1", "deg10-sw1")
+
+
+def tune_amg_phase(card: str, parity) -> dict:
+    """Phase 38: the knob sweep's cases' kernels held to their plain
+    versions (``parity(path, solver)``), then its JSON line, checked;
+    returns it."""
+    import torch
+
+    from p_a_multigrids_tpu_torch import bench, tune_amg
+    from p_a_multigrids_tpu_torch.mesh import structured, topology
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "p_a_multigrids_tpu_torch", "validation",
+                           "tune_amg_pins.json")) as f:
+        pins = json.load(f)["cases"]
+    mesh = topology.rcm_reorder(structured.tri_mesh(*bench.BENCH_MESH))
+    knobs = dict(tune_amg.CASES)
+    for name in TUNE_PARITY:
+        t0 = time.perf_counter()
+        sv = tune_amg.solver(mesh, knobs[name], torch.device("cuda", 0))
+        say("setup", phase=38, config=name,
+            sa_levels=[lv.n for lv in sv.agg.levels],
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        parity(f"tune_{name}", sv)
+        del sv
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "p_a_multigrids_tpu_torch.tune_amg"],
+        cwd=here, capture_output=True, text=True, timeout=TUNE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr[-6000:])
+    lines = proc.stdout.splitlines()
+    say("tune_amg", phase=38, rc=proc.returncode, wall_s=f"{wall:.1f}",
+        lines=len(lines), card=repr(card))
+    check(len(lines) == 1, f"tune_amg printed {len(lines)} lines on stdout")
+    print(lines[0], flush=True)
+    out = json.loads(lines[0])
+    extra = out["extra"]
+    check(proc.returncode == 0 and not extra["errors"],
+          f"tune_amg exit {proc.returncode}, errors {extra['errors']}")
+    check([r["name"] for r in out["cases"]] == [n for n, _ in tune_amg.CASES]
+          and extra["ndof"] == 393216,
+          f"tune_amg rows {[r['name'] for r in out['cases']]}, ndof "
+          f"{extra['ndof']}")
+    for row in out["cases"]:
+        name, pin = row["name"], pins[row["name"]]
+        launches = row["launches"]
+        allowed = BENCH_REL * abs(pin["rho"]) + pin["floor"]
+        dist = abs(row["rho"] - pin["rho"])
+        say("pin", phase=38, case=name, rho=row["rho"],
+            pin=f"{pin['rho']:.6f}", distance=f"{dist:.2e}",
+            allowed=f"{allowed:.2e}", pcg_its=row["pcg_its_to_1e6"],
+            pin_its=pin["pcg_its_to_1e6"], launches=json.dumps(launches))
+        check(launches["k1_phase"] > 0 and launches["k2_rowop"] > 0,
+              f"tune_amg {name}: launches {launches}")
+        check(dist <= allowed, f"tune_amg {name}: rho {row['rho']} not "
+              f"within {allowed:.2e} of {pin['rho']:.6f}")
+        check(abs(row["pcg_its_to_1e6"] - pin["pcg_its_to_1e6"]) <= 1,
+              f"tune_amg {name}: {row['pcg_its_to_1e6']} PCG iterations, "
+              f"pin {pin['pcg_its_to_1e6']}")
+        say("time", phase=38, case=name,
+            ms_per_cycle=f"{row['ms_per_cycle']:.4f}",
+            ms_to_1e6=f"{row['ms_to_1e6']:.3f}",
+            pcg_ms_to_1e6=f"{row['pcg_ms_to_1e6']:.3f}",
+            setup_s=f"{row['setup_s']:.2f}", card=repr(card))
+    return out
 
 
 def main():
@@ -3484,6 +3569,18 @@ def main():
     t37 = time.perf_counter()
     bench_dist_phase(card)
     say("bench_dist", phase=37, wall_s=f"{time.perf_counter() - t37:.1f}")
+
+    # 38. the knob sweep in a process of its own (slice 14) ----------------
+    def solver_parity(path, sv):
+        """K1 on sv's fine phase and apply, K2 on every rowop of its SA
+        hierarchy, each against its plain version."""
+        for case in solver_cases(path, sv):
+            k1_parity(*case)
+        k2_parity(path, sv.agg.rowops())
+
+    t38 = time.perf_counter()
+    tune_amg_phase(card, solver_parity)
+    say("tune_amg", phase=38, wall_s=f"{time.perf_counter() - t38:.1f}")
 
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x

@@ -165,15 +165,18 @@ def _t_to(per_cycle, rho, drop=1e-6):
             if 0 < rho < 1 else float("inf"))
 
 
-def _rho_linear(solver, n=8):
+def _rho_linear(solver, n=8, draw_dtype=None):
     """Spectral contraction of the linear error-propagation operator:
     x <- cycle(x, b = 0) from a random unit vector (drawn in the (U, C, 3)
-    layout, as the JAX package draws it), renormalised every cycle; the
-    geometric mean of the factors after the first two."""
+    layout, as the JAX package draws it, rounded to ``draw_dtype`` and cast
+    to the solver's dtype; by default drawn in the solver's dtype),
+    renormalised every cycle; the geometric mean of the factors after the
+    first two."""
     T = solver.initial_condition()
     rng = np.random.default_rng(0)
+    dtype = np.dtype(solver.cfg.dtype)
     x = to_t(torch.as_tensor(rng.normal(size=tuple(T.shape))
-                             .astype(np.dtype(solver.cfg.dtype)),
+                             .astype(draw_dtype or dtype).astype(dtype),
                              device=T.device))
     zero = torch.zeros_like(x)
     x = x / torch.linalg.norm(x)
@@ -187,9 +190,9 @@ def _rho_linear(solver, n=8):
     return float(np.exp(np.mean(np.log(np.maximum(factors[2:], 1e-30)))))
 
 
-def _pcg_chain(solver):
+def _pcg_chain(solver, solves=PCG_CHAIN):
     """(iterations, ms a solve) of PCG to a 1e6 residual drop (tol 1e-6,
-    x0 = 0), preconditioned by the homogeneous level-0 cycle: PCG_CHAIN
+    x0 = 0), preconditioned by the homogeneous level-0 cycle: ``solves``
     solves chained, each right-hand side seeded by 1e-30 * sum(x) of the
     previous solution; the iterations are the first solve's."""
     T_t = to_t(solver.initial_condition())
@@ -198,7 +201,7 @@ def _pcg_chain(solver):
     its = []
 
     def chain(b):
-        for _ in range(PCG_CHAIN):
+        for _ in range(solves):
             x, it, _ = krylov.pcg(
                 lambda v: solver._apply_t(0, v, False), b,
                 torch.zeros_like(b),
@@ -210,7 +213,7 @@ def _pcg_chain(solver):
         return b
 
     per_chain = _timed(chain, b_lin, n=1)
-    return its[0], per_chain / PCG_CHAIN * 1e3
+    return its[0], per_chain / solves * 1e3
 
 
 def _sweep_row(solver, config: str) -> dict:

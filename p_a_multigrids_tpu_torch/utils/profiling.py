@@ -132,26 +132,76 @@ def timed(name: str, fn, *args, iterations: int = 20, warmup: int = 2
                   iterations=iterations)
 
 
+# one-element fills that ``trace`` and ``_trace`` run before the block: in a
+# process that had used the card for minutes, the H100's tracer dropped the
+# first 19-42 kernels of every trace, whatever the margins, warm-up steps or
+# idle time before them, and a trace that began with 64 or 512 fills kept
+# every K1 and K2 launch after them (scripts/torch_trace_check.py).  They
+# fill an int8 tensor, which nothing else here fills, so that ``_trace``
+# can leave their kernels (PRIME_KERNEL in the name) out of its result.
+TRACE_PRIME = 512
+PRIME_KERNEL = "FillFunctor<signed char>"
+
+
+def _prime():
+    """TRACE_PRIME one-element int8 fills on this process's current CUDA
+    device, finished before this returns; nothing where CUDA has not
+    started."""
+    if not _cuda_started():
+        return
+    one = torch.empty(1, dtype=torch.int8,
+                      device=torch.cuda.current_device())
+    for _ in range(TRACE_PRIME):
+        one.fill_(1)
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def trace(logdir: str, rank: int | None = None):
     """A torch.profiler trace (the CPU, and the CUDA devices where there
     are any) of the block, written as a Chrome trace to
     ``logdir/trace.json``, or ``logdir/trace_rank<rank>.json`` for one rank
     of a distributed run, also when the block raises.  Yields the file's
-    path."""
+    path.
+
+    The trace holds every kernel the block launches: the profiler starts
+    in an empty warm-up step and records from the next one, each after the
+    process's CUDA device has finished its queued work and MARGIN_S of
+    idle time (``_settle``); where CUDA has started, TRACE_PRIME
+    one-element fills run and finish before the block, so the trace opens
+    with them; and at the block's end the device is synchronised and idle
+    MARGIN_S before the profiler stops."""
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json" if rank is None
                         else f"trace_rank{rank}.json")
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    prof = torch.profiler.profile(activities=acts, schedule=(
+        torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)))
     prof.start()
+    _settle()
+    prof.step()
+    _prime()
+    _settle()
     try:
         yield path
     finally:
+        _settle()
         prof.stop()
         prof.export_chrome_trace(path)
+
+
+def _cuda_started() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
+def _settle():
+    """Wait for the work queued on this process's current CUDA device
+    (each rank's own), where CUDA has started, then MARGIN_S more."""
+    if _cuda_started():
+        torch.cuda.synchronize()
+    time.sleep(MARGIN_S)
 
 
 def trace_kernels(path: str) -> list:
@@ -349,16 +399,18 @@ def _launch_counts() -> dict:
 def _trace(fn, reps: int):
     """Device kernels of reps calls of fn, traced after one untraced
     profiler warm-up step of the same calls (the tracer can miss kernels
-    launched just after it starts).  The trace must hold every K1 and K2
-    launch the wrappers counted in the traced step, and some kernel; one
-    that misses any is taken again, and after TRACE_TRIES such traces this
-    raises."""
+    launched just after it starts); each step opens with ``_prime``'s
+    fills, which the result leaves out.  The trace must hold every K1 and
+    K2 launch the wrappers counted in the traced step, some of the fills
+    and some other kernel; one that misses any is taken again, and after
+    TRACE_TRIES such traces this raises."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(TRACE_TRIES):
         sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
         with torch.profiler.profile(activities=acts, schedule=sched) as prof:
             for _ in range(2):
+                _prime()
                 before = _launch_counts()
                 # idle margins of host time at both ends of the step, so
                 # that no kernel lies near its edges
@@ -370,9 +422,14 @@ def _trace(fn, reps: int):
                 launched = {k: v - before[k]
                             for k, v in _launch_counts().items()}
                 prof.step()
-        kernels = _kernels(prof)
-        missing = (_missing_launches(kernels, launched) if kernels
-                   else "torch.profiler recorded no device kernel")
+        traced = _kernels(prof)
+        kernels = [k for k in traced if PRIME_KERNEL not in k[0]]
+        if len(kernels) == len(traced):
+            missing = "the trace holds none of its prime fills"
+        elif not kernels:
+            missing = "torch.profiler recorded no device kernel"
+        else:
+            missing = _missing_launches(kernels, launched)
         if missing is None:
             return kernels
     raise RuntimeError(missing)

@@ -18,6 +18,7 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from p_a_multigrids_tpu.config import SemiConfig as JConfig
 from p_a_multigrids_tpu.mesh import structured as jstruct
@@ -166,12 +167,19 @@ def test_true_plateau_trims_where_bench_py_does(jb):
 @pytest.fixture
 def small_bench(monkeypatch):
     """main's stand-in meshes shrunk and each timed window cut to one
-    call."""
+    call, on one CPU thread: where several test processes share the
+    cores, every process's full thread pool makes each small torch call
+    wait on the others' threads (a 0.3 ms SpMV took over 4 ms, a rate
+    that rounds to 0.00 Gnnz/s); one thread keeps it near 0.3 ms."""
     monkeypatch.setattr(bench, "BENCH_MESH", MESH)
     monkeypatch.setattr(profiling, "SWEEP_MESH", (1, 1, 1.0, 1.0))
     timed = bench._timed
     monkeypatch.setattr(bench, "_timed",
                         lambda step, x0, n, reps=3: timed(step, x0, 1, 1))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _run(capsys) -> tuple:

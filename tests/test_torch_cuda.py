@@ -784,3 +784,40 @@ def test_bsr_spmv_is_one_k2_launch(cuda):
     want = A.spmv(x)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+def test_trace_holds_every_launch(cuda, tmp_path):
+    """utils.profiling.trace of a short block of K1 phases launched at
+    once, three times: each trace opens with its one-element int8 fills
+    and holds every launch the wrapper counted."""
+    from p_a_multigrids_tpu_torch.utils import profiling
+    op, cheb, x, b = _k1_level(2, cuda)
+    bp = op._bp(b, True)
+    K.phase(op, x, bp, cheb, True)
+    torch.cuda.synchronize()
+    for i in range(3):
+        n0 = K.KERNEL.launches
+        with profiling.trace(str(tmp_path / str(i))) as path:
+            for _ in range(5):
+                K.phase(op, x, bp, cheb, True)
+        counted = K.KERNEL.launches - n0
+        kernels = profiling.trace_kernels(path)
+        first = min(kernels, key=lambda k: k[1])[0]
+        assert counted == 5 and profiling.PRIME_KERNEL in first
+        assert profiling._missing_launches(
+            kernels, {"k1_phase": counted, "k2_rowop": 0}) is None
+
+
+def test_tune_amg_case_on_the_card(cuda, monkeypatch, capsys):
+    """The knob sweep's agg_target=8 case at a small size: K1 and K2 ran,
+    rho in (0, 1), the line names the card."""
+    from p_a_multigrids_tpu_torch import bench, tune_amg
+    monkeypatch.setattr(bench, "BENCH_MESH", (16, 8, 1 / 16, 1 / 8))
+    monkeypatch.setattr(tune_amg, "CASES", tune_amg.CASES[5:6])
+    assert tune_amg.main([]) == 0
+    out = json.loads(capsys.readouterr().out)
+    (row,) = out["cases"]
+    assert row["name"] == "deg16-sw1-t8" and 0 < row["rho"] < 1
+    assert row["launches"]["k1_phase"] > 0 and row["launches"]["k2_rowop"] > 0
+    assert out["extra"]["device"].startswith(torch.cuda.get_device_name(0))
+    assert out["extra"]["ndof"] == 256 * 16 * 3

@@ -1,5 +1,6 @@
 """Host-side pieces of the port's GPU profiler (no card needed)."""
 
+import contextlib
 import json
 
 import numpy as np
@@ -168,6 +169,55 @@ def test_check_launches_raises_on_a_short_trace():
         "traced 1 k2_rowop launches, the wrapper counted 2"
 
 
+class _FakeProfile:
+    """A stand-in for torch.profiler.profile whose steps do nothing."""
+
+    def __init__(self, *a, **kw):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def step(self):
+        pass
+
+
+@pytest.mark.parametrize("fills", [2, 0])
+def test_trace_helper_leaves_out_its_prime_fills(monkeypatch, fills):
+    """_trace returns the traced kernels without the prime fills; a trace
+    that holds none of them is taken again, and after TRACE_TRIES such
+    traces it raises."""
+    prime = f"vectorized_elementwise_kernel<{profiling.PRIME_KERNEL}>"
+    block = [("phase_kernel<0>", 10.0, 1.0),
+             ("vectorized_elementwise_kernel<FillFunctor<float>>", 12.0, 1.0)]
+    tries = []
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile)
+    monkeypatch.setattr(profiling, "_prime", lambda: None)
+    monkeypatch.setattr(profiling, "MARGIN_S", 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    counts = {"k1_phase": 0, "k2_rowop": 0}
+    monkeypatch.setattr(profiling, "_launch_counts", lambda: dict(counts))
+
+    def fn():
+        counts["k1_phase"] += 1
+
+    def kernels(prof):
+        tries.append(prof)
+        return [(prime, float(i), 0.5) for i in range(fills)] + block
+
+    monkeypatch.setattr(profiling, "_kernels", kernels)
+    if fills:
+        assert profiling._trace(fn, 1) == block
+        assert len(tries) == 1
+    else:
+        with pytest.raises(RuntimeError, match="none of its prime fills"):
+            profiling._trace(fn, 1)
+        assert len(tries) == profiling.TRACE_TRIES
+
+
 def test_cli_solver_is_the_cli_build():
     """The profiler's CLI solvers are built by the CLI's own setup."""
     argv = ["--mode", "9", "--rows", "4", "--cols", "4", "--levels", "1",
@@ -313,6 +363,23 @@ def test_trace_writes_a_chrome_trace(tmp_path):
             raise KeyError("closed all the same")
     with open(tmp_path / "trace_rank3.json") as f:
         assert json.load(f)["traceEvents"]
+
+
+@pytest.mark.parametrize("raises", [False, True])
+def test_trace_records_the_block_after_its_warm_up(tmp_path, raises):
+    """The block runs in the recorded step, after the empty warm-up step
+    and the idle margin: its events are in the trace, also when it
+    raises; nothing of the warm-up step is."""
+    with pytest.raises(KeyError) if raises else contextlib.nullcontext():
+        with profiling.trace(str(tmp_path)) as path:
+            with torch.profiler.record_function("the_block"):
+                torch.ones(8) + 1
+            if raises:
+                raise KeyError("after the block")
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert names.count("the_block") == 1
+    assert "ProfilerStep#1" in names and "ProfilerStep#0" not in names
 
 
 def test_trace_kernels_reads_kernel_events(tmp_path):

@@ -12,7 +12,10 @@ names under the port's, ``RENAMED``), and each public function of
 JAX system's three distributed measurement scripts have one counterpart,
 ``bench_dist``: every key of each script's JSON is a key of its section of
 the port's line (``DIST_RENAMED``), which the test runs on CPU ranks at a
-small size (~15 s; the rest of the file reads sources only)."""
+small size (~15 s; the rest of the file reads sources only).  And
+``scripts/tune_amg.py`` has ``tune_amg``: the same cases, the same
+configuration, and a JSON key for each field the script prints
+(``TUNE_FIELDS``)."""
 
 import argparse
 import ast
@@ -26,7 +29,7 @@ import pytest
 from p_a_multigrids_tpu import __main__ as jcli
 
 from p_a_multigrids_tpu_torch import __main__ as tcli
-from p_a_multigrids_tpu_torch import bench_dist
+from p_a_multigrids_tpu_torch import bench_dist, tune_amg
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX = REPO / "p_a_multigrids_tpu"
@@ -371,3 +374,53 @@ def test_bench_dist_json_has_the_scripts_keys(dist_lines, script):
     assert dist_lines[n][section]["backend"] == "gloo"
     text = json.dumps(dist_lines[n])
     assert "cpu-virtual" not in text and "interpret" not in text
+
+
+# each value scripts/tune_amg.py prints for a case (the names in its
+# f-string) and the key of the port's row that carries it
+TUNE_FIELDS = {"name": "name", "per": "ms_per_cycle", "rho": "rho",
+               "t6": "ms_to_1e6", "its": "pcg_its_to_1e6",
+               "pms": "pcg_ms_to_1e6", "setup": "setup_s"}
+
+
+def _tune_main():
+    tree = ast.parse((REPO / "scripts" / "tune_amg.py").read_text())
+    return next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+
+
+def test_tune_amg_cases_are_the_scripts():
+    """The script's ``cases`` literal (its ``dict(...)`` knobs read by
+    ``ast.literal_eval``) and the ``SemiConfig`` fields of its loop."""
+    main = _tune_main()
+    node = next(n.value for n in main.body if isinstance(n, ast.Assign)
+                and [getattr(t, "id", None) for t in n.targets] == ["cases"])
+    cases = [(ast.literal_eval(name), {k.arg: ast.literal_eval(k.value)
+                                       for k in knobs.keywords})
+             for name, knobs in (e.elts for e in node.elts)]
+    assert len(cases) == 7 and cases == tune_amg.CASES
+    call = next(n for n in ast.walk(main) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", None) == "SemiConfig")
+    base = {k.arg: ast.literal_eval(k.value) for k in call.keywords
+            if k.arg is not None}
+    assert base == {**tune_amg.BASE, "ntime": 1, "n_multigrid": 1,
+                    "dtype": "float32"}
+
+
+def test_tune_amg_json_has_the_printed_fields():
+    printed = next(n for n in ast.walk(_tune_main())
+                   if isinstance(n, ast.Call)
+                   and getattr(n.func, "id", None) == "print"
+                   and "ms/cyc" in ast.unparse(n))
+    names = {m.id for v in ast.walk(printed.args[0])
+             if isinstance(v, ast.FormattedValue)
+             for m in ast.walk(v.value) if isinstance(m, ast.Name)}
+    assert names == set(TUNE_FIELDS)
+    tree = ast.parse((PORT / "tune_amg.py").read_text())
+    run_case = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                    and n.name == "run_case")
+    row = next(n.value for n in ast.walk(run_case)
+               if isinstance(n, ast.Return))
+    keys = {k.value for k in row.keys}
+    missing = sorted(set(TUNE_FIELDS.values()) - keys)
+    assert not missing, f"the port's tune_amg rows lack {missing}"
