@@ -50,7 +50,13 @@ L1_error, wall_s, resumed_from_step with a resumed checkpoint, vtu with
 devices) into the Chrome trace ``DIR/trace.json`` (``utils.profiling.
 trace``), closed also when the solve raises; under ``--devices N`` each
 rank writes ``DIR/trace_rank<r>.json``.  The JSON line then carries
-``profile_dir``.
+``profile_dir`` and, on one device, ``counters``: ``utils.tracing.
+snapshot()`` of the run (its counters from the start of ``run``: the
+time steps, the Krylov loops' host syncs, the kernel builds and loads;
+the seconds of each set-up stage; each span's calls and host and self
+microseconds in the trace, by name: ``pamg.step``, ``pamg.vcycle.l<i>``,
+``pamg.sa.l<k>``, ``pamg.k1``, ...; and the process's K1 and K2
+launches).
 """
 
 from __future__ import annotations
@@ -374,11 +380,14 @@ def run(argv=None):
     state T (U, C, 3) on the run's device, the solver that ran the last
     steps); in mode 1, T (E, 4) and the ``RectProblem``; with --devices,
     (the JSON dict, None, None): the state stays in the ranks."""
+    from .utils import tracing
+
     t0 = time.time()
     args, device = _parse(argv)
     out = {"mode": args.mode}
     if args.profile:
         out["profile_dir"] = args.profile
+        tracing.reset()
     if args.devices and args.mode == 9:
         import os
 
@@ -392,6 +401,8 @@ def run(argv=None):
         return out, None, None
     with _profiled(args.profile):
         T, solver = _dispatch(args, device, out)
+    if args.profile:
+        out["counters"] = tracing.snapshot()
     out["wall_s"] = round(time.time() - t0, 3)
     if args.vtu:
         _vtu_final(args, out, T, solver)

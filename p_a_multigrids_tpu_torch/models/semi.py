@@ -57,7 +57,7 @@ from ..ops.fused import FusedOperator, from_t, to_t
 from ..ops.phase import phase
 from ..ops.stencil import (StencilOperator, build_stencil, lam_max_estimate,
                            probe_stencil, to_dense)
-from ..utils import debugging, shape_functions
+from ..utils import debugging, shape_functions, tracing
 
 
 def manufactured_solution(x, y):
@@ -168,7 +168,13 @@ def _penalty_face_over_area(mesh: MacroMesh, lvl: semi.SemiLevel,
 
 def build_problem(mesh: MacroMesh, cfg: SemiConfig) -> SemiProblem:
     """Host tables of every level, pre-cast to the run dtype (the stencil
-    is then assembled in that precision, as in the JAX package)."""
+    is then assembled in that precision, as in the JAX package); the
+    set-up stage ``pamg.setup.problem``."""
+    with tracing.stage("pamg.setup.problem"):
+        return _problem_tables(mesh, cfg)
+
+
+def _problem_tables(mesh: MacroMesh, cfg: SemiConfig) -> SemiProblem:
     grid = semi.build_grid(mesh, cfg.n_split, cfg.multi_levels)
     dtype = np.dtype(cfg.dtype)
     ngi, sngi = 3, 2
@@ -628,6 +634,13 @@ class SemiSolver(nn.Module):
 
     def __init__(self, problem: SemiProblem, device, host: dict | None = None):
         super().__init__()
+        with tracing.stage("pamg.setup.solver"):
+            self._setup(problem, device, host)
+
+    def _setup(self, problem: SemiProblem, device, host: dict | None):
+        """The build of ``__init__``, its stages nested in
+        ``pamg.setup.solver``: the stencils, the lam_max estimates, the
+        coarse inverse, the SA hierarchy and the device uploads."""
         cfg = problem.cfg
         _check_config(cfg)
         self.p = problem
@@ -639,23 +652,37 @@ class SemiSolver(nn.Module):
                         and 4 ** cfg.n_split <= cfg.stencil_max_children)
         self.phase_cycle = self.stencil and cfg.solver in _PHASE_SOLVERS
         self.krylov_iters: list[int] = []
+        # the span of each level's V-cycle, named once
+        self._level_spans = tuple(f"pamg.vcycle.l{li}" for li in range(nl))
         self.fused = None
         self._levels_t = None
         self._block_inv = None
         self.agg = None
         self._agg_host = None
         self._agg_li = None
-
-        def buf(name, a):
-            self.register_buffer(name, torch.tensor(
-                np.ascontiguousarray(np.asarray(a, cfg.dtype)),
-                device=self.device))
-
         if self.stencil:
             coarse_inv = self._stencil_setup(host)
         else:
             coarse_inv = self._fused_setup(host)
         self._coarse_inv_np = coarse_inv
+
+        with tracing.stage("pamg.setup.upload"):
+            self._upload_buffers(coarse_inv)
+        self.sanitizer = None
+        if cfg.debug:
+            self._make_checked("_step_t")
+
+    def _upload_buffers(self, coarse_inv):
+        """The device buffers of the cycle and the step: point-relaxation
+        diagonals, transfer tables, the dense coarse inverse and the
+        finest level's tables."""
+        problem, cfg = self.p, self.cfg
+        nl = len(problem.levels)
+
+        def buf(name, a):
+            self.register_buffer(name, torch.tensor(
+                np.ascontiguousarray(np.asarray(a, cfg.dtype)),
+                device=self.device))
 
         # point-relaxation diagonal (3, C, U) and, for colored Gauss-Seidel,
         # the up-children color (1, C, 1) of each level
@@ -692,9 +719,6 @@ class SemiSolver(nn.Module):
             buf("coarse_inv_t", coarse_inv[perm][:, perm])
 
         self._fine_tables()
-        self.sanitizer = None
-        if cfg.debug:
-            self._make_checked("_step_t")
 
     def _make_checked(self, step: str):
         """debug: range-check the index tables, route every K1 and K2 call
@@ -716,23 +740,26 @@ class SemiSolver(nn.Module):
         nl = len(problem.levels)
         if host is None:
             build = probe_stencil if cfg.stencil_probe else build_stencil
-            datas = [build(L, cfg.physics, cfg.dt, cfg.theta)
-                     for L in problem.levels]
-            if cfg.coarse_operator == "galerkin":
-                # variational P^T A P coarse blocks instead of the
-                # per-level geometric assembly
-                for i in range(1, nl):
-                    datas[i] = galerkin.galerkin_coarse(
-                        datas[i - 1], problem.levels[i]["s"], datas[i])
-            lam_max = ([lam_max_estimate(d) for d in datas]
-                       if cfg.solver == Solver.CHEBYSHEV else None)
+            with tracing.stage("pamg.setup.stencils"):
+                datas = [build(L, cfg.physics, cfg.dt, cfg.theta)
+                         for L in problem.levels]
+                if cfg.coarse_operator == "galerkin":
+                    # variational P^T A P coarse blocks instead of the
+                    # per-level geometric assembly
+                    for i in range(1, nl):
+                        datas[i] = galerkin.galerkin_coarse(
+                            datas[i - 1], problem.levels[i]["s"], datas[i])
+            with tracing.stage("pamg.setup.lam_max"):
+                lam_max = ([lam_max_estimate(d) for d in datas]
+                           if cfg.solver == Solver.CHEBYSHEV else None)
             coarse_inv = self._build_coarse_inverse(datas)
         else:
             datas, lam_max = host["stencil"], host["lam_max"]
             coarse_inv = host["coarse_inv"]
         self._lam_max = lam_max
-        self.ops = nn.ModuleList(
-            StencilOperator(d, self.dtype, self.device) for d in datas)
+        with tracing.stage("pamg.setup.upload"):
+            self.ops = nn.ModuleList(
+                StencilOperator(d, self.dtype, self.device) for d in datas)
 
         # SA hierarchy: in amg mode it corrects the finest level (the
         # geometric levels are bypassed); otherwise it continues below a
@@ -749,14 +776,17 @@ class SemiSolver(nn.Module):
             else:
                 coords = splitting.child_coords(problem.grid.macro.X,
                                                 problem.levels[li]["s"])
-                h = agg.build_hierarchy(
-                    datas[li], coords, max_dense_dof=cfg.agg_dense_max_dof,
-                    omega=cfg.omega, sweeps=cfg.agg_sweeps,
-                    dtype=np.dtype(cfg.dtype), strength=cfg.agg_strength,
-                    always=cfg.amg, drop_tol=cfg.agg_drop_tol,
-                    target=cfg.agg_target)
+                with tracing.stage("pamg.setup.sa_hierarchy"):
+                    h = agg.build_hierarchy(
+                        datas[li], coords,
+                        max_dense_dof=cfg.agg_dense_max_dof,
+                        omega=cfg.omega, sweeps=cfg.agg_sweeps,
+                        dtype=np.dtype(cfg.dtype),
+                        strength=cfg.agg_strength, always=cfg.amg,
+                        drop_tol=cfg.agg_drop_tol, target=cfg.agg_target)
             if h.levels:
-                self.agg = agg.AggHierarchy(h, self.dtype, self.device)
+                with tracing.stage("pamg.setup.upload"):
+                    self.agg = agg.AggHierarchy(h, self.dtype, self.device)
                 # the host tables, which the distributed solver shards
                 self._agg_host = h
                 self._agg_li = li
@@ -776,12 +806,13 @@ class SemiSolver(nn.Module):
         problem, cfg = self.p, self.cfg
         phys = cfg.physics
         self.ops = nn.ModuleList()
-        self._levels_t = [level_tensors(L, self.device)
-                          for L in problem.levels]
-        if cfg.fast_operator:
-            self.fused = nn.ModuleList(
-                FusedOperator(L, phys, cfg.dt, cfg.theta, self.device)
-                for L in problem.levels)
+        with tracing.stage("pamg.setup.upload"):
+            self._levels_t = [level_tensors(L, self.device)
+                              for L in problem.levels]
+            if cfg.fast_operator:
+                self.fused = nn.ModuleList(
+                    FusedOperator(L, phys, cfg.dt, cfg.theta, self.device)
+                    for L in problem.levels)
         if cfg.solver in _PHASE_SOLVERS:
             if host is not None and host.get("block_inv") is not None:
                 self._block_inv = [
@@ -798,9 +829,10 @@ class SemiSolver(nn.Module):
         if host is not None and host.get("lam_max") is not None:
             self._lam_max = list(host["lam_max"])
         else:
-            self._lam_max = ([self._estimate_lam_max(li)
-                              for li in range(len(problem.levels))]
-                             if cfg.solver == Solver.CHEBYSHEV else None)
+            with tracing.stage("pamg.setup.lam_max"):
+                self._lam_max = ([self._estimate_lam_max(li)
+                                  for li in range(len(problem.levels))]
+                                 if cfg.solver == Solver.CHEBYSHEV else None)
         if host is not None:
             return host["coarse_inv"]
         return self._build_coarse_inverse(None)
@@ -825,23 +857,27 @@ class SemiSolver(nn.Module):
         """Dense inverse of the coarsest level (host numpy, the run dtype)
         when it has at most coarse_direct_max_dof DOF, else None: of the
         block stencil's matrix on the stencil path, else of apply_A's,
-        which it applies to the identity in batches of columns."""
-        if len(self.p.levels) == 1:
-            return None
-        cfg = self.cfg
-        L = self.p.levels[-1]
-        U, C = L["M"].shape[0], L["updown"].shape[0]
-        N = U * C * 3
-        if N > cfg.coarse_direct_max_dof:
-            return None
-        if datas is not None:
-            return np.linalg.inv(to_dense(datas[-1])).astype(L["M"].dtype)
-        Lt = level_tensors(L, "cpu")
-        eye = torch.eye(N, dtype=self.dtype).reshape(N, U, C, 3)
-        cols = torch.func.vmap(
-            lambda v: apply_A(Lt, cfg.physics, cfg.dt, cfg.theta, v, False),
-            chunk_size=COARSE_COLUMNS)(eye)
-        return torch.linalg.inv(cols.reshape(N, N).T).numpy()
+        which it applies to the identity in batches of columns.  The set-up
+        stage ``pamg.setup.coarse_inverse``."""
+        with tracing.stage("pamg.setup.coarse_inverse"):
+            if len(self.p.levels) == 1:
+                return None
+            cfg = self.cfg
+            L = self.p.levels[-1]
+            U, C = L["M"].shape[0], L["updown"].shape[0]
+            N = U * C * 3
+            if N > cfg.coarse_direct_max_dof:
+                return None
+            if datas is not None:
+                return np.linalg.inv(to_dense(datas[-1])).astype(
+                    L["M"].dtype)
+            Lt = level_tensors(L, "cpu")
+            eye = torch.eye(N, dtype=self.dtype).reshape(N, U, C, 3)
+            cols = torch.func.vmap(
+                lambda v: apply_A(Lt, cfg.physics, cfg.dt, cfg.theta, v,
+                                  False),
+                chunk_size=COARSE_COLUMNS)(eye)
+            return torch.linalg.inv(cols.reshape(N, N).T).numpy()
 
     def _estimate_lam_max(self, li: int) -> float:
         """Power iteration on D^-1 A (homogeneous, D the exact diagonal
@@ -972,17 +1008,18 @@ class SemiSolver(nn.Module):
         def from_flat(v):
             return v.reshape(3, U, C).transpose(1, 2).contiguous()
 
-        if (self.phase_cycle and h.tent_r is not None
-                and not cfg.physics.advection):
-            w = h.w
-            dinv = self.agg_fine_dinv_t
-            y_t = r_t - w * self._apply_t(li, dinv * r_t)
-            rc = h.tent_r(to_flat(y_t))
-            e = agg.vcycle_iter(h, rc, cfg.agg_cycles)
-            ef = from_flat(h.tent_p(e))
-            return x_t + (ef - w * (dinv * self._apply_t(li, ef)))
-        return x_t + from_flat(agg.correct_t(h, to_flat(r_t),
-                                             cfg.agg_cycles))
+        with tracing.span("pamg.sa"):
+            if (self.phase_cycle and h.tent_r is not None
+                    and not cfg.physics.advection):
+                w = h.w
+                dinv = self.agg_fine_dinv_t
+                y_t = r_t - w * self._apply_t(li, dinv * r_t)
+                rc = h.tent_r(to_flat(y_t))
+                e = agg.vcycle_iter(h, rc, cfg.agg_cycles)
+                ef = from_flat(h.tent_p(e))
+                return x_t + (ef - w * (dinv * self._apply_t(li, ef)))
+            return x_t + from_flat(agg.correct_t(h, to_flat(r_t),
+                                                 cfg.agg_cycles))
 
     def _coarse_direct_t(self, x_t, b_t):
         return (self.coarse_inv_t @ b_t.reshape(-1)).reshape(x_t.shape)
@@ -1018,32 +1055,37 @@ class SemiSolver(nn.Module):
         dense inverse, coarse CG or sweeps.  This is the JAX package's
         standard-layout ``_vcycle`` and, with K1 phases as the smoother, its
         transposed-layout cycle.  hom=True solves the homogeneous-BC
-        (linear) problem, as a Krylov preconditioner does."""
+        (linear) problem, as a Krylov preconditioner does.  The span
+        ``pamg.vcycle.l<li>``, and ``pamg.coarse`` around a coarse direct
+        or CG solve."""
         cfg = self.cfg
         nl = len(self.p.levels)
         with_bc = li == 0 and not hom
         sa_level = self.agg is not None and li == self._agg_li
         coarsest = li == nl - 1 and not sa_level
-        if coarsest and nl > 1 and self.coarse_inv_t is not None:
-            return self._coarse_direct_t(x_t, b_t)
-        if coarsest and nl > 1 and cfg.coarse_krylov:
-            return self._coarse_cg_t(li, x_t, b_t)
-        smooth = self._smoother_t(li, b_t, with_bc)
-        if coarsest:
-            sweeps = cfg.coarse_sweeps if nl > 1 else cfg.n_smooth
-            return smooth(x_t, sweeps, False)[0]
-        x_t, r_t = smooth(x_t, cfg.n_smooth, True)
-        if sa_level:
-            x_t = self._agg_correct_t(li, x_t, r_t)
-        else:
-            bc_ = self._restrict_t(r_t, li + 1)
-            e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
-            if cfg.cycle_type == "w" and li < 2:
-                # W only near the top: the coarse systems below are solved
-                # accurately enough by one visit
-                e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
-            x_t = x_t + self._prolong_t(e_t, li + 1)
-        return smooth(x_t, cfg.n_smooth, False)[0]
+        with tracing.span(self._level_spans[li]):
+            if coarsest and nl > 1 and self.coarse_inv_t is not None:
+                with tracing.span("pamg.coarse"):
+                    return self._coarse_direct_t(x_t, b_t)
+            if coarsest and nl > 1 and cfg.coarse_krylov:
+                with tracing.span("pamg.coarse"):
+                    return self._coarse_cg_t(li, x_t, b_t)
+            smooth = self._smoother_t(li, b_t, with_bc)
+            if coarsest:
+                sweeps = cfg.coarse_sweeps if nl > 1 else cfg.n_smooth
+                return smooth(x_t, sweeps, False)[0]
+            x_t, r_t = smooth(x_t, cfg.n_smooth, True)
+            if sa_level:
+                x_t = self._agg_correct_t(li, x_t, r_t)
+            else:
+                bc_ = self._restrict_t(r_t, li + 1)
+                e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
+                if cfg.cycle_type == "w" and li < 2:
+                    # W only near the top: the coarse systems below are
+                    # solved accurately enough by one visit
+                    e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
+                x_t = x_t + self._prolong_t(e_t, li + 1)
+            return smooth(x_t, cfg.n_smooth, False)[0]
 
     def _smooth_t(self, li: int, x_t, b_t, sweeps: int, with_bc: bool):
         """``sweeps`` sweeps of the configured smoother over ``_apply_t``
@@ -1074,16 +1116,18 @@ class SemiSolver(nn.Module):
     # -- time stepping -------------------------------------------------------
     def _rhs_t(self, told_t):
         """b = M told/dt + M s - (1 - theta) L(told) (Dirichlet ghosts in
-        L) in transposed layout."""
+        L) in transposed layout; the span ``pamg.rhs``."""
         cfg = self.cfg
 
         def mul_M(v_t):
             return (self.M_t[:, :, None, :] * v_t[None]).sum(dim=1)
-        b_t = mul_M(told_t) / cfg.dt + mul_M(self.source_t)
-        if cfg.theta < 1.0:
-            spat = apply_spatial(self._L0, cfg.physics, from_t(told_t), True)
-            b_t = b_t - (1.0 - cfg.theta) * to_t(spat)
-        return b_t
+        with tracing.span("pamg.rhs"):
+            b_t = mul_M(told_t) / cfg.dt + mul_M(self.source_t)
+            if cfg.theta < 1.0:
+                spat = apply_spatial(self._L0, cfg.physics, from_t(told_t),
+                                     True)
+                b_t = b_t - (1.0 - cfg.theta) * to_t(spat)
+            return b_t
 
     def solve_system(self, b, x0):
         """``_solve_system_t`` in the natural layout: A x = b (Dirichlet
@@ -1108,13 +1152,16 @@ class SemiSolver(nn.Module):
         return x_t
 
     def _step_t(self, T_t):
-        """One theta-scheme time step of the transposed state."""
-        b_t = self._rhs_t(T_t)
-        if self.cfg.krylov:
-            return self._solve_system_t(b_t, T_t)
-        for _ in range(self.cfg.n_multigrid):
-            T_t = self._vcycle_t(0, T_t, b_t)
-        return T_t
+        """One theta-scheme time step of the transposed state: the span
+        ``pamg.step``, counted in ``steps``."""
+        tracing.count("steps")
+        with tracing.span("pamg.step"):
+            b_t = self._rhs_t(T_t)
+            if self.cfg.krylov:
+                return self._solve_system_t(b_t, T_t)
+            for _ in range(self.cfg.n_multigrid):
+                T_t = self._vcycle_t(0, T_t, b_t)
+            return T_t
 
     def initial_condition(self) -> torch.Tensor:
         """ic callable if configured, else region_id == 4 painted to 1;
@@ -1150,9 +1197,11 @@ class SemiSolver(nn.Module):
         return self.convergence_t(to_t(T))
 
     def convergence_t(self, T_t) -> torch.Tensor:
-        """L-inf norm of the residual b(T) - A T, transposed layout."""
-        r_t = self._rhs_t(T_t) - self._apply_t(0, T_t, True)
-        return r_t.abs().max()
+        """L-inf norm of the residual b(T) - A T, transposed layout; the
+        span ``pamg.residual``."""
+        with tracing.span("pamg.residual"):
+            r_t = self._rhs_t(T_t) - self._apply_t(0, T_t, True)
+            return r_t.abs().max()
 
 
 def solve(mesh: MacroMesh, cfg: SemiConfig | None, device):

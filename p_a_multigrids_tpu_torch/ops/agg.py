@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..mesh import splitting
+from ..utils import tracing
 from .spmv import RowOp
 from .stencil import StencilData, inv3x3
 
@@ -66,6 +67,8 @@ class HostHierarchy:
 # -- host-side construction (numpy, bit-identical to the JAX package) ---------
 
 MAX_LEVELS = 12          # SA levels below the corrected one, at most
+# the span of each level's V-cycle (``vcycle``), named once
+LEVEL_SPANS = tuple(f"pamg.sa.l{k}" for k in range(MAX_LEVELS))
 
 
 def _csr_from_stencil(data: StencilData):
@@ -506,23 +509,25 @@ def _smooth_from_zero(lvl: AggLevel, b_t, omega, sweeps):
 
 
 def vcycle(h: AggHierarchy, k: int, b_t):
-    """Homogeneous-start V-cycle over the SA levels from level k.
+    """Homogeneous-start V-cycle over the SA levels from level k, the span
+    ``pamg.sa.l<k>``.
 
     ``b_t`` is the residual restricted into level k, transposed (3, N_k);
     returns the correction in the same layout.
     """
     lvl = h.levels[k]
-    x_t = _smooth_from_zero(lvl, b_t, h.omega, h.sweeps)
-    r_t = b_t - lvl.op(x_t)
-    if k + 1 < len(h.levels):
-        nxt = h.levels[k + 1]
-        ec = vcycle(h, k + 1, nxt.rstr(r_t))
-        x_t = x_t + nxt.prol(ec)
-    elif h.coarse_inv is not None:
-        rs = h.coarse_scale * r_t.T.reshape(-1)
-        ec = h.coarse_scale * (h.coarse_inv @ rs)
-        x_t = x_t + ec.reshape(r_t.shape[1], 3).T
-    return _smooth(lvl, x_t, b_t, h.omega, h.sweeps)
+    with tracing.span(LEVEL_SPANS[k]):
+        x_t = _smooth_from_zero(lvl, b_t, h.omega, h.sweeps)
+        r_t = b_t - lvl.op(x_t)
+        if k + 1 < len(h.levels):
+            nxt = h.levels[k + 1]
+            ec = vcycle(h, k + 1, nxt.rstr(r_t))
+            x_t = x_t + nxt.prol(ec)
+        elif h.coarse_inv is not None:
+            rs = h.coarse_scale * r_t.T.reshape(-1)
+            ec = h.coarse_scale * (h.coarse_inv @ rs)
+            x_t = x_t + ec.reshape(r_t.shape[1], 3).T
+        return _smooth(lvl, x_t, b_t, h.omega, h.sweeps)
 
 
 def vcycle_iter(h: AggHierarchy, rc, ncycles: int = 1):

@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from ..utils import cuda_build
+from ..utils import cuda_build, tracing
 from .stencil import StencilOperator
 
 
@@ -306,11 +306,13 @@ def phase(op: StencilOperator, x_t, bp_t, coefs, want_z: bool = True):
 def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
                   tier: str | None):
     """``phase`` with K1's tier forced to ``tier`` (None: ``phase_plan``'s
-    choice); a tier the level does not fit raises ValueError."""
+    choice); a tier the level does not fit raises ValueError.  The launch
+    loop (on the CPU, ``phase_reference``) is the span ``pamg.k1``."""
     _check(op, x_t, bp_t)
     site = op.sanitizer
     if x_t.device.type == "cpu":
-        x, z = phase_reference(op, x_t, bp_t, coefs, want_z)
+        with tracing.span("pamg.k1"):
+            x, z = phase_reference(op, x_t, bp_t, coefs, want_z)
         if site is not None:
             site.check_finite(1, x, z)
         return x, z
@@ -333,13 +335,14 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
                           dtype=x_t.dtype, device=x_t.device)
         bufs, z = list(out[:n_bufs]), (out[n_bufs] if want_z else None)
         src = x_t
-        for k, chunk in enumerate(chunks):
-            # the launch writes buf0 first: never the buffer it reads
-            b0, b1 = bufs[0], bufs[-1]
-            if src is b0:
-                b0, b1 = b1, b0
-            kernel.launch(op, src, bp_t, b0, b1,
-                          z if k == len(chunks) - 1 else None, chunk, plan,
-                          stream)
-            src = b0 if len(chunk) % 2 else b1
+        with tracing.span("pamg.k1"):
+            for k, chunk in enumerate(chunks):
+                # the launch writes buf0 first: never the buffer it reads
+                b0, b1 = bufs[0], bufs[-1]
+                if src is b0:
+                    b0, b1 = b1, b0
+                kernel.launch(op, src, bp_t, b0, b1,
+                              z if k == len(chunks) - 1 else None, chunk,
+                              plan, stream)
+                src = b0 if len(chunk) % 2 else b1
     return src, z

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils import cuda_build
+from ..utils import cuda_build, tracing
 
 # lane groups for operators of LANES_MIN_D to lanes_max_d(itemsize) slots a
 # row: on the H100 they beat one thread a row from D = 8 on (32,768 x 13:
@@ -172,7 +172,9 @@ class RowOp(nn.Module):
         return self.cols_t.T, self.vals_t.permute(3, 1, 2, 0)
 
     def forward(self, x_t):
-        return rowop(self, x_t)
+        """``rowop``, the span ``pamg.k2``."""
+        with tracing.span("pamg.k2"):
+            return rowop(self, x_t)
 
 
 def rowop_reference(cols_t, vals_t, x_t):

@@ -11,6 +11,9 @@ has a plain C interface, so no PyTorch headers are compiled.
 the same way with the C++ compiler ``CXX``.  Processes that find a library
 missing at once build it once, under a file lock.  There is no fallback:
 a missing compiler or a failed build raises with the compiler's output.
+Each load is the set-up stage ``pamg.setup.kernels``, counted in
+``kernel_loads``, and each build that ran the compiler in
+``kernel_builds`` (``utils.tracing``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from . import tracing
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
@@ -70,6 +75,13 @@ def load_host(name: str):
 def _load(name: str, src: Path, headers: list, flags: tuple, compiler):
     """The library of src, keyed by its text, its headers' and the flags,
     built with compiler() when it is missing."""
+    tracing.count("kernel_loads")
+    with tracing.stage("pamg.setup.kernels"):
+        return _find_or_build(name, src, headers, flags, compiler)
+
+
+def _find_or_build(name: str, src: Path, headers: list, flags: tuple,
+                   compiler):
     key = hashlib.sha256(
         b"".join(f.read_bytes() for f in [src] + headers)
         + " ".join(flags).encode()).hexdigest()[:16]
@@ -92,6 +104,7 @@ def _load(name: str, src: Path, headers: list, flags: tuple, compiler):
 def _build(src: Path, command: list, out: Path, info: dict):
     tmp = out.with_name(f".{out.stem}.{os.getpid()}.so")
     cmd = [*command, "-o", str(tmp), str(src)]
+    tracing.count("kernel_builds")
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)

@@ -132,27 +132,34 @@ def _trace_events(path):
 
 
 def test_profile_writes_a_trace(tmp_path, capsys):
-    """--profile DIR on the CPU: a Chrome trace in DIR, profile_dir in the
-    JSON line, and the same numbers as the run without the trace."""
+    """--profile DIR on the CPU: a Chrome trace in DIR, profile_dir and
+    the run's counters in the JSON line, and the same numbers as the run
+    without the trace."""
     logdir = str(tmp_path / "prof")
     got = tcli.main(PROFILED + ["--profile", logdir])
     plain = tcli.main(PROFILED)
     capsys.readouterr()
     assert got["profile_dir"] == logdir
     assert _trace_events(tmp_path / "prof" / "trace.json")
-    assert set(got) == set(plain) | {"profile_dir"}
+    assert set(got) == set(plain) | {"profile_dir", "counters"}
     for key in ("residual_history", "krylov_iterations", "L1_error"):
         assert got[key] == plain[key], key
+    counters = got["counters"]
+    its = got["krylov_iterations"]
+    assert counters["counters"]["steps"] == len(its)
+    assert counters["counters"]["host_syncs"] == sum(2 * i + 1 for i in its)
+    assert counters["spans"]["pamg.step"]["calls"] == len(its)
 
 
 def test_profile_keys_match_jax(tmp_path, capsys):
-    """The same command line with --profile gives the JAX CLI's keys."""
+    """The same command line with --profile gives the JAX CLI's keys, and
+    the port's counters."""
     argv = SMALL + ["--profile", str(tmp_path)]
     jcli.main(argv + ["--cpu", "--f64"])
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     got = tcli.main(argv + ["--device", "cpu", "--f64"])
     capsys.readouterr()
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"counters"}
     assert got["profile_dir"] == want["profile_dir"] == str(tmp_path)
     assert got["residual_history"] == pytest.approx(
         want["residual_history"], rel=1e-9)

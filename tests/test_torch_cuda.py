@@ -821,3 +821,60 @@ def test_tune_amg_case_on_the_card(cuda, monkeypatch, capsys):
     assert row["launches"]["k1_phase"] > 0 and row["launches"]["k2_rowop"] > 0
     assert out["extra"]["device"].startswith(torch.cuda.get_device_name(0))
     assert out["extra"]["ndof"] == 256 * 16 * 3
+
+
+# the benchmark's spans (pamg_bench/system.py) and the program's own
+# (utils.tracing) that own the same kernels; the benchmark's "step" is the
+# step and the residual read, the program's "pamg.step" and
+# "pamg.residual"
+PROGRAM_SPANS = {"k1": "pamg.k1", "k2": "pamg.k2", "rhs": "pamg.rhs",
+                 "krylov": "pamg.krylov"}
+
+
+@pytest.mark.parametrize("workload", ["tri8192_ns2.amg_pcg",
+                                      "tri8192_ns2.geo_vcycle"])
+def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
+    """One traced window of each benchmark cell's solver, at its size:
+    every K1 / K2 launch lies inside a ``pamg.k1`` / ``pamg.k2`` range,
+    and each of the program's spans owns exactly the kernels that the
+    benchmark's span of the same layer owns (``yardstick.read_window``
+    over the same events)."""
+    import pathlib
+
+    from pamg_bench import run, spec, system, yardstick
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cell = spec.load_cell(root, workload, True)
+    solver = system.build(cell, cuda)
+    st = solver.stepper()
+    tr = run.Traffic(cell, solver, 2 ** 31 + 12345, cuda)
+    rec = system.Recorder(spans=True)
+    names = system.SPANS + tuple(PROGRAM_SPANS.values()) + (
+        "pamg.step", "pamg.residual")
+    with rec:
+        rec.count_rowops(solver)
+        S = run.run_steps(st, tr, rec, None,
+                          int(cell.traffic["warmup_steps"]), None, [], [])
+        for _ in range(5):
+            events, launched = yardstick.trace_window(
+                lambda: run.run_steps(st, tr, rec, S, 5, None, [], []),
+                system.launch_counts)
+            ks, _ = yardstick.read_window(events, names)
+            if yardstick.missing_launches(ks, launched) is None:
+                break
+        else:
+            pytest.fail(yardstick.missing_launches(ks, launched))
+    assert launched["k1_phase"] > 0
+    assert (launched["k2_rowop"] > 0) == ("amg" in workload)
+    for k in ks:
+        if k["cls"] == "k1_phase":
+            assert "pamg.k1" in k["spans"], k["name"]
+        if k["cls"] == "k2_rowop":
+            assert "pamg.k2" in k["spans"], k["name"]
+
+    def owned(*spans):
+        return [i for i, k in enumerate(ks) if set(spans) & k["spans"]]
+
+    for bench, program in PROGRAM_SPANS.items():
+        assert owned(bench) == owned(program), bench
+    assert owned("step") == owned("pamg.step", "pamg.residual")
+    assert not [k for k in ks if {"pamg.step", "pamg.residual"} <= k["spans"]]
