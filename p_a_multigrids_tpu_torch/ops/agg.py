@@ -12,7 +12,9 @@ copied from the JAX package's ``ops/agg.py`` and yields the same tables bit
 for bit, without the TPU kernel's banded embedding, row padding and slot
 chunking.  The device half (``AggHierarchy`` and the cycle functions) holds
 every level operator and transfer as a ``spmv.RowOp``, so each of their
-applications is one launch of kernel K2 on the GPU.
+applications is one launch of kernel K2 on the GPU; there the V-cycles
+below the corrected level (``vcycle_iter``) replay as one CUDA graph
+(``CycleGraph``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from ..mesh import splitting
 from ..utils import tracing
+from . import spmv
 from .spmv import RowOp
 from .stencil import StencilData, inv3x3
 
@@ -69,6 +72,8 @@ class HostHierarchy:
 MAX_LEVELS = 12          # SA levels below the corrected one, at most
 # the span of each level's V-cycle (``vcycle``), named once
 LEVEL_SPANS = tuple(f"pamg.sa.l{k}" for k in range(MAX_LEVELS))
+# the span of a CycleGraph replay: the input copy and the graph launch
+GRAPH_SPAN = "pamg.sa.graph"
 
 
 def _csr_from_stencil(data: StencilData):
@@ -448,7 +453,8 @@ class AggHierarchy(nn.Module):
     (None without them); ``fine_dinv_t`` (3, E) their scalar inverse
     diagonal and ``w`` their smoothing weight; ``coarse_inv``,
     ``coarse_scale`` the scaled dense bottom (None when the hierarchy ends
-    without one)."""
+    without one); ``graphs`` the ``CycleGraph``s of ``vcycle_iter`` on the
+    card, one by (dtype, device, shape, ncycles)."""
 
     def __init__(self, host: HostHierarchy, dtype: torch.dtype, device):
         super().__init__()
@@ -474,6 +480,11 @@ class AggHierarchy(nn.Module):
                        RowOp(f["r_cols"], f["r_vals"], e0, dtype, device))
         self.tent_p = (None if f is None else
                        RowOp(f["p_cols"], f["p_vals"], n0, dtype, device))
+        self.graphs: dict = {}
+        # the operators vcycle applies: level 0's, and each lower level's
+        # with the transfers between it and the level above
+        self._cycle_ops = [self.levels[0].op] + [
+            op for lv in self.levels[1:] for op in (lv.op, lv.rstr, lv.prol)]
 
     def rowops(self) -> dict:
         """Every block-row operator of the hierarchy by name."""
@@ -510,7 +521,7 @@ def _smooth_from_zero(lvl: AggLevel, b_t, omega, sweeps):
 
 def vcycle(h: AggHierarchy, k: int, b_t):
     """Homogeneous-start V-cycle over the SA levels from level k, the span
-    ``pamg.sa.l<k>``.
+    ``pamg.sa.l<k>`` (on the card only inside ``_capture``).
 
     ``b_t`` is the residual restricted into level k, transposed (3, N_k);
     returns the correction in the same layout.
@@ -530,12 +541,110 @@ def vcycle(h: AggHierarchy, k: int, b_t):
         return _smooth(lvl, x_t, b_t, h.omega, h.sweeps)
 
 
-def vcycle_iter(h: AggHierarchy, rc, ncycles: int = 1):
-    """ncycles V-cycles on the level-0 SA system (transposed)."""
+def _vcycle_iter(h: AggHierarchy, rc, ncycles: int):
     e = vcycle(h, 0, rc)
     for _ in range(ncycles - 1):
         e = e + vcycle(h, 0, rc - h.levels[0].op(e))
     return e
+
+
+@dataclasses.dataclass
+class CycleGraph:
+    """V-cycles on the level-0 SA system of a hierarchy as one CUDA
+    graph (made by ``_capture``): it reads the static input ``x`` and
+    writes the static output ``y``, in its private memory pool; ``sites``
+    are the sanitizer sites of the operators the cycle applies when it
+    was captured (a graph launches the K2 build, checked or not, that its
+    capture saw); ``k2`` is what one replay launches of ``spmv.KERNEL``
+    and ``spmv.CHECKED``, and ``k2_bytes`` the least bytes those launches
+    must move (``utils.profiling.rowop_least_bytes``)."""
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    y: torch.Tensor
+    sites: tuple
+    k2: tuple
+    k2_bytes: int
+
+    def __call__(self, rc):
+        """The cycles on rc: copy it into ``x`` and replay on the current
+        stream, in the span ``pamg.sa.graph``; returns ``y``."""
+        with tracing.span(GRAPH_SPAN):
+            self.x.copy_(rc)
+            self.graph.replay()
+        spmv.KERNEL.launches += self.k2[0]
+        spmv.CHECKED.launches += self.k2[1]
+        tracing.count("sa_graph_replays")
+        tracing.count("sa_graph_k2_launches", sum(self.k2))
+        tracing.count("sa_graph_k2_least_bytes", self.k2_bytes)
+        return self.y
+
+
+def _sites(h: AggHierarchy) -> tuple:
+    return tuple(op.sanitizer for op in h._cycle_ops)
+
+
+def _capture(h: AggHierarchy, rc, ncycles: int):
+    """The first call on the card for rc's dtype, device and shape, or
+    the first after the operators' sanitizer sites changed: returns (the
+    ``CycleGraph``, the cycles' result on rc).
+
+    The cycles run eagerly on a side stream, which gives the result,
+    loads the K2 library and sets cuBLAS up there for the coarse solve;
+    then they are captured on that stream.  Nothing runs while they are
+    captured, so the K2 launch counters are set back after it: this call
+    counts one eager run's launches, as a replay does."""
+    from ..utils.profiling import rowop_least_bytes
+
+    dev = rc.device
+    x = rc.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        e = _vcycle_iter(h, x, ncycles)
+    before = (spmv.KERNEL.launches, spmv.CHECKED.launches)
+    applied = []
+    hooks = [op.register_forward_pre_hook(lambda m, _: applied.append(m))
+             for op in h._cycle_ops]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            y = _vcycle_iter(h, x, ncycles)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    k2 = (spmv.KERNEL.launches - before[0],
+          spmv.CHECKED.launches - before[1])
+    spmv.KERNEL.launches, spmv.CHECKED.launches = before
+    least = {id(op): rowop_least_bytes(op, op.vals_t.element_size())
+             for op in h._cycle_ops}
+    # the caller reads e on its own stream
+    torch.cuda.current_stream(dev).wait_stream(side)
+    e.record_stream(torch.cuda.current_stream(dev))
+    tracing.count("sa_graph_captures")
+    return CycleGraph(graph, x, y, _sites(h), k2,
+                      sum(least[id(op)] for op in applied)), e
+
+
+def vcycle_iter(h: AggHierarchy, rc, ncycles: int = 1):
+    """ncycles V-cycles on the level-0 SA system (transposed).
+
+    On a CPU tensor the cycles run eagerly.  On a CUDA tensor they are one
+    replay of the hierarchy's ``CycleGraph`` for rc's dtype, device, shape
+    and ``ncycles``, captured at the first such call (``_capture``) and
+    captured again, in its place, when the operators' sanitizer sites
+    have changed since: the result is then the graph's static output,
+    which the next replay overwrites, so use it before calling again
+    (both callers feed it at once to a transfer on the same stream).
+    """
+    if rc.device.type != "cuda":
+        return _vcycle_iter(h, rc, ncycles)
+    key = (rc.dtype, rc.device, tuple(rc.shape), ncycles)
+    graph = h.graphs.get(key)
+    if graph is None or graph.sites != _sites(h):
+        h.graphs.pop(key, None)
+        h.graphs[key], e = _capture(h, rc, ncycles)
+        return e
+    return graph(rc)
 
 
 def correct_t(h: AggHierarchy, r_fine_t, ncycles: int = 1):

@@ -59,10 +59,12 @@ def assert_finite(x, name: str = "array") -> None:
             f"(min={np.nanmin(a)}, max={np.nanmax(a)})")
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class Site:
     """One operator that the checked step runs through a kernel: its
-    sanitizer, its number in the error record and its name."""
+    sanitizer, its number in the error record and its name.  Sites
+    compare by identity (``ops/agg`` captures a CUDA graph again when
+    the sites of its operators are no longer those its capture saw)."""
     sanitizer: "Sanitizer"
     index: int
     name: str

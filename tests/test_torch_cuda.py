@@ -835,8 +835,10 @@ PROGRAM_SPANS = {"k1": "pamg.k1", "k2": "pamg.k2", "rhs": "pamg.rhs",
                                       "tri8192_ns2.geo_vcycle"])
 def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
     """One traced window of each benchmark cell's solver, at its size:
-    every K1 / K2 launch lies inside a ``pamg.k1`` / ``pamg.k2`` range,
-    and each of the program's spans owns exactly the kernels that the
+    every K1 launch lies inside a ``pamg.k1`` range, every K2 launch
+    inside a ``pamg.k2`` range (launched one by one) or a
+    ``pamg.sa.graph`` range (replayed from the SA cycle's graph), and
+    each of the program's spans owns exactly the kernels that the
     benchmark's span of the same layer owns (``yardstick.read_window``
     over the same events)."""
     import pathlib
@@ -849,7 +851,7 @@ def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
     tr = run.Traffic(cell, solver, 2 ** 31 + 12345, cuda)
     rec = system.Recorder(spans=True)
     names = system.SPANS + tuple(PROGRAM_SPANS.values()) + (
-        "pamg.step", "pamg.residual")
+        "pamg.step", "pamg.residual", agg.GRAPH_SPAN)
     with rec:
         rec.count_rowops(solver)
         S = run.run_steps(st, tr, rec, None,
@@ -869,12 +871,156 @@ def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
         if k["cls"] == "k1_phase":
             assert "pamg.k1" in k["spans"], k["name"]
         if k["cls"] == "k2_rowop":
-            assert "pamg.k2" in k["spans"], k["name"]
+            assert ("pamg.k2" in k["spans"]) != (
+                agg.GRAPH_SPAN in k["spans"]), k["name"]
 
     def owned(*spans):
         return [i for i, k in enumerate(ks) if set(spans) & k["spans"]]
+
+    if "amg" in workload:
+        assert owned("pamg.k2") and owned(agg.GRAPH_SPAN)
 
     for bench, program in PROGRAM_SPANS.items():
         assert owned(bench) == owned(program), bench
     assert owned("step") == owned("pamg.step", "pamg.residual")
     assert not [k for k in ks if {"pamg.step", "pamg.residual"} <= k["spans"]]
+
+
+@pytest.fixture(scope="module")
+def amg_cell_solver():
+    """The benchmark's ``tri8192_ns2.amg_pcg`` solver, at its size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SA cycle's graph runs only "
+                    "on the GPU")
+    import pathlib
+
+    from pamg_bench import spec, system
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cell = spec.load_cell(root, "tri8192_ns2.amg_pcg")
+    return system.build(cell, torch.device("cuda"))
+
+
+def _cell_hierarchy(solver, dtype):
+    """A fresh device hierarchy of the cell's SA tables in ``dtype``, with
+    three seeded right-hand sides of its level 0."""
+    h = agg.AggHierarchy(solver._agg_host, dtype, solver.device)
+    rng = np.random.default_rng(7)
+    rcs = [torch.tensor(rng.normal(size=(3, h.levels[0].n)), dtype=dtype,
+                        device=solver.device) for _ in range(3)]
+    return h, rcs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sa_graph_replay_is_bit_identical(amg_cell_solver, dtype):
+    """``vcycle_iter`` on the card == the eager cycles, bit for bit: the
+    first call (it captures the graph) and three replays of the one graph,
+    whose static input each right-hand side reuses."""
+    h, rcs = _cell_hierarchy(amg_cell_solver, dtype)
+    for rc in rcs[:1] + rcs:
+        want = agg._vcycle_iter(h, rc, 1)
+        got = agg.vcycle_iter(h, rc, 1).clone()
+        assert torch.equal(got, want)
+    (graph,) = h.graphs.values()
+    assert torch.equal(graph.x, rcs[-1])
+
+
+def test_sa_graph_counts_what_ran(amg_cell_solver):
+    """Capturing launches nothing: the first call counts its eager run's
+    22 K2 launches, as each of N replays does; the counters count one
+    capture, N replays, and N times the replay's K2 launches and their
+    least bytes, those of the operators the eager run applied."""
+    from p_a_multigrids_tpu_torch.utils import profiling, tracing
+    h, rcs = _cell_hierarchy(amg_cell_solver, torch.float32)
+    applied = []
+    hooks = [op.register_forward_pre_hook(lambda m, _: applied.append(m))
+             for op in h.rowops().values()]
+    n0 = spmv.KERNEL.launches
+    agg._vcycle_iter(h, rcs[0], 1)
+    eager = spmv.KERNEL.launches - n0
+    for hook in hooks:
+        hook.remove()
+    assert eager == 22 == len(applied)
+    c0 = dict(tracing.snapshot()["counters"])
+    n0, ch0 = spmv.KERNEL.launches, spmv.CHECKED.launches
+    graph, _ = agg._capture(h, rcs[0], 1)
+    torch.cuda.synchronize()
+    assert spmv.KERNEL.launches - n0 == eager
+    assert graph.k2 == (eager, 0)
+    assert graph.k2_bytes == sum(profiling.rowop_least_bytes(op)
+                                 for op in applied)
+    for rc in rcs:
+        graph(rc)
+    torch.cuda.synchronize()
+    assert spmv.KERNEL.launches - n0 == eager + len(rcs) * eager
+    assert spmv.CHECKED.launches == ch0
+    c1 = tracing.snapshot()["counters"]
+    assert c1.get("sa_graph_captures", 0) - c0.get("sa_graph_captures",
+                                                     0) == 1
+    assert c1["sa_graph_replays"] - c0.get("sa_graph_replays", 0) == len(rcs)
+    assert (c1["sa_graph_k2_launches"] - c0.get("sa_graph_k2_launches", 0)
+            == len(rcs) * eager)
+    assert (c1["sa_graph_k2_least_bytes"]
+            - c0.get("sa_graph_k2_least_bytes", 0)
+            == len(rcs) * graph.k2_bytes)
+
+
+def test_sa_graph_follows_the_sanitizer(amg_cell_solver):
+    """Sites given to the cycle's operators after a capture (a solver made
+    checked after it ran) make the next call capture the checked build
+    in the unchecked graph's place: its launches are all checked, its
+    bits the unchecked graph's; with the sites taken off again the next
+    call captures the unchecked build once more, in the checked graph's
+    place."""
+    from p_a_multigrids_tpu_torch.utils import debugging
+    h, rcs = _cell_hierarchy(amg_cell_solver, torch.float32)
+    want = agg.vcycle_iter(h, rcs[0], 1).clone()
+    san = debugging.Sanitizer(rcs[0].device)
+    ops = list(h.rowops().values())
+    for i, op in enumerate(ops):
+        op.sanitizer = san.site(f"rowop {i}")
+    n0, c0 = spmv.KERNEL.launches, spmv.CHECKED.launches
+    for _ in range(2):
+        assert torch.equal(agg.vcycle_iter(h, rcs[0], 1), want)
+    torch.cuda.synchronize()
+    assert spmv.KERNEL.launches == n0
+    assert spmv.CHECKED.launches - c0 == 2 * 22
+    san.raise_on_fault()
+    for op in ops:
+        op.sanitizer = None
+    assert torch.equal(agg.vcycle_iter(h, rcs[0], 1), want)
+    assert spmv.KERNEL.launches - n0 == 22
+    (graph,) = h.graphs.values()
+    assert all(site is None for site in graph.sites)
+
+
+def test_sa_graph_replays_are_traced(amg_cell_solver):
+    """One traced window of replays, read as the benchmark reads it: the
+    trace holds every replayed K2 launch the counter counted, each inside
+    a ``pamg.sa.graph`` range, and ``k2_graph_hbm_roofline_share`` reads
+    them at under 105% of the roofline."""
+    from p_a_multigrids_tpu_torch.utils import tracing
+    from pamg_bench import spec, system, yardstick
+    h, rcs = _cell_hierarchy(amg_cell_solver, torch.float32)
+    agg.vcycle_iter(h, rcs[0], 1)
+    torch.cuda.synchronize()
+
+    def window():
+        for rc in rcs:
+            agg.vcycle_iter(h, rc, 1)
+
+    for _ in range(5):
+        tracing.reset()
+        events, launched = yardstick.trace_window(window,
+                                                  system.launch_counts)
+        ks, _ = yardstick.read_window(events, (agg.GRAPH_SPAN,))
+        if yardstick.missing_launches(ks, launched) is None:
+            break
+    else:
+        pytest.fail(yardstick.missing_launches(ks, launched))
+    assert launched == {"k1_phase": 0, "k2_rowop": 22 * len(rcs)}
+    k2 = [k for k in ks if k["cls"] == "k2_rowop"]
+    assert len(k2) == 22 * len(rcs)
+    assert all(agg.GRAPH_SPAN in k["spans"] for k in k2)
+    share = spec.load_metric("k2_graph_hbm_roofline_share").read(
+        {"kernels": ks})
+    assert 0 < share <= 105

@@ -14,7 +14,7 @@ import torch
 from p_a_multigrids_tpu_torch.config import SemiConfig
 from p_a_multigrids_tpu_torch.mesh import structured
 from p_a_multigrids_tpu_torch.models import semi
-from p_a_multigrids_tpu_torch.ops import krylov
+from p_a_multigrids_tpu_torch.ops import agg, krylov
 from p_a_multigrids_tpu_torch.utils import cuda_build, tracing
 
 from pamg_bench import spec
@@ -144,6 +144,39 @@ def test_host_syncs_per_solve(built):
                 syncs(its)
 
 
+def test_sa_cycle_runs_eagerly_on_the_cpu(built, monkeypatch):
+    """On the CPU the SA cycles capture no graph: the hierarchy keeps
+    none, the graph counters stay 0, and ``vcycle_iter`` and
+    ``_agg_correct_t`` give the eager cycles' result bit for bit."""
+    amg = built[0]
+    h = amg.agg
+
+    def eager(h, rc, ncycles=1):
+        e = agg.vcycle(h, 0, rc)
+        for _ in range(ncycles - 1):
+            e = e + agg.vcycle(h, 0, rc - h.levels[0].op(e))
+        return e
+
+    rng = np.random.default_rng(5)
+    rc = torch.tensor(rng.normal(size=(3, h.levels[0].n)),
+                      dtype=amg.dtype)
+    _, S = _state(amg)
+    r_t = S - amg._apply_t(0, S)
+    tracing.reset()
+    got = [agg.vcycle_iter(h, rc, n) for n in (1, 2)]
+    got.append(amg._agg_correct_t(0, S, r_t))
+    counters = tracing.snapshot()["counters"]
+    monkeypatch.setattr(agg, "vcycle_iter", eager)
+    want = [eager(h, rc, n) for n in (1, 2)]
+    want.append(amg._agg_correct_t(0, S, r_t))
+    assert h.graphs == {}
+    assert not {"sa_graph_captures", "sa_graph_replays",
+                "sa_graph_k2_launches",
+                "sa_graph_k2_least_bytes"} & set(counters)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_bicgstab_reads_once_an_iteration_and_at_exit():
     rng = np.random.default_rng(0)
     A = torch.tensor(np.eye(12) * 4 + rng.normal(size=(12, 12)) * 0.3)
@@ -217,7 +250,9 @@ def test_snapshot_reads_the_kernel_counters():
     json.dumps(tracing.snapshot())
 
 
-SNAP = {"counters": {"steps": 4, "host_syncs": 36},
+SNAP = {"counters": {"steps": 4, "host_syncs": 36, "sa_graph_replays": 20,
+                     "sa_graph_k2_launches": 440,
+                     "sa_graph_k2_least_bytes": 440 * 33_500},
         "stages": {"pamg.setup.problem": {"calls": 1, "s": 2.5},
                    "pamg.setup.solver": {"calls": 1, "s": 9.0},
                    "pamg.setup.sa_hierarchy": {"calls": 1, "s": 6.0}},
@@ -231,7 +266,7 @@ EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
 @pytest.mark.parametrize("name,want", [
     ("host_syncs_per_step", 9.0), ("sync_wait_us_per_step", 300.0),
     ("setup_problem_s", 2.5), ("setup_solver_s", 9.0),
-    ("setup_sa_hierarchy_s", 6.0)])
+    ("setup_sa_hierarchy_s", 6.0), ("sa_graph_replays_per_step", 5.0)])
 def test_metric_reader(name, want, monkeypatch):
     """Each of the benchmark's readers of the program's snapshot, on a
     hand-made one; None where its denominator is 0 or its stage absent."""
@@ -240,3 +275,22 @@ def test_metric_reader(name, want, monkeypatch):
     assert mod.read({}) == pytest.approx(want)
     monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
     assert mod.read({}) is None
+
+
+def test_graph_roofline_reader(monkeypatch):
+    """``k2_graph_hbm_roofline_share`` takes the traced K2 kernels outside
+    every ``k2`` span at the program's least bytes per replayed launch:
+    two of 10 us at 33,500 bytes each is 0.1% of 3.35 TB/s; None without
+    the counters or without such a kernel."""
+    mod = spec.load_metric("k2_graph_hbm_roofline_share")
+    k2 = {"cls": "k2_rowop", "dur": 10.0, "spans": {"krylov", "step"}}
+    record = {"kernels": [
+        k2, dict(k2),
+        {"cls": "k2_rowop", "dur": 100.0, "spans": {"k2", "step"}},
+        {"cls": "k1_phase", "dur": 50.0, "spans": {"k1"}}]}
+    monkeypatch.setattr(tracing, "snapshot", lambda: SNAP)
+    assert mod.read(record) == pytest.approx(0.1)
+    assert mod.read({"kernels": record["kernels"][2:]}) is None
+    assert mod.read({}) is None
+    monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
+    assert mod.read(record) is None
