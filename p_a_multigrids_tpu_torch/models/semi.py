@@ -18,7 +18,9 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   a call of the relaxation-phase kernel K1 (``ops.phase.phase``); the point
   smoothers (Jacobi, Richardson, colored Gauss-Seidel, direct) run
   ``ops.smoothers`` over K1's zero-round apply.  On a CPU tensor a K1 call
-  runs the plain PyTorch version.
+  runs the plain PyTorch version.  On the card the Krylov preconditioner
+  of a geometric-only hierarchy with K1 phases replays as one CUDA graph
+  (``_precond_t``, ``ops.cuda_graph``).
 - Above ``stencil_max_children`` children a macro (n_split >= 7), or with
   ``stencil_operator=False``, the operator is ``ops.fused.FusedOperator``
   (or ``apply_A``) in plain PyTorch, as it was XLA on the TPU.
@@ -51,10 +53,11 @@ from torch import nn
 from ..config import Physics, SemiConfig, Solver
 from ..mesh import geometry, semi, splitting
 from ..mesh.topology import MacroMesh
-from ..ops import agg, galerkin, krylov, smoothers
+from ..ops import agg, cuda_graph, galerkin, krylov, smoothers
 from ..ops import local_matrices as lm
 from ..ops.fused import FusedOperator, from_t, to_t
-from ..ops.phase import phase
+from ..ops.phase import CHECKED as K1_CHECKED, KERNEL as K1_KERNEL, phase
+from ..ops.phase import watch as watch_k1
 from ..ops.stencil import (StencilOperator, build_stencil, lam_max_estimate,
                            probe_stencil, to_dense)
 from ..utils import debugging, shape_functions, tracing
@@ -595,6 +598,10 @@ class Stepper(typing.NamedTuple):
 
 # solvers whose smoothing phases run as whole K1 phases on the stencil path
 _PHASE_SOLVERS = (Solver.CHEBYSHEV, Solver.BLOCK_JACOBI)
+# the graph of the geometric Krylov preconditioner (``_precond_t``): its
+# span holds the input copy, the replay and the output copy; K1's launches
+MG_GRAPH = cuda_graph.Kind("pamg.mg.graph", "mg_graph", "k1",
+                           (K1_KERNEL, K1_CHECKED), copy_out=True)
 # identity columns apply_A takes at once when the non-stencil path builds
 # its dense coarse matrix
 COARSE_COLUMNS = 256
@@ -652,6 +659,8 @@ class SemiSolver(nn.Module):
                         and 4 ** cfg.n_split <= cfg.stencil_max_children)
         self.phase_cycle = self.stencil and cfg.solver in _PHASE_SOLVERS
         self.krylov_iters: list[int] = []
+        # the preconditioner's CUDA graphs, one by (dtype, device, shape)
+        self._graphs: dict = {}
         # the span of each level's V-cycle, named once
         self._level_spans = tuple(f"pamg.vcycle.l{li}" for li in range(nl))
         self.fused = None
@@ -1136,20 +1145,46 @@ class SemiSolver(nn.Module):
         return from_t(self._solve_system_t(to_t(b), to_t(x0)))
 
     def _solve_system_t(self, b_t, x0_t):
-        """A x = b (Dirichlet ghosts folded in) by V-cycle-preconditioned
-        PCG, or BiCGStab under advection (a nonsymmetric operator); the
-        iteration count is appended to ``krylov_iters``."""
+        """A x = b (Dirichlet ghosts folded in) by PCG, or BiCGStab under
+        advection (a nonsymmetric operator), preconditioned by one cycle
+        (``_precond_t``); the iteration count is appended to
+        ``krylov_iters``."""
         cfg = self.cfg
         A_lin = lambda x_t: self._apply_t(0, x_t, False)
         c = self._apply_t(0, torch.zeros_like(b_t), True)   # = c_aff
         b_lin = b_t - c
-        precond = lambda r: self._vcycle_t(0, torch.zeros_like(r), r,
-                                           hom=True)
+        precond = self._precond_t
         method = krylov.bicgstab if cfg.physics.advection else krylov.pcg
         x_t, it, _ = method(A_lin, b_lin, x0_t, precond=precond,
                             tol=cfg.krylov_tol, maxiter=cfg.krylov_maxiter)
         self.krylov_iters.append(it)
         return x_t
+
+    def _precond_t(self, r_t):
+        """The Krylov preconditioner: one homogeneous cycle from zero on
+        r_t, ``_vcycle_t(0, 0, r_t, hom=True)``.
+
+        On a CUDA tensor, with geometric levels only (no SA level), K1
+        phases as the smoother and no coarse CG (whose stop rule reads the
+        card on the host), the cycle is one replay of the solver's CUDA
+        graph for r_t's dtype, device and shape (``MG_GRAPH``, in
+        ``_graphs``; ``cuda_graph.cached``), captured at the first such
+        call, whose result is the eager cycle's, and captured again, in
+        its place, when the levels' sanitizer sites have changed.  A
+        replay returns a copy of the graph's output, since PCG keeps z as
+        its search direction across the next call (BiCGStab keeps two
+        preconditioned vectors).  Otherwise the cycle runs eagerly."""
+        def cycle(r):
+            return self._vcycle_t(0, torch.zeros_like(r), r, hom=True)
+
+        if not (r_t.device.type == "cuda" and self.phase_cycle
+                and self.agg is None and not self.cfg.coarse_krylov):
+            return cycle(r_t)
+        sites = tuple(op.sanitizer for op in self.ops)
+        return cuda_graph.cached(
+            self._graphs, (r_t.dtype, r_t.device, tuple(r_t.shape)), sites,
+            lambda: cuda_graph.capture(MG_GRAPH, cycle, r_t, sites,
+                                       watch_k1()), r_t)
 
     def _step_t(self, T_t):
         """One theta-scheme time step of the transposed state: the span

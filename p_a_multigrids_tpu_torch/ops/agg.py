@@ -14,11 +14,12 @@ chunking.  The device half (``AggHierarchy`` and the cycle functions) holds
 every level operator and transfer as a ``spmv.RowOp``, so each of their
 applications is one launch of kernel K2 on the GPU; there the V-cycles
 below the corrected level (``vcycle_iter``) replay as one CUDA graph
-(``CycleGraph``).
+(``ops/cuda_graph``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -27,7 +28,7 @@ from torch import nn
 
 from ..mesh import splitting
 from ..utils import tracing
-from . import spmv
+from . import cuda_graph, spmv
 from .spmv import RowOp
 from .stencil import StencilData, inv3x3
 
@@ -72,7 +73,8 @@ class HostHierarchy:
 MAX_LEVELS = 12          # SA levels below the corrected one, at most
 # the span of each level's V-cycle (``vcycle``), named once
 LEVEL_SPANS = tuple(f"pamg.sa.l{k}" for k in range(MAX_LEVELS))
-# the span of a CycleGraph replay: the input copy and the graph launch
+# the span of a replay of the SA cycle's graph: the input copy and the
+# graph launch
 GRAPH_SPAN = "pamg.sa.graph"
 
 
@@ -453,8 +455,8 @@ class AggHierarchy(nn.Module):
     (None without them); ``fine_dinv_t`` (3, E) their scalar inverse
     diagonal and ``w`` their smoothing weight; ``coarse_inv``,
     ``coarse_scale`` the scaled dense bottom (None when the hierarchy ends
-    without one); ``graphs`` the ``CycleGraph``s of ``vcycle_iter`` on the
-    card, one by (dtype, device, shape, ncycles)."""
+    without one); ``graphs`` the ``cuda_graph.Graph``s of ``vcycle_iter`` on
+    the card, one by (dtype, device, shape, ncycles)."""
 
     def __init__(self, host: HostHierarchy, dtype: torch.dtype, device):
         super().__init__()
@@ -548,103 +550,64 @@ def _vcycle_iter(h: AggHierarchy, rc, ncycles: int):
     return e
 
 
-@dataclasses.dataclass
-class CycleGraph:
-    """V-cycles on the level-0 SA system of a hierarchy as one CUDA
-    graph (made by ``_capture``): it reads the static input ``x`` and
-    writes the static output ``y``, in its private memory pool; ``sites``
-    are the sanitizer sites of the operators the cycle applies when it
-    was captured (a graph launches the K2 build, checked or not, that its
-    capture saw); ``k2`` is what one replay launches of ``spmv.KERNEL``
-    and ``spmv.CHECKED``, and ``k2_bytes`` the least bytes those launches
-    must move (``utils.profiling.rowop_least_bytes``)."""
-    graph: torch.cuda.CUDAGraph
-    x: torch.Tensor
-    y: torch.Tensor
-    sites: tuple
-    k2: tuple
-    k2_bytes: int
-
-    def __call__(self, rc):
-        """The cycles on rc: copy it into ``x`` and replay on the current
-        stream, in the span ``pamg.sa.graph``; returns ``y``."""
-        with tracing.span(GRAPH_SPAN):
-            self.x.copy_(rc)
-            self.graph.replay()
-        spmv.KERNEL.launches += self.k2[0]
-        spmv.CHECKED.launches += self.k2[1]
-        tracing.count("sa_graph_replays")
-        tracing.count("sa_graph_k2_launches", sum(self.k2))
-        tracing.count("sa_graph_k2_least_bytes", self.k2_bytes)
-        return self.y
+# the SA cycle's graph: K2's launches, a replay's result the static output
+SA_GRAPH = cuda_graph.Kind(GRAPH_SPAN, "sa_graph", "k2",
+                           (spmv.KERNEL, spmv.CHECKED), copy_out=False)
 
 
 def _sites(h: AggHierarchy) -> tuple:
     return tuple(op.sanitizer for op in h._cycle_ops)
 
 
-def _capture(h: AggHierarchy, rc, ncycles: int):
-    """The first call on the card for rc's dtype, device and shape, or
-    the first after the operators' sanitizer sites changed: returns (the
-    ``CycleGraph``, the cycles' result on rc).
-
-    The cycles run eagerly on a side stream, which gives the result,
-    loads the K2 library and sets cuBLAS up there for the coarse solve;
-    then they are captured on that stream.  Nothing runs while they are
-    captured, so the K2 launch counters are set back after it: this call
-    counts one eager run's launches, as a replay does."""
+@contextlib.contextmanager
+def _k2_least_bytes(ops):
+    """The watch of a capture: yields a list that holds, once the block
+    has run, the least bytes of each of its calls of ``ops``
+    (``utils.profiling.rowop_least_bytes``, read after the block, since
+    reading them syncs with the card); forward pre-hooks record the
+    calls."""
     from ..utils.profiling import rowop_least_bytes
 
-    dev = rc.device
-    x = rc.clone()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        e = _vcycle_iter(h, x, ncycles)
-    before = (spmv.KERNEL.launches, spmv.CHECKED.launches)
-    applied = []
+    applied, out = [], []
     hooks = [op.register_forward_pre_hook(lambda m, _: applied.append(m))
-             for op in h._cycle_ops]
-    graph = torch.cuda.CUDAGraph()
+             for op in ops]
     try:
-        with torch.cuda.graph(graph, stream=side):
-            y = _vcycle_iter(h, x, ncycles)
+        yield out
     finally:
         for hook in hooks:
             hook.remove()
-    k2 = (spmv.KERNEL.launches - before[0],
-          spmv.CHECKED.launches - before[1])
-    spmv.KERNEL.launches, spmv.CHECKED.launches = before
     least = {id(op): rowop_least_bytes(op, op.vals_t.element_size())
-             for op in h._cycle_ops}
-    # the caller reads e on its own stream
-    torch.cuda.current_stream(dev).wait_stream(side)
-    e.record_stream(torch.cuda.current_stream(dev))
-    tracing.count("sa_graph_captures")
-    return CycleGraph(graph, x, y, _sites(h), k2,
-                      sum(least[id(op)] for op in applied)), e
+             for op in ops}
+    out.extend(least[id(op)] for op in applied)
+
+
+def _capture(h: AggHierarchy, rc, ncycles: int):
+    """The first call on the card for rc's dtype, device and shape, or
+    the first after the operators' sanitizer sites changed: returns (the
+    ``cuda_graph.Graph`` of the cycles, their result on rc), as
+    ``cuda_graph.capture`` makes them, with the least bytes of the K2
+    calls the capture recorded."""
+    return cuda_graph.capture(SA_GRAPH, lambda x: _vcycle_iter(h, x, ncycles),
+                              rc, _sites(h), _k2_least_bytes(h._cycle_ops))
 
 
 def vcycle_iter(h: AggHierarchy, rc, ncycles: int = 1):
     """ncycles V-cycles on the level-0 SA system (transposed).
 
     On a CPU tensor the cycles run eagerly.  On a CUDA tensor they are one
-    replay of the hierarchy's ``CycleGraph`` for rc's dtype, device, shape
-    and ``ncycles``, captured at the first such call (``_capture``) and
-    captured again, in its place, when the operators' sanitizer sites
-    have changed since: the result is then the graph's static output,
-    which the next replay overwrites, so use it before calling again
-    (both callers feed it at once to a transfer on the same stream).
+    replay of the hierarchy's graph for rc's dtype, device, shape and
+    ``ncycles`` (``cuda_graph.cached``, in ``h.graphs``), captured at the
+    first such call and captured again, in its place, when the operators'
+    sanitizer sites have changed since: the result is then the graph's
+    static output, which the next replay overwrites, so use it before
+    calling again (both callers feed it at once to a transfer on the same
+    stream).
     """
     if rc.device.type != "cuda":
         return _vcycle_iter(h, rc, ncycles)
-    key = (rc.dtype, rc.device, tuple(rc.shape), ncycles)
-    graph = h.graphs.get(key)
-    if graph is None or graph.sites != _sites(h):
-        h.graphs.pop(key, None)
-        h.graphs[key], e = _capture(h, rc, ncycles)
-        return e
-    return graph(rc)
+    return cuda_graph.cached(
+        h.graphs, (rc.dtype, rc.device, tuple(rc.shape), ncycles), _sites(h),
+        lambda: _capture(h, rc, ncycles), rc)
 
 
 def correct_t(h: AggHierarchy, r_fine_t, ncycles: int = 1):

@@ -36,7 +36,11 @@ def _safe_div(a, b):
 def pcg(apply_A: Callable, b, x0, precond: Callable | None = None,
         tol: float = 1e-8, maxiter: int = 200, dot: Callable = _dot):
     """Preconditioned CG for SPD systems.  ``dot`` is the inner product
-    (a distributed solver passes one summed over its ranks).
+    (a distributed solver passes one summed over its ranks).  The search
+    direction starts as ``precond(r)``'s result and is still read after
+    the next call, so ``precond`` must return a tensor that its next call
+    does not overwrite (``SemiSolver._precond_t`` copies its graph's
+    output).
 
     Returns (x, iterations, final_residual_norm)."""
     with tracing.span("pamg.krylov"):
@@ -82,7 +86,8 @@ def bicgstab(apply_A: Callable, b, x0, precond: Callable | None = None,
     whose residual is non-finite or above 1e4 x the best one so far is
     rejected and forces a restart.  Returns (x_best, iterations, rn_best):
     the iterate of smallest residual norm, not the last one.  ``dot`` is
-    the inner product, as in ``pcg``."""
+    the inner product, and ``precond`` returns tensors that its next call
+    leaves alone, as in ``pcg``."""
     with tracing.span("pamg.krylov"):
         M = precond or (lambda r: r)
         bnorm = torch.sqrt(dot(b, b))

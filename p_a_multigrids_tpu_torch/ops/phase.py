@@ -29,6 +29,7 @@ launch plan; on the CPU its plain version's outputs are checked finite.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -131,6 +132,9 @@ class PhaseKernel:
     (``plan_from`` the unchecked one) builds the source with
     ``-DPAMG_CHECKED`` and plans its launches with the unchecked build's
     limits, so that both builds run the same plan."""
+
+    # the launch counters (a CUDA graph's replay adds to them)
+    COUNTERS = ("launches", "launches_deep", "rounds", "by_tier")
 
     def __init__(self, plan_from: "PhaseKernel | None" = None):
         self.checked = plan_from is not None
@@ -241,6 +245,27 @@ KERNEL = PhaseKernel()
 CHECKED = PhaseKernel(plan_from=KERNEL)
 
 
+# the lists ``watch`` opened: each call of ``phase_on_tier`` that launches
+# K1 appends its least bytes to every one
+_WATCHES: list = []
+
+
+@contextlib.contextmanager
+def watch():
+    """Yields a list to which every call of ``phase_on_tier`` made inside
+    the block that launches K1 appends the least bytes it must move
+    (``utils.profiling.least_bytes``: the zero-round apply 2 state planes,
+    a phase 3, and 4 with z), as a CUDA graph's capture records its K1
+    calls (``models/semi``)."""
+    from ..utils import profiling  # noqa: F401  (loaded before the block)
+    calls: list = []
+    _WATCHES.append(calls)
+    try:
+        yield calls
+    finally:
+        _WATCHES.remove(calls)
+
+
 def _round_coefs(coefs, want_z: bool, dtype: torch.dtype) -> list[float]:
     """Per-round step sizes cast to the state dtype (the trailing 0 is the
     z round), as the TPU kernel's coefficient array was."""
@@ -345,4 +370,10 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
                               z if k == len(chunks) - 1 else None, chunk,
                               plan, stream)
                 src = b0 if len(chunk) % 2 else b1
+    if _WATCHES:
+        from ..utils.profiling import least_bytes
+        planes = 3 + int(want_z) if len(coefs) else 2
+        nbytes = least_bytes(op, x_t.element_size(), planes)
+        for calls in _WATCHES:
+            calls.append(nbytes)
     return src, z

@@ -77,6 +77,9 @@ class SpMVKernel:
     library is built at the first launch (``cuda_build.load``), with
     ``-DPAMG_CHECKED`` for a ``checked`` instance."""
 
+    # the launch counters (a CUDA graph's replay adds to them)
+    COUNTERS = ("launches",)
+
     def __init__(self, checked: bool = False):
         self.checked = checked
         self.launches = 0

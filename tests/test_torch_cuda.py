@@ -945,9 +945,10 @@ def test_sa_graph_counts_what_ran(amg_cell_solver):
     graph, _ = agg._capture(h, rcs[0], 1)
     torch.cuda.synchronize()
     assert spmv.KERNEL.launches - n0 == eager
-    assert graph.k2 == (eager, 0)
-    assert graph.k2_bytes == sum(profiling.rowop_least_bytes(op)
-                                 for op in applied)
+    assert graph.launched == ({"launches": eager}, {"launches": 0})
+    assert graph.launches == eager
+    assert graph.least_bytes == sum(profiling.rowop_least_bytes(op)
+                                    for op in applied)
     for rc in rcs:
         graph(rc)
     torch.cuda.synchronize()
@@ -961,7 +962,7 @@ def test_sa_graph_counts_what_ran(amg_cell_solver):
             == len(rcs) * eager)
     assert (c1["sa_graph_k2_least_bytes"]
             - c0.get("sa_graph_k2_least_bytes", 0)
-            == len(rcs) * graph.k2_bytes)
+            == len(rcs) * graph.least_bytes)
 
 
 def test_sa_graph_follows_the_sanitizer(amg_cell_solver):
@@ -1022,5 +1023,215 @@ def test_sa_graph_replays_are_traced(amg_cell_solver):
     assert len(k2) == 22 * len(rcs)
     assert all(agg.GRAPH_SPAN in k["spans"] for k in k2)
     share = spec.load_metric("k2_graph_hbm_roofline_share").read(
+        {"kernels": ks})
+    assert 0 < share <= 105
+
+
+@pytest.fixture(scope="module")
+def sweep_cell_solvers():
+    """The benchmark's ``sweep98304_ns5.w6_pcg`` solver at its size, in
+    its float32 and in float64, by dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the geometric preconditioner's "
+                    "graph runs only on the GPU")
+    import pathlib
+
+    from pamg_bench import spec
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cell = spec.load_cell(root, "sweep98304_ns5.w6_pcg")
+    mesh = structured.tri_mesh(*cell.config["mesh"]["tri_mesh"])
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        cfg = SemiConfig(**{**cell.semi_fields(),
+                            "dtype": str(dtype).split(".")[1]})
+        out[dtype] = semi.SemiSolver(semi.build_problem(mesh, cfg),
+                                     torch.device("cuda"))
+    return out
+
+
+def _sweep_rhs(solver, n=3):
+    """The solver with no graph yet, and n seeded right-hand sides of its
+    finest level."""
+    solver._graphs.clear()
+    op = solver.ops[0]
+    rng = np.random.default_rng(11)
+    return [torch.tensor(rng.normal(size=(3, op.C, op.U)),
+                         dtype=solver.dtype, device=solver.device)
+            for _ in range(n)]
+
+
+def _eager_cycle(solver, r):
+    return solver._vcycle_t(0, torch.zeros_like(r), r, hom=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_graph_replay_is_bit_identical(sweep_cell_solvers, dtype):
+    """The preconditioner on the card == the eager W-cycle, bit for bit:
+    the first call (it captures the graph) and three replays of the one
+    graph, each handing back a copy that the next replay leaves alone."""
+    solver = sweep_cell_solvers[dtype]
+    rs = _sweep_rhs(solver)
+    got = []
+    for r in rs[:1] + rs:
+        got.append(solver._precond_t(r))
+        assert torch.equal(got[-1], _eager_cycle(solver, r))
+    (graph,) = solver._graphs.values()
+    assert graph.kind is semi.MG_GRAPH
+    assert torch.equal(graph.x, rs[-1])
+    for g, r in zip(got[1:], rs):
+        assert g.data_ptr() != graph.y.data_ptr()
+        assert torch.equal(g, _eager_cycle(solver, r))
+
+
+def test_mg_graph_pcg_equals_the_eager_solve(sweep_cell_solvers,
+                                             monkeypatch):
+    """A PCG solve of the cell's step through the graph == the same solve
+    with the eager preconditioner: the same iterate bit for bit, the same
+    iterations and host syncs (PCG keeps z as its search direction across
+    the next preconditioner call, so a replay that handed back its static
+    output would change the iterate)."""
+    from p_a_multigrids_tpu_torch.utils import tracing
+    solver = sweep_cell_solvers[torch.float32]
+    _sweep_rhs(solver)
+    st = solver.stepper()
+    rng = np.random.default_rng(12)
+    T = solver.initial_condition()
+    S = st.to_state(T + torch.as_tensor(rng.normal(size=T.shape),
+                                        dtype=T.dtype, device=T.device))
+    st.step(S)                                 # captures the graph
+    runs = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(solver, "_precond_t",
+                                lambda r: _eager_cycle(solver, r))
+        c0 = tracing.snapshot()["counters"]
+        x = st.step(S)
+        c1 = tracing.snapshot()["counters"]
+        runs.append((x, solver.krylov_iters[-1],
+                     c1["host_syncs"] - c0["host_syncs"],
+                     c1.get("mg_graph_replays", 0)
+                     - c0.get("mg_graph_replays", 0)))
+    (x_g, its_g, syncs_g, replays_g), (x_e, its_e, syncs_e, replays_e) = runs
+    assert torch.equal(x_g, x_e)
+    assert its_g == its_e > 1 and syncs_g == syncs_e == 2 * its_g + 1
+    assert replays_g == its_g + 1 and replays_e == 0
+
+
+def test_mg_graph_counts_what_ran(sweep_cell_solvers):
+    """The capturing call counts one eager cycle's K1 launches, rounds,
+    tiers and deep launches, as each of N replays does; the counters count
+    one capture, N replays, and N times the replay's K1 launches and the
+    least bytes of the cycle's K1 calls, as ``utils.profiling.least_bytes``
+    reckons an eager call's."""
+    from p_a_multigrids_tpu_torch.utils import tracing
+
+    def counts():
+        return {"launches": K.KERNEL.launches, "rounds": K.KERNEL.rounds,
+                "deep": K.KERNEL.launches_deep, "checked": K.CHECKED.launches,
+                **{f"tier_{t}": n for t, n in K.KERNEL.by_tier.items()}}
+
+    def grown(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    solver = sweep_cell_solvers[torch.float32]
+    rs = _sweep_rhs(solver)
+    n0 = counts()
+    with K.watch() as calls:
+        _eager_cycle(solver, rs[0])
+    eager = grown(n0, counts())
+    assert eager["launches"] == len(calls) == 30
+    assert eager["deep"] > 0 and eager["tier_small"] > 0
+    assert eager["checked"] == 0
+    c0 = dict(tracing.snapshot()["counters"])
+    n0 = counts()
+    solver._precond_t(rs[0])
+    torch.cuda.synchronize()
+    assert grown(n0, counts()) == eager
+    (graph,) = solver._graphs.values()
+    assert graph.launches == eager["launches"]
+    assert graph.least_bytes == sum(calls)
+    for r in rs:
+        solver._precond_t(r)
+    torch.cuda.synchronize()
+    assert grown(n0, counts()) == {k: (len(rs) + 1) * v
+                                   for k, v in eager.items()}
+    c1 = tracing.snapshot()["counters"]
+
+    def added(name):
+        return c1.get(name, 0) - c0.get(name, 0)
+
+    assert added("mg_graph_captures") == 1
+    assert added("mg_graph_replays") == len(rs)
+    assert added("mg_graph_k1_launches") == len(rs) * eager["launches"]
+    assert added("mg_graph_k1_least_bytes") == len(rs) * sum(calls)
+
+
+def test_mg_graph_follows_the_sanitizer(sweep_cell_solvers):
+    """Sites given to the levels' operators after a capture (a solver made
+    checked after it ran) make the next call capture the checked K1 build
+    in the unchecked graph's place: its launches are all checked, its
+    bits the unchecked graph's; with the sites taken off again the next
+    call captures the unchecked build once more."""
+    from p_a_multigrids_tpu_torch.utils import debugging
+    solver = sweep_cell_solvers[torch.float32]
+    rs = _sweep_rhs(solver, 1)
+    want = solver._precond_t(rs[0])
+    (unchecked,) = solver._graphs.values()
+    san = debugging.Sanitizer(solver.device)
+    for i, op in enumerate(solver.ops):
+        op.sanitizer = san.site(f"level {i}", op.U)
+    try:
+        n0, c0 = K.KERNEL.launches, K.CHECKED.launches
+        for _ in range(2):
+            assert torch.equal(solver._precond_t(rs[0]), want)
+        torch.cuda.synchronize()
+        assert K.KERNEL.launches == n0
+        assert K.CHECKED.launches - c0 == 2 * unchecked.launches
+        san.raise_on_fault()
+        (checked,) = solver._graphs.values()
+        assert checked.launched[1]["launches"] == unchecked.launches
+    finally:
+        for op in solver.ops:
+            op.sanitizer = None
+    assert torch.equal(solver._precond_t(rs[0]), want)
+    assert K.KERNEL.launches - n0 == unchecked.launches
+    (graph,) = solver._graphs.values()
+    assert all(site is None for site in graph.sites)
+
+
+def test_mg_graph_replays_are_traced(sweep_cell_solvers):
+    """One traced window of replays, read as the benchmark reads it: the
+    trace holds every replayed K1 launch the counter counted, each inside
+    a ``pamg.mg.graph`` range and outside every ``pamg.k1`` range, and
+    ``k1_graph_hbm_roofline_share`` reads them at under 105% of the
+    roofline."""
+    from p_a_multigrids_tpu_torch.utils import tracing
+    from pamg_bench import spec, system, yardstick
+    solver = sweep_cell_solvers[torch.float32]
+    rs = _sweep_rhs(solver)
+    solver._precond_t(rs[0])
+    torch.cuda.synchronize()
+    (graph,) = solver._graphs.values()
+    span = semi.MG_GRAPH.span
+
+    def window():
+        for r in rs:
+            solver._precond_t(r)
+
+    for _ in range(5):
+        tracing.reset()
+        events, launched = yardstick.trace_window(window,
+                                                  system.launch_counts)
+        ks, _ = yardstick.read_window(events, ("pamg.k1", span))
+        if yardstick.missing_launches(ks, launched) is None:
+            break
+    else:
+        pytest.fail(yardstick.missing_launches(ks, launched))
+    assert launched == {"k1_phase": graph.launches * len(rs), "k2_rowop": 0}
+    k1 = [k for k in ks if k["cls"] == "k1_phase"]
+    assert len(k1) == graph.launches * len(rs)
+    assert all(span in k["spans"] and "pamg.k1" not in k["spans"]
+               for k in k1)
+    share = spec.load_metric("k1_graph_hbm_roofline_share").read(
         {"kernels": ks})
     assert 0 < share <= 105

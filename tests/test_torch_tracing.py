@@ -252,7 +252,9 @@ def test_snapshot_reads_the_kernel_counters():
 
 SNAP = {"counters": {"steps": 4, "host_syncs": 36, "sa_graph_replays": 20,
                      "sa_graph_k2_launches": 440,
-                     "sa_graph_k2_least_bytes": 440 * 33_500},
+                     "sa_graph_k2_least_bytes": 440 * 33_500,
+                     "mg_graph_replays": 42, "mg_graph_k1_launches": 1260,
+                     "mg_graph_k1_least_bytes": 1260 * 67_000},
         "stages": {"pamg.setup.problem": {"calls": 1, "s": 2.5},
                    "pamg.setup.solver": {"calls": 1, "s": 9.0},
                    "pamg.setup.sa_hierarchy": {"calls": 1, "s": 6.0}},
@@ -266,7 +268,8 @@ EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
 @pytest.mark.parametrize("name,want", [
     ("host_syncs_per_step", 9.0), ("sync_wait_us_per_step", 300.0),
     ("setup_problem_s", 2.5), ("setup_solver_s", 9.0),
-    ("setup_sa_hierarchy_s", 6.0), ("sa_graph_replays_per_step", 5.0)])
+    ("setup_sa_hierarchy_s", 6.0), ("sa_graph_replays_per_step", 5.0),
+    ("mg_graph_replays_per_step", 10.5)])
 def test_metric_reader(name, want, monkeypatch):
     """Each of the benchmark's readers of the program's snapshot, on a
     hand-made one; None where its denominator is 0 or its stage absent."""
@@ -280,17 +283,24 @@ def test_metric_reader(name, want, monkeypatch):
 def test_graph_roofline_reader(monkeypatch):
     """``k2_graph_hbm_roofline_share`` takes the traced K2 kernels outside
     every ``k2`` span at the program's least bytes per replayed launch:
-    two of 10 us at 33,500 bytes each is 0.1% of 3.35 TB/s; None without
-    the counters or without such a kernel."""
-    mod = spec.load_metric("k2_graph_hbm_roofline_share")
-    k2 = {"cls": "k2_rowop", "dur": 10.0, "spans": {"krylov", "step"}}
-    record = {"kernels": [
-        k2, dict(k2),
-        {"cls": "k2_rowop", "dur": 100.0, "spans": {"k2", "step"}},
-        {"cls": "k1_phase", "dur": 50.0, "spans": {"k1"}}]}
-    monkeypatch.setattr(tracing, "snapshot", lambda: SNAP)
-    assert mod.read(record) == pytest.approx(0.1)
-    assert mod.read({"kernels": record["kernels"][2:]}) is None
-    assert mod.read({}) is None
-    monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
-    assert mod.read(record) is None
+    two of 10 us at 33,500 bytes each is 0.1% of 3.35 TB/s; and
+    ``k1_graph_hbm_roofline_share`` the K1 kernels outside every ``k1``
+    span: two of 20 us at 67,000 bytes each is 0.1% too.  Each reads None
+    without its counters or without such a kernel."""
+    for name, cls, span, us in (("k2_graph_hbm_roofline_share", "k2_rowop",
+                                 "k2", 10.0),
+                                ("k1_graph_hbm_roofline_share", "k1_phase",
+                                 "k1", 20.0)):
+        mod = spec.load_metric(name)
+        other = "k1_phase" if cls == "k2_rowop" else "k2_rowop"
+        kernel = {"cls": cls, "dur": us, "spans": {"krylov", "step"}}
+        record = {"kernels": [
+            kernel, dict(kernel),
+            {"cls": cls, "dur": 100.0, "spans": {span, "step"}},
+            {"cls": other, "dur": 50.0, "spans": {"step"}}]}
+        monkeypatch.setattr(tracing, "snapshot", lambda: SNAP)
+        assert mod.read(record) == pytest.approx(0.1), name
+        assert mod.read({"kernels": record["kernels"][2:]}) is None
+        assert mod.read({}) is None
+        monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
+        assert mod.read(record) is None
