@@ -19,8 +19,9 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   smoothers (Jacobi, Richardson, colored Gauss-Seidel, direct) run
   ``ops.smoothers`` over K1's zero-round apply.  On a CPU tensor a K1 call
   runs the plain PyTorch version.  On the card the Krylov preconditioner
-  of a geometric-only hierarchy with K1 phases replays as one CUDA graph
-  (``_precond_t``, ``ops.cuda_graph``).
+  and the bare time step's cycles of a geometric-only hierarchy with K1
+  phases each replay as one CUDA graph (``_precond_t``, ``_cycles_t``,
+  ``ops.cuda_graph``).
 - Above ``stencil_max_children`` children a macro (n_split >= 7), or with
   ``stencil_operator=False``, the operator is ``ops.fused.FusedOperator``
   (or ``apply_A``) in plain PyTorch, as it was XLA on the TPU.
@@ -602,6 +603,10 @@ _PHASE_SOLVERS = (Solver.CHEBYSHEV, Solver.BLOCK_JACOBI)
 # span holds the input copy, the replay and the output copy; K1's launches
 MG_GRAPH = cuda_graph.Kind("pamg.mg.graph", "mg_graph", "k1",
                            (K1_KERNEL, K1_CHECKED), copy_out=True)
+# the graph of the bare time step's cycles (``_cycles_t``): its span holds
+# the two input copies, the replay and the output copy; K1's launches
+STEP_GRAPH = cuda_graph.Kind("pamg.step.graph", "step_graph", "k1",
+                             (K1_KERNEL, K1_CHECKED), copy_out=True)
 # identity columns apply_A takes at once when the non-stencil path builds
 # its dense coarse matrix
 COARSE_COLUMNS = 256
@@ -659,7 +664,9 @@ class SemiSolver(nn.Module):
                         and 4 ** cfg.n_split <= cfg.stencil_max_children)
         self.phase_cycle = self.stencil and cfg.solver in _PHASE_SOLVERS
         self.krylov_iters: list[int] = []
-        # the preconditioner's CUDA graphs, one by (dtype, device, shape)
+        # the CUDA graphs of the preconditioner, keyed (dtype, device,
+        # shape), and of the bare step's cycles, ("step", dtype, device,
+        # shape)
         self._graphs: dict = {}
         # the span of each level's V-cycle, named once
         self._level_spans = tuple(f"pamg.vcycle.l{li}" for li in range(nl))
@@ -1160,43 +1167,73 @@ class SemiSolver(nn.Module):
         self.krylov_iters.append(it)
         return x_t
 
+    def _graphable(self, t) -> bool:
+        """Whether cycles on t replay as a CUDA graph: t on the card,
+        geometric levels only (no SA level), K1 phases as the smoother and
+        no coarse CG (whose stop rule reads the card on the host)."""
+        return (t.device.type == "cuda" and self.phase_cycle
+                and self.agg is None and not self.cfg.coarse_krylov)
+
+    def _replay(self, kind: cuda_graph.Kind, key: tuple, fn, ts: tuple):
+        """fn(*ts) as one replay of the solver's CUDA graph of ``kind``
+        under ``key`` (in ``_graphs``; ``cuda_graph.cached``), captured at
+        the first such call, whose result is the eager call's, and
+        captured again, in its place, when the levels' sanitizer sites
+        have changed; the least bytes of its K1 calls as ``ops.phase.watch``
+        reckons them."""
+        sites = tuple(op.sanitizer for op in self.ops)
+        return cuda_graph.cached(
+            self._graphs, key, sites,
+            lambda: cuda_graph.capture(kind, fn, ts, sites, watch_k1()), ts)
+
     def _precond_t(self, r_t):
         """The Krylov preconditioner: one homogeneous cycle from zero on
         r_t, ``_vcycle_t(0, 0, r_t, hom=True)``.
 
-        On a CUDA tensor, with geometric levels only (no SA level), K1
-        phases as the smoother and no coarse CG (whose stop rule reads the
-        card on the host), the cycle is one replay of the solver's CUDA
-        graph for r_t's dtype, device and shape (``MG_GRAPH``, in
-        ``_graphs``; ``cuda_graph.cached``), captured at the first such
-        call, whose result is the eager cycle's, and captured again, in
-        its place, when the levels' sanitizer sites have changed.  A
+        Where ``_graphable(r_t)``, the cycle is one replay of the graph
+        for r_t's dtype, device and shape (``MG_GRAPH``, ``_replay``).  A
         replay returns a copy of the graph's output, since PCG keeps z as
         its search direction across the next call (BiCGStab keeps two
         preconditioned vectors).  Otherwise the cycle runs eagerly."""
         def cycle(r):
             return self._vcycle_t(0, torch.zeros_like(r), r, hom=True)
 
-        if not (r_t.device.type == "cuda" and self.phase_cycle
-                and self.agg is None and not self.cfg.coarse_krylov):
+        if not self._graphable(r_t):
             return cycle(r_t)
-        sites = tuple(op.sanitizer for op in self.ops)
-        return cuda_graph.cached(
-            self._graphs, (r_t.dtype, r_t.device, tuple(r_t.shape)), sites,
-            lambda: cuda_graph.capture(MG_GRAPH, cycle, r_t, sites,
-                                       watch_k1()), r_t)
+        return self._replay(MG_GRAPH,
+                            (r_t.dtype, r_t.device, tuple(r_t.shape)),
+                            cycle, (r_t,))
+
+    def _cycles_t(self, T_t, b_t):
+        """The bare step's ``n_multigrid`` cycles ``_vcycle_t(0, T, b)``
+        from T_t on b_t.
+
+        Where ``_graphable(T_t)``, they are one replay of the graph for
+        T_t's dtype, device and shape (``STEP_GRAPH``, key ("step", dtype,
+        device, shape), ``_replay``), which reads copies of T_t and b_t
+        and returns a copy of its output, since the caller keeps the state
+        across the next step.  Otherwise they run eagerly."""
+        def cycles(x_t, b):
+            for _ in range(self.cfg.n_multigrid):
+                x_t = self._vcycle_t(0, x_t, b)
+            return x_t
+
+        if not self._graphable(T_t):
+            return cycles(T_t, b_t)
+        return self._replay(STEP_GRAPH,
+                            ("step", T_t.dtype, T_t.device, tuple(T_t.shape)),
+                            cycles, (T_t, b_t))
 
     def _step_t(self, T_t):
-        """One theta-scheme time step of the transposed state: the span
-        ``pamg.step``, counted in ``steps``."""
+        """One theta-scheme time step of the transposed state: the right-
+        hand side, then the Krylov solve or the bare cycles
+        (``_cycles_t``); the span ``pamg.step``, counted in ``steps``."""
         tracing.count("steps")
         with tracing.span("pamg.step"):
             b_t = self._rhs_t(T_t)
             if self.cfg.krylov:
                 return self._solve_system_t(b_t, T_t)
-            for _ in range(self.cfg.n_multigrid):
-                T_t = self._vcycle_t(0, T_t, b_t)
-            return T_t
+            return self._cycles_t(T_t, b_t)
 
     def initial_condition(self) -> torch.Tensor:
         """ic callable if configured, else region_id == 4 painted to 1;

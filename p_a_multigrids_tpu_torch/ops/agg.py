@@ -588,7 +588,7 @@ def _capture(h: AggHierarchy, rc, ncycles: int):
     ``cuda_graph.capture`` makes them, with the least bytes of the K2
     calls the capture recorded."""
     return cuda_graph.capture(SA_GRAPH, lambda x: _vcycle_iter(h, x, ncycles),
-                              rc, _sites(h), _k2_least_bytes(h._cycle_ops))
+                              (rc,), _sites(h), _k2_least_bytes(h._cycle_ops))
 
 
 def vcycle_iter(h: AggHierarchy, rc, ncycles: int = 1):
@@ -607,7 +607,7 @@ def vcycle_iter(h: AggHierarchy, rc, ncycles: int = 1):
         return _vcycle_iter(h, rc, ncycles)
     return cuda_graph.cached(
         h.graphs, (rc.dtype, rc.device, tuple(rc.shape), ncycles), _sites(h),
-        lambda: _capture(h, rc, ncycles), rc)
+        lambda: _capture(h, rc, ncycles), (rc,))
 
 
 def correct_t(h: AggHierarchy, r_fine_t, ncycles: int = 1):

@@ -1,20 +1,20 @@
 """A device function replayed as one CUDA graph: the capture and replay
-that the SA cycle (``ops/agg.vcycle_iter``) and the geometric Krylov
-preconditioner (``models/semi``) share.
+that the SA cycle (``ops/agg.vcycle_iter``), the geometric Krylov
+preconditioner and the bare time step's cycles (``models/semi``) share.
 
-``cached(cache, key, sites, make, r)`` returns fn(r) on a CUDA tensor r
-through the graph that ``cache`` keeps under ``key``.  The first call for
-a key, and the first after the sanitizer sites ``sites`` of the operators
-fn applies have changed (a solver made checked after it ran), captures the
-graph in the old one's place (``make``, which calls ``capture``): fn runs
-eagerly on a side stream, which gives the call's result and sets the
-kernels' libraries and cuBLAS up there, and is then captured on that
-stream, reading the static input ``x`` (a copy of r) and writing the
-static output ``y`` in the graph's private memory pool.  A graph launches
-the kernel builds, checked or not, that its capture saw.  Nothing runs
-while fn is captured, so the launch counters of the kind's kernels are
-set back after it: the call counts one eager run's launches, as a replay
-does.  Later calls replay (``Graph.__call__``).
+``cached(cache, key, sites, make, rs)`` returns fn(*rs) on a tuple rs of
+CUDA tensors through the graph that ``cache`` keeps under ``key``.  The
+first call for a key, and the first after the sanitizer sites ``sites`` of
+the operators fn applies have changed (a solver made checked after it
+ran), captures the graph in the old one's place (``make``, which calls
+``capture``): fn runs eagerly on a side stream, which gives the call's
+result and sets the kernels' libraries and cuBLAS up there, and is then
+captured on that stream, reading the static inputs ``xs`` (a copy of each
+of rs) and writing the static output ``y`` in the graph's private memory
+pool.  A graph launches the kernel builds, checked or not, that its
+capture saw.  Nothing runs while fn is captured, so the launch counters of
+the kind's kernels are set back after it: the call counts one eager run's
+launches, as a replay does.  Later calls replay (``Graph.__call__``).
 
 Each kind of graph (``Kind``) has its span and counters in
 ``utils.tracing``: ``<prefix>_captures``, ``<prefix>_replays``, and, added
@@ -71,14 +71,14 @@ def _credit(kernel, delta: dict):
 
 @dataclasses.dataclass
 class Graph:
-    """A captured graph (``capture``): it reads the static input ``x`` and
-    writes the static output ``y``; ``sites`` are the sanitizer sites its
-    capture saw; ``launched`` holds, for each of the kind's kernels, what
-    one run adds to its counters, and ``least_bytes`` the least bytes of
-    the kernel calls of one run."""
+    """A captured graph (``capture``): it reads the static inputs ``xs``
+    and writes the static output ``y``; ``sites`` are the sanitizer sites
+    its capture saw; ``launched`` holds, for each of the kind's kernels,
+    what one run adds to its counters, and ``least_bytes`` the least bytes
+    of the kernel calls of one run."""
     kind: Kind
     graph: torch.cuda.CUDAGraph
-    x: torch.Tensor
+    xs: tuple
     y: torch.Tensor
     sites: tuple
     launched: tuple
@@ -89,12 +89,14 @@ class Graph:
         """Kernel launches of one replay."""
         return sum(d["launches"] for d in self.launched)
 
-    def __call__(self, r):
-        """fn on r: copy it into ``x``, replay on the current stream and
-        take ``y`` or its copy, in the kind's span; then count."""
+    def __call__(self, *rs):
+        """fn on rs: copy each into its ``xs``, replay on the current
+        stream and take ``y`` or its copy, in the kind's span; then
+        count."""
         kind = self.kind
         with tracing.span(kind.span):
-            self.x.copy_(r)
+            for x, r in zip(self.xs, rs):
+                x.copy_(r)
             self.graph.replay()
             out = self.y.clone() if kind.copy_out else self.y
         for kernel, delta in zip(kind.kernels, self.launched):
@@ -106,22 +108,22 @@ class Graph:
         return out
 
 
-def capture(kind: Kind, fn: Callable, r, sites: tuple, watch):
-    """The graph of fn on r's dtype, device and shape, and fn(r) (see the
-    module's doc).  ``watch`` is a context manager around the capture
-    that yields a list, which holds the least bytes of each kernel call
-    made inside it once it has exited."""
-    dev = r.device
-    x = r.clone()
+def capture(kind: Kind, fn: Callable, rs: tuple, sites: tuple, watch):
+    """The graph of fn on the dtypes, device and shapes of the tuple rs,
+    and fn(*rs) (see the module's doc).  ``watch`` is a context manager
+    around the capture that yields a list, which holds the least bytes of
+    each kernel call made inside it once it has exited."""
+    dev = rs[0].device
+    xs = tuple(r.clone() for r in rs)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        e = fn(x)
+        e = fn(*xs)
     before = [_counts(k) for k in kind.kernels]
     graph = torch.cuda.CUDAGraph()
     try:
         with watch as calls, torch.cuda.graph(graph, stream=side):
-            y = fn(x)
+            y = fn(*xs)
         launched = tuple(_delta(_counts(k), b)
                          for k, b in zip(kind.kernels, before))
     finally:
@@ -132,17 +134,17 @@ def capture(kind: Kind, fn: Callable, r, sites: tuple, watch):
     torch.cuda.current_stream(dev).wait_stream(side)
     e.record_stream(torch.cuda.current_stream(dev))
     tracing.count(f"{kind.prefix}_captures")
-    return Graph(kind, graph, x, y, sites, launched, sum(calls)), e
+    return Graph(kind, graph, xs, y, sites, launched, sum(calls)), e
 
 
-def cached(cache: dict, key, sites: tuple, make: Callable, r):
-    """The call on r through the graph ``cache[key]``: ``make()``, which
-    captures it (``capture``) and returns (the graph, the call's result),
-    at the first call for ``key`` and again, in its place, when ``sites``
-    differ from its capture's; else a replay."""
+def cached(cache: dict, key, sites: tuple, make: Callable, rs: tuple):
+    """The call on the tuple rs through the graph ``cache[key]``:
+    ``make()``, which captures it (``capture``) and returns (the graph,
+    the call's result), at the first call for ``key`` and again, in its
+    place, when ``sites`` differ from its capture's; else a replay."""
     graph = cache.get(key)
     if graph is None or graph.sites != sites:
         cache.pop(key, None)
         cache[key], e = make()
         return e
-    return graph(r)
+    return graph(*rs)

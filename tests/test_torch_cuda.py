@@ -835,12 +835,14 @@ PROGRAM_SPANS = {"k1": "pamg.k1", "k2": "pamg.k2", "rhs": "pamg.rhs",
                                       "tri8192_ns2.geo_vcycle"])
 def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
     """One traced window of each benchmark cell's solver, at its size:
-    every K1 launch lies inside a ``pamg.k1`` range, every K2 launch
-    inside a ``pamg.k2`` range (launched one by one) or a
-    ``pamg.sa.graph`` range (replayed from the SA cycle's graph), and
-    each of the program's spans owns exactly the kernels that the
-    benchmark's span of the same layer owns (``yardstick.read_window``
-    over the same events)."""
+    every K1 launch lies inside a ``pamg.k1`` range (launched one by one)
+    or, in the bare geometric step, a ``pamg.step.graph`` range (replayed
+    from the step's graph; ``pamg.vcycle.l<i>`` and ``pamg.k1`` fire
+    there only in the capturing step, in the warm-up), every K2 launch
+    inside a ``pamg.k2`` range or a ``pamg.sa.graph`` range (replayed
+    from the SA cycle's graph), and each of the program's spans owns
+    exactly the kernels that the benchmark's span of the same layer owns
+    (``yardstick.read_window`` over the same events)."""
     import pathlib
 
     from pamg_bench import run, spec, system, yardstick
@@ -851,7 +853,7 @@ def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
     tr = run.Traffic(cell, solver, 2 ** 31 + 12345, cuda)
     rec = system.Recorder(spans=True)
     names = system.SPANS + tuple(PROGRAM_SPANS.values()) + (
-        "pamg.step", "pamg.residual", agg.GRAPH_SPAN)
+        "pamg.step", "pamg.residual", agg.GRAPH_SPAN, semi.STEP_GRAPH.span)
     with rec:
         rec.count_rowops(solver)
         S = run.run_steps(st, tr, rec, None,
@@ -869,7 +871,8 @@ def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
     assert (launched["k2_rowop"] > 0) == ("amg" in workload)
     for k in ks:
         if k["cls"] == "k1_phase":
-            assert "pamg.k1" in k["spans"], k["name"]
+            assert ("pamg.k1" in k["spans"]) != (
+                semi.STEP_GRAPH.span in k["spans"]), k["name"]
         if k["cls"] == "k2_rowop":
             assert ("pamg.k2" in k["spans"]) != (
                 agg.GRAPH_SPAN in k["spans"]), k["name"]
@@ -879,6 +882,9 @@ def test_program_spans_own_the_benchmarks_kernels(cuda, workload):
 
     if "amg" in workload:
         assert owned("pamg.k2") and owned(agg.GRAPH_SPAN)
+        assert not owned(semi.STEP_GRAPH.span)
+    else:
+        assert owned("pamg.k1") and owned(semi.STEP_GRAPH.span)
 
     for bench, program in PROGRAM_SPANS.items():
         assert owned(bench) == owned(program), bench
@@ -921,7 +927,7 @@ def test_sa_graph_replay_is_bit_identical(amg_cell_solver, dtype):
         got = agg.vcycle_iter(h, rc, 1).clone()
         assert torch.equal(got, want)
     (graph,) = h.graphs.values()
-    assert torch.equal(graph.x, rcs[-1])
+    assert len(graph.xs) == 1 and torch.equal(graph.xs[0], rcs[-1])
 
 
 def test_sa_graph_counts_what_ran(amg_cell_solver):
@@ -1077,7 +1083,7 @@ def test_mg_graph_replay_is_bit_identical(sweep_cell_solvers, dtype):
         assert torch.equal(got[-1], _eager_cycle(solver, r))
     (graph,) = solver._graphs.values()
     assert graph.kind is semi.MG_GRAPH
-    assert torch.equal(graph.x, rs[-1])
+    assert len(graph.xs) == 1 and torch.equal(graph.xs[0], rs[-1])
     for g, r in zip(got[1:], rs):
         assert g.data_ptr() != graph.y.data_ptr()
         assert torch.equal(g, _eager_cycle(solver, r))
@@ -1235,3 +1241,191 @@ def test_mg_graph_replays_are_traced(sweep_cell_solvers):
     share = spec.load_metric("k1_graph_hbm_roofline_share").read(
         {"kernels": ks})
     assert 0 < share <= 105
+
+
+@pytest.fixture(scope="module")
+def geo_cell_solvers():
+    """The benchmark's ``tri8192_ns2.geo_vcycle`` solver at its size, in
+    its float32 and in float64, by dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the bare step's graph runs only "
+                    "on the GPU")
+    import pathlib
+
+    from pamg_bench import spec
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cell = spec.load_cell(root, "tri8192_ns2.geo_vcycle")
+    mesh = structured.tri_mesh(*cell.config["mesh"]["tri_mesh"])
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        cfg = SemiConfig(**{**cell.semi_fields(),
+                            "dtype": str(dtype).split(".")[1]})
+        out[dtype] = semi.SemiSolver(semi.build_problem(mesh, cfg),
+                                     torch.device("cuda"))
+    return out
+
+
+def _geo_states(solver, n=3):
+    """The solver with no graph yet, and n seeded states near its initial
+    condition, transposed."""
+    solver._graphs.clear()
+    T = solver.initial_condition()
+    rng = np.random.default_rng(13)
+    return [semi.to_t(T + torch.as_tensor(0.1 * rng.normal(size=T.shape),
+                                          dtype=T.dtype, device=T.device))
+            for _ in range(n)]
+
+
+def _eager_step(solver, T_t):
+    """The bare step as it runs off the graph: the right-hand side, then
+    ``n_multigrid`` cycles from T_t."""
+    b_t = solver._rhs_t(T_t)
+    for _ in range(solver.cfg.n_multigrid):
+        T_t = solver._vcycle_t(0, T_t, b_t)
+    return T_t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_step_graph_replay_is_bit_identical(geo_cell_solvers, dtype):
+    """The bare step on the card == the eager cycles, bit for bit: the
+    first step (it captures the graph) and three replays of the one graph,
+    each handing back a copy that the next replay leaves alone."""
+    solver = geo_cell_solvers[dtype]
+    assert not solver.cfg.krylov and solver.cfg.n_multigrid == 2
+    Ts = _geo_states(solver)
+    got = []
+    for T in Ts[:1] + Ts:
+        got.append(solver._step_t(T))
+        assert torch.equal(got[-1], _eager_step(solver, T))
+    (graph,) = solver._graphs.values()
+    assert graph.kind is semi.STEP_GRAPH
+    assert list(solver._graphs)[0][0] == "step"
+    assert len(graph.xs) == 2 and torch.equal(graph.xs[0], Ts[-1])
+    assert torch.equal(graph.xs[1], solver._rhs_t(Ts[-1]))
+    for g, T in zip(got[1:], Ts):
+        assert g.data_ptr() != graph.y.data_ptr()
+        assert torch.equal(g, _eager_step(solver, T))
+
+
+def test_step_graph_counts_what_ran(geo_cell_solvers):
+    """The capturing step counts one eager step's K1 launches, rounds and
+    tiers, as each of N replayed steps does; the counters count one
+    capture, N replays, and N times the replay's K1 launches and the least
+    bytes of the cycles' K1 calls, as ``utils.profiling.least_bytes``
+    reckons an eager call's."""
+    from p_a_multigrids_tpu_torch.utils import tracing
+
+    def counts():
+        return {"launches": K.KERNEL.launches, "rounds": K.KERNEL.rounds,
+                "checked": K.CHECKED.launches,
+                **{f"tier_{t}": n for t, n in K.KERNEL.by_tier.items()}}
+
+    def grown(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    solver = geo_cell_solvers[torch.float32]
+    Ts = _geo_states(solver)
+    n0 = counts()
+    with K.watch() as calls:
+        _eager_step(solver, Ts[0])
+    eager = grown(n0, counts())
+    assert eager["launches"] == len(calls) == 6
+    assert eager["checked"] == 0
+    c0 = dict(tracing.snapshot()["counters"])
+    n0 = counts()
+    solver._step_t(Ts[0])
+    torch.cuda.synchronize()
+    assert grown(n0, counts()) == eager
+    (graph,) = solver._graphs.values()
+    assert graph.launches == eager["launches"]
+    assert graph.least_bytes == sum(calls)
+    for T in Ts:
+        solver._step_t(T)
+    torch.cuda.synchronize()
+    assert grown(n0, counts()) == {k: (len(Ts) + 1) * v
+                                   for k, v in eager.items()}
+    c1 = tracing.snapshot()["counters"]
+
+    def added(name):
+        return c1.get(name, 0) - c0.get(name, 0)
+
+    assert added("steps") == len(Ts) + 1
+    assert added("step_graph_captures") == 1
+    assert added("step_graph_replays") == len(Ts)
+    assert added("step_graph_k1_launches") == len(Ts) * eager["launches"]
+    assert added("step_graph_k1_least_bytes") == len(Ts) * sum(calls)
+    assert not [n for n in c1 if n.startswith("mg_graph_") and added(n)]
+
+
+def test_step_graph_follows_the_sanitizer(geo_cell_solvers):
+    """Sites given to the levels' operators after a capture (a solver made
+    checked after it ran) make the next step capture the checked K1 build
+    in the unchecked graph's place: its launches are all checked, its
+    bits the unchecked graph's; with the sites taken off again the next
+    step captures the unchecked build once more."""
+    from p_a_multigrids_tpu_torch.utils import debugging
+    solver = geo_cell_solvers[torch.float32]
+    (T,) = _geo_states(solver, 1)
+    want = solver._step_t(T)
+    (unchecked,) = solver._graphs.values()
+    san = debugging.Sanitizer(solver.device)
+    for i, op in enumerate(solver.ops):
+        op.sanitizer = san.site(f"level {i}", op.U)
+    try:
+        n0, c0 = K.KERNEL.launches, K.CHECKED.launches
+        for _ in range(2):
+            assert torch.equal(solver._step_t(T), want)
+        torch.cuda.synchronize()
+        assert K.KERNEL.launches == n0
+        assert K.CHECKED.launches - c0 == 2 * unchecked.launches
+        san.raise_on_fault()
+        (checked,) = solver._graphs.values()
+        assert checked.launched[1]["launches"] == unchecked.launches
+    finally:
+        for op in solver.ops:
+            op.sanitizer = None
+    assert torch.equal(solver._step_t(T), want)
+    assert K.KERNEL.launches - n0 == unchecked.launches
+    (graph,) = solver._graphs.values()
+    assert all(site is None for site in graph.sites)
+
+
+def test_step_graph_replays_are_traced(geo_cell_solvers):
+    """One traced window of replayed steps, read as the benchmark reads
+    it: the trace holds every replayed K1 launch the counter counted,
+    each inside a ``pamg.step.graph`` range and outside every ``pamg.k1``
+    range; ``k1_step_graph_hbm_roofline_share`` reads them at under 105%
+    of the roofline and ``step_graph_replays_per_step`` one replay a
+    step."""
+    from p_a_multigrids_tpu_torch.utils import tracing
+    from pamg_bench import spec, system, yardstick
+    solver = geo_cell_solvers[torch.float32]
+    Ts = _geo_states(solver)
+    solver._step_t(Ts[0])
+    torch.cuda.synchronize()
+    (graph,) = solver._graphs.values()
+    span = semi.STEP_GRAPH.span
+
+    def window():
+        for T in Ts:
+            solver._step_t(T)
+
+    for _ in range(5):
+        tracing.reset()
+        events, launched = yardstick.trace_window(window,
+                                                  system.launch_counts)
+        ks, _ = yardstick.read_window(events, ("pamg.k1", span))
+        if yardstick.missing_launches(ks, launched) is None:
+            break
+    else:
+        pytest.fail(yardstick.missing_launches(ks, launched))
+    assert launched == {"k1_phase": graph.launches * len(Ts), "k2_rowop": 0}
+    k1 = [k for k in ks if k["cls"] == "k1_phase"]
+    assert len(k1) == graph.launches * len(Ts)
+    assert all(span in k["spans"] and "pamg.k1" not in k["spans"]
+               for k in k1)
+    share = spec.load_metric("k1_step_graph_hbm_roofline_share").read(
+        {"kernels": ks})
+    assert 0 < share <= 105
+    replays = spec.load_metric("step_graph_replays_per_step").read({})
+    assert replays == 1.0

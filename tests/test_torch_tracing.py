@@ -254,7 +254,9 @@ SNAP = {"counters": {"steps": 4, "host_syncs": 36, "sa_graph_replays": 20,
                      "sa_graph_k2_launches": 440,
                      "sa_graph_k2_least_bytes": 440 * 33_500,
                      "mg_graph_replays": 42, "mg_graph_k1_launches": 1260,
-                     "mg_graph_k1_least_bytes": 1260 * 67_000},
+                     "mg_graph_k1_least_bytes": 1260 * 67_000,
+                     "step_graph_replays": 3, "step_graph_k1_launches": 18,
+                     "step_graph_k1_least_bytes": 18 * 134_000},
         "stages": {"pamg.setup.problem": {"calls": 1, "s": 2.5},
                    "pamg.setup.solver": {"calls": 1, "s": 9.0},
                    "pamg.setup.sa_hierarchy": {"calls": 1, "s": 6.0}},
@@ -269,7 +271,8 @@ EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
     ("host_syncs_per_step", 9.0), ("sync_wait_us_per_step", 300.0),
     ("setup_problem_s", 2.5), ("setup_solver_s", 9.0),
     ("setup_sa_hierarchy_s", 6.0), ("sa_graph_replays_per_step", 5.0),
-    ("mg_graph_replays_per_step", 10.5)])
+    ("mg_graph_replays_per_step", 10.5),
+    ("step_graph_replays_per_step", 0.75)])
 def test_metric_reader(name, want, monkeypatch):
     """Each of the benchmark's readers of the program's snapshot, on a
     hand-made one; None where its denominator is 0 or its stage absent."""
@@ -304,3 +307,27 @@ def test_graph_roofline_reader(monkeypatch):
         assert mod.read({}) is None
         monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
         assert mod.read(record) is None
+
+
+def test_step_graph_roofline_reader(monkeypatch):
+    """``k1_step_graph_hbm_roofline_share`` takes the traced K1 kernels
+    outside every ``k1`` span at the program's least bytes per launch of
+    the bare step's graph: two of 40 us at 134,000 bytes each is 0.1% of
+    3.35 TB/s.  It reads None without its counters (a program that
+    replays no step, or has no such counters) or without such a kernel."""
+    mod = spec.load_metric("k1_step_graph_hbm_roofline_share")
+    kernel = {"cls": "k1_phase", "dur": 40.0, "spans": {"step"}}
+    record = {"kernels": [
+        kernel, dict(kernel),
+        {"cls": "k1_phase", "dur": 100.0, "spans": {"k1", "step"}},
+        {"cls": "k2_rowop", "dur": 50.0, "spans": {"step"}}]}
+    monkeypatch.setattr(tracing, "snapshot", lambda: SNAP)
+    assert mod.read(record) == pytest.approx(0.1)
+    assert mod.read({"kernels": record["kernels"][2:]}) is None
+    assert mod.read({}) is None
+    mg_only = {**SNAP, "counters": {k: v for k, v in SNAP["counters"].items()
+                                    if not k.startswith("step_graph_")}}
+    monkeypatch.setattr(tracing, "snapshot", lambda: mg_only)
+    assert mod.read(record) is None
+    monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
+    assert mod.read(record) is None
