@@ -7,6 +7,8 @@ at 1e-12, and the SA V-cycle, the correction and the tentative transfers
 match JAX at 1e-12 on the same hierarchy.
 """
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -5,6 +5,8 @@ BiCGStab, the same iteration counts), the SA wrappers, ``BSR``'s methods,
 ``block_jacobi``, the stencil's smoothing methods, the local matrices, the
 geometry, ``tet_rule`` and ``load_committed``."""
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -13,6 +13,8 @@
 - ``convert.assembled_from_numpy`` carries a JAX mode-10 solver over.
 """
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

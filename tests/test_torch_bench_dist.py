@@ -14,6 +14,8 @@ each dist8 configuration's ghost report, work fraction and
 virtual devices, the (2, 4) mesh shape included, and overhead's halo
 window W equals its ``W``.  Integers exactly, fractions to 1e-12."""
 
+import torch_threads  # noqa: F401
+
 import contextlib
 import importlib.util
 import io

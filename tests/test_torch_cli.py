@@ -2,6 +2,9 @@
 and with every --solver; --profile writes a torch.profiler trace; the port
 runs with jax blocked."""
 
+import torch_threads  # noqa: F401
+
+import ast
 import json
 import pathlib
 import re
@@ -10,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from p_a_multigrids_tpu import __main__ as jcli
@@ -261,3 +265,24 @@ def test_sources_free_of_jax():
     assert len(files) > 15
     for f in files:
         assert not bad.search(f.read_text()), f
+
+
+def test_port_tests_run_on_one_thread():
+    """tests/torch_threads.py holds in this process and its children, and
+    every port test file imports it first."""
+    assert torch.get_num_threads() == 1
+    pools = threadpoolctl.threadpool_info()
+    assert pools and all(p["num_threads"] == 1 for p in pools), pools
+    env = subprocess.run(
+        [sys.executable, "-c", "import os; print(os.environ"
+         "['OMP_NUM_THREADS'], os.environ['OPENBLAS_NUM_THREADS'],"
+         " os.environ['MKL_NUM_THREADS'])"],
+        capture_output=True, text=True, check=True).stdout.split()
+    assert env == ["1", "1", "1"]
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    assert len(files) > 30
+    for f in files:
+        first = next(n for n in ast.parse(f.read_text()).body
+                     if isinstance(n, (ast.Import, ast.ImportFrom)))
+        assert (isinstance(first, ast.Import)
+                and [a.name for a in first.names] == ["torch_threads"]), f

@@ -11,6 +11,8 @@ device the kernel tests skip; the build test runs only where there is no
 CUDA compiler.
 """
 
+import torch_threads  # noqa: F401
+
 import json
 import os
 

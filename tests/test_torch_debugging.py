@@ -7,6 +7,8 @@ range-checked when the solver is built, the error record decodes into
 IndexError / FloatingPointError, and the --debug CLI equals the JAX
 package's at rel 1e-9."""
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 import json
 

@@ -11,6 +11,8 @@ per macro) == the JAX package's, float64 on the CPU.
 The V- and W-cycles of the deep path are in tests/test_torch_deep_cycles.py.
 """
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

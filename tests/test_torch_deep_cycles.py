@@ -10,6 +10,8 @@ degree-6 phases at C = 256 and 1024 are held against JAX in
 tests/test_torch_deep.py.
 """
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

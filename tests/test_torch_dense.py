@@ -3,6 +3,8 @@ package's and numpy's solves, at tests/test_dense.py's tolerances (Thomas
 1e-10, block Thomas 1e-9, Gauss-Jordan, inverse and PLU 1e-8), in float64
 on the CPU; torch.linalg is the yardstick only."""
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

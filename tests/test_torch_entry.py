@@ -2,6 +2,8 @@
 package's ``__graft_entry__.entry`` step on the same small problem
 (float32, CPU, 1e-5)."""
 
+import torch_threads  # noqa: F401
+
 import importlib.util
 import pathlib
 

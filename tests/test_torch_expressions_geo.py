@@ -2,6 +2,8 @@
 bit for bit, and the CLI's expression flags and .geo meshes == the JAX
 CLI's (float64, CPU, rel 1e-9)."""
 
+import torch_threads  # noqa: F401
+
 import json
 
 import numpy as np

@@ -3,6 +3,8 @@ package's FusedOperator and the port's own apply_A, float64 on the CPU,
 with and without the Dirichlet ghosts, for every physics toggle and with
 no-flux (Neumann) faces."""
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

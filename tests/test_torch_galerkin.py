@@ -10,6 +10,8 @@ package's, float64 on the CPU.
 - A solver step with ``coarse_operator="galerkin"`` == JAX to 1e-11.
 """
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -5,6 +5,8 @@ re-recorded live), the port reproduces every small pin in float64 within
 1e-10 relative per cycle (plus twice the float64 evaluation floor), and
 the pins have the shape of tests/test_history.py's level-sweep studies."""
 
+import torch_threads  # noqa: F401
+
 import os
 
 import numpy as np

@@ -4,6 +4,8 @@ has the JAX CLI's names and count, a checkpointed run resumes bit for bit,
 and a checkpoint written by either package resumes in the other (float64,
 CPU, 1e-12)."""
 
+import torch_threads  # noqa: F401
+
 import json
 import os
 

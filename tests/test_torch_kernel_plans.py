@@ -3,6 +3,8 @@ needed): which tier of K1 each main-path level gets, with its launch shape,
 and which variant of K2 each SA operator shape gets, in float32 and in
 float64."""
 
+import torch_threads  # noqa: F401
+
 import ctypes
 
 import pytest

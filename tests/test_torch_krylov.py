@@ -15,6 +15,8 @@ starting residual), and reaches the true solution where it converges.  PCG
 is held to 1e-12 on an SPD system.
 """
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

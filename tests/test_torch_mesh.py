@@ -2,6 +2,8 @@
 CLI's --mesh) == the JAX package's, on .msh files written from generated
 meshes."""
 
+import torch_threads  # noqa: F401
+
 import json
 
 import numpy as np

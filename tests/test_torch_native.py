@@ -4,6 +4,8 @@ native and Python paths, bit for bit; the reader falls back only where the
 C++ scanner rejects a file; a failed build raises; builds that start
 together make one library."""
 
+import torch_threads  # noqa: F401
+
 import json
 import pathlib
 import subprocess

@@ -5,11 +5,13 @@ The port runs one process a rank over torch.distributed (gloo on the CPU);
 one pool of ranks a world size runs every case of that size
 (``parallel.cases.run_cases``, in a module-scoped fixture), with one BLAS
 thread a rank; the JAX references run in this process on the virtual CPU
-devices, under the same BLAS thread count.  Tolerances are those of the JAX
-package's own tests/test_parallel.py (1e-11 / 1e-12 geometric, 1e-8
-Krylov, 1e-9 coarse Krylov, amg and coarse_agg); each geometric case also
-equals the port's serial twin on the same reordered mesh bit for bit.
+devices, on one thread too (tests/torch_threads.py).  Tolerances are those
+of the JAX package's own tests/test_parallel.py (1e-11 / 1e-12 geometric,
+1e-8 Krylov, 1e-9 coarse Krylov, amg and coarse_agg); each geometric case
+also equals the port's serial twin on the same reordered mesh bit for bit.
 """
+
+import torch_threads  # noqa: F401
 
 import json
 import pathlib
@@ -20,7 +22,6 @@ import time
 import jax
 import numpy as np
 import pytest
-import threadpoolctl
 import torch
 
 from p_a_multigrids_tpu import __main__ as jcli
@@ -120,15 +121,7 @@ def _jax_dist(mesh, cfg: dict, ranks: int, load=None, save=None):
 
 
 @pytest.fixture(scope="module")
-def blas1():
-    """One BLAS thread in this process, as in every rank: the f64 SA
-    setup moves at ~1e-5 with the thread count."""
-    with threadpoolctl.threadpool_limits(1):
-        yield
-
-
-@pytest.fixture(scope="module")
-def ckpt_dir(tmp_path_factory, blas1):
+def ckpt_dir(tmp_path_factory):
     """A checkpoint that the JAX distributed solver wrote after one step of
     the geometric configuration on 4 devices."""
     d = tmp_path_factory.mktemp("ckpt")
@@ -215,7 +208,7 @@ def test_ring_halo_against_global_slices(results, ranks, U_loc, H):
 
 
 @pytest.mark.parametrize("cid", [c for c, s in SPECS.items() if s[4]])
-def test_stencil_solver_matches_jax(results, blas1, cid):
+def test_stencil_solver_matches_jax(results, cid):
     ranks, mesh, cfg, extra, (rtol, atol), _ = SPECS[cid]
     want = _jax_dist(mesh, cfg, ranks)
     np.testing.assert_allclose(results[cid]["std"], want, rtol=rtol,
@@ -254,7 +247,7 @@ def test_mesh_shape_and_ghost_cap_leave_bits_unchanged(results):
     assert any(lv["He_mid"] < lv["He"] for lv in results["frac0"]["ghost"])
 
 
-def test_ghost_report_corrects_the_final_chunk(results, blas1):
+def test_ghost_report_corrects_the_final_chunk(results):
     """Fields equal the JAX package's report, except redundant_frac where
     the last chunk is short (R % chunk != 0): there the port counts its
     final = R - chunk ((R - 1) // chunk) rounds on the final geometry, the
@@ -283,7 +276,7 @@ def test_ghost_report_corrects_the_final_chunk(results, blas1):
     assert short == 1
 
 
-def test_semi_solver_matches_jax(results, blas1):
+def test_semi_solver_matches_jax(results):
     r = results["semi"]
     jd = DistributedSemiSolver(jstructured.tri_mesh(*SEMI_MESH),
                                _jax_cfg(SEMI), devices=jax.devices()[:8])
@@ -291,7 +284,7 @@ def test_semi_solver_matches_jax(results, blas1):
     np.testing.assert_allclose(r["active"], want, rtol=1e-12, atol=1e-12)
 
 
-def test_checkpoints_across_packages_and_solvers(results, ckpt_dir, blas1):
+def test_checkpoints_across_packages_and_solvers(results, ckpt_dir):
     """A resumed port run equals the straight one bit for bit; the port
     resumes the JAX distributed solver's file and the JAX distributed
     solver the port's; the serial port solver resumes the distributed
@@ -316,7 +309,7 @@ def test_checkpoints_across_packages_and_solvers(results, ckpt_dir, blas1):
     np.testing.assert_allclose(got3, want3, rtol=1e-11, atol=1e-12)
 
 
-def test_cli_devices_matches_jax(capsys, blas1):
+def test_cli_devices_matches_jax(capsys):
     argv = ["--mode", "9", "--rows", "4", "--cols", "4", "--ntime", "2",
             "--devices", "4"]
     jcli.main(argv + ["--cpu", "--f64"])

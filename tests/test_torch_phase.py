@@ -8,6 +8,8 @@ Tolerances are those of tests/test_pallas.py: x to 1e-12, mul_self(z) to
 1e-11.
 """
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,5 +1,7 @@
 """Host-side pieces of the port's GPU profiler (no card needed)."""
 
+import torch_threads  # noqa: F401
+
 import contextlib
 import json
 

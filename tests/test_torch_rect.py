@@ -4,6 +4,8 @@ quad_det_nlx, det_snlx, write_curve) equal the JAX functions, steps equal
 the JAX steps to 1e-12, and the moving-box and Jacobi-equals-direct gates
 of tests/test_transport.py pass on the port."""
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax.numpy as jnp

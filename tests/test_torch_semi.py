@@ -10,6 +10,8 @@ same number of iterations and reaches the same solution to 1e-9.  The
 probed stencil equals the closed form blockwise.
 """
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -6,6 +6,8 @@ bit-identical to the JAX package's in the run dtype, so that the port's
 device code starts from the reference's exact coefficients.
 """
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import numpy as np

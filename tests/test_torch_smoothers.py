@@ -2,6 +2,8 @@
 the CPU, on a small SPD system: each relaxation over the same operator
 callable, right-hand side and start gives the same iterate to 1e-12."""
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

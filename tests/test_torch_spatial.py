@@ -4,6 +4,8 @@ the JAX package's, float64 on the CPU, to 1e-12: the four physics of
 tests/test_assembled.py and a no-flux (Neumann) mask, with and without the
 Dirichlet ghosts."""
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

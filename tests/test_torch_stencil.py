@@ -1,6 +1,8 @@
 """The port's StencilOperator (direct index gathers) == the JAX package's
 (one-hot matmul gathers), float64 on the CPU."""
 
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,8 @@ the eager cycles' result bit for bit, the solver keeps no graph, and no
 geometric-only hierarchy with K1 phases replay as one CUDA graph
 (``tests/test_torch_cuda.py``)."""
 
+import torch_threads  # noqa: F401
+
 import types
 
 import numpy as np

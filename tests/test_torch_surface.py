@@ -17,6 +17,8 @@ small size (~15 s; the rest of the file reads sources only).  And
 configuration, and a JSON key for each field the script prints
 (``TUNE_FIELDS``)."""
 
+import torch_threads  # noqa: F401
+
 import argparse
 import ast
 import contextlib

@@ -4,6 +4,8 @@ two macros (6,144 DOF) in place of its 96: the port's step held to the
 plain reference's check (``pamg_bench.reference.check.SolveCheck``), and
 its preconditioner, which replays a CUDA graph only on the card."""
 
+import torch_threads  # noqa: F401
+
 import json
 import pathlib
 

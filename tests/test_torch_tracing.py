@@ -4,6 +4,8 @@ sync count, the off path (no profiler: no clock read, no record range),
 the set-up stages, the kernel-build counters, and the benchmark's
 readers of them."""
 
+import torch_threads  # noqa: F401
+
 import json
 import time
 

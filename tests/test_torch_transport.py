@@ -9,6 +9,8 @@ is exact, and the erfc breakthrough gate (L1 < 0.01, inlet pinned within
 0.01) passes on the generated strip (tests/test_transport.py:16-70).
 """
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import numpy as np

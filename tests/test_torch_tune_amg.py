@@ -10,6 +10,8 @@ stand-in mesh shrunk: one JSON line with a row for every case, exit 0; and
 with one configuration failing to build, those rows' errors, the line all
 the same and exit 1."""
 
+import torch_threads  # noqa: F401
+
 import importlib.util
 import json
 import pathlib

@@ -2,6 +2,8 @@
 the JAX package's ``validation/analytical.py``, ``gates.py`` and
 ``probe.py`` on seeded inputs."""
 
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import numpy as np
