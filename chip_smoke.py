@@ -124,6 +124,11 @@ its seven cases held to validation/tune_amg_pins.json (the JAX system's
 scripts/tune_amg.py on the JAX package): no case in error, K1 and K2 in
 every case, each rho within 2% plus its pin's float32 floor, PCG
 iterations within one.
+Then the level transfers (phase 39): the restriction with the residual
+fused in and the prolongation with the add (csrc/transfer.cu) at every
+level pair of the benchmark's cells, float32 and float64, against their
+plain versions, and timed beside their bounds and the PyTorch ops the
+cycle ran before.
 Every phase prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
@@ -342,6 +347,21 @@ def history(solver, cycles: int = 10):
         r = solver.residual(0, from_t(x_t), from_t(b_t), True)
         out.append(float(r.abs().max()))
     return out
+
+
+def transfer_per_cycle(solver) -> int:
+    """Transfer kernel launches in one geometric cycle of ``solver``: a
+    restriction and a prolongation on each visit of a level that has a
+    geometric level below it (none in amg mode), two visits of each level
+    below the top two under W-cycles (``SemiSolver._vcycle_t``)."""
+    top = (solver._agg_li if solver.agg is not None
+           else len(solver.p.levels) - 1)
+    visits, launches = 1, 0
+    for li in range(top):
+        launches += 2 * visits
+        if solver.cfg.cycle_type == "w" and li < 2:
+            visits *= 2
+    return launches
 
 
 # The distributed solver (slice 8, phase 32) on the bench stand-in: the
@@ -723,6 +743,7 @@ def native_profile_phase(card: str):
     from p_a_multigrids_tpu_torch.mesh import gmsh, topology
     from p_a_multigrids_tpu_torch.ops import phase as K
     from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops import transfer as KT
     from p_a_multigrids_tpu_torch.ops.fused import from_t, to_t
     from p_a_multigrids_tpu_torch.utils import native
     from p_a_multigrids_tpu_torch.utils.profiling import (
@@ -732,9 +753,11 @@ def native_profile_phase(card: str):
     def counts_zero():
         K.KERNEL.reset()
         K2.KERNEL.launches = 0
+        KT.KERNEL.reset()
 
     def read_counts():
-        return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches}
+        return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches,
+                "transfer": KT.KERNEL.launches}
 
     def same(a, b):
         return a.dtype == b.dtype and np.array_equal(a, b)
@@ -875,6 +898,7 @@ def api_phase(card: str):
     from p_a_multigrids_tpu_torch.ops import bsr, smoothers, stencil
     from p_a_multigrids_tpu_torch.ops import phase as K
     from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops import transfer as KT
     from p_a_multigrids_tpu_torch.ops.fused import FusedOperator, from_t, to_t
     from p_a_multigrids_tpu_torch.utils.profiling import (bench_solver,
                                                           event_ms)
@@ -882,9 +906,11 @@ def api_phase(card: str):
     def counts_zero():
         K.KERNEL.reset()
         K2.KERNEL.launches = 0
+        KT.KERNEL.reset()
 
     def read_counts():
-        return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches}
+        return {"k1_phase": K.KERNEL.launches, "k2_rowop": K2.KERNEL.launches,
+                "transfer": KT.KERNEL.launches}
 
     # (a) no device: the card ------------------------------------------------
     cfg = RectConfig(no_ele_row=200, no_ele_col=1024)
@@ -953,7 +979,8 @@ def api_phase(card: str):
         finite=bool(torch.isfinite(x_inv).all()), card=repr(card))
     say("time", path="block_jacobi_inv", ms=f"{ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", card=repr(card))
-    check(inv_counts == {"k1_phase": API_SWEEPS, "k2_rowop": 0},
+    check(inv_counts == {"k1_phase": API_SWEEPS, "k2_rowop": 0,
+                         "transfer": 0},
           f"block_jacobi_inv launched {inv_counts}")
     check(same, "block_jacobi_inv differs from block_jacobi_solve")
     check(bool(torch.isfinite(x_inv).all()) and err <= 1e-4 * scale,
@@ -1076,12 +1103,14 @@ def unit_counts(sv) -> dict:
 
     from p_a_multigrids_tpu_torch.ops import phase as K
     from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops import transfer as KT
     from p_a_multigrids_tpu_torch.ops.fused import to_t
 
     def now():
         return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
                 "k1_deep": K.KERNEL.launches_deep,
-                "k2_rowop": K2.KERNEL.launches}
+                "k2_rowop": K2.KERNEL.launches,
+                "transfer": KT.KERNEL.launches}
 
     b_t = sv._rhs_t(to_t(sv.initial_condition()))
     before = now()
@@ -1130,6 +1159,7 @@ def f64_phase(card: str, f32: dict) -> list:
     from p_a_multigrids_tpu_torch.models import semi
     from p_a_multigrids_tpu_torch.ops import phase as K
     from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops import transfer as KT
     from p_a_multigrids_tpu_torch.ops import stencil
     from p_a_multigrids_tpu_torch.ops.fused import to_t
     from p_a_multigrids_tpu_torch.utils import debugging
@@ -1145,7 +1175,7 @@ def f64_phase(card: str, f32: dict) -> list:
     rng = np.random.default_rng(35)
     pins = pins_mod.load_pins()
     t_phase = time.perf_counter()
-    count_keys = ("k1_phase", "k1_rounds", "k1_deep", "k2_rowop")
+    count_keys = ("k1_phase", "k1_rounds", "k1_deep", "k2_rowop", "transfer")
     # the worst |kernel - plain| by kernel entry, and the launches of the
     # main runs below by K1 tier and of K2
     errs = dict.fromkeys(("small", "resident", "stream", "apply", "k2"), 0.0)
@@ -1156,6 +1186,7 @@ def f64_phase(card: str, f32: dict) -> list:
         K.KERNEL.reset()
         K.CHECKED.reset()
         K2.KERNEL.launches = K2.CHECKED.launches = 0
+        KT.KERNEL.reset()
 
     def read_counts():
         return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
@@ -1163,7 +1194,9 @@ def f64_phase(card: str, f32: dict) -> list:
                 "k1_tiers": {k: v for k, v in K.KERNEL.by_tier.items() if v},
                 "k2_rowop": K2.KERNEL.launches,
                 "k1_checked": K.CHECKED.launches,
-                "k2_checked": K2.CHECKED.launches}
+                "k2_checked": K2.CHECKED.launches,
+                "transfer": KT.KERNEL.launches,
+                "transfer_by": dict(KT.KERNEL.by_entry)}
 
     def main_run(path, fn):
         """fn() as one of this phase's main runs: counts set to 0 just
@@ -2047,6 +2080,131 @@ def tune_amg_phase(card: str, parity) -> dict:
     return out
 
 
+# the level pairs of the benchmark's cells (fine children, macros): the
+# level sweep's C = 1024 -> 256 -> 64 -> 16 -> 4 -> 1 at U = 96 and the
+# headline mesh's C = 16 -> 4 at U = 8192
+TRANSFER_SHAPES = [(1024, 96), (256, 96), (64, 96), (16, 96), (4, 96),
+                   (16, 8192)]
+# largest distance from the plain version, relative to the output's norm
+TRANSFER_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def transfer_least_bytes(Cf: int, U: int, itemsize: int, which: str) -> int:
+    """Bytes one transfer launch must move at least: the restriction reads
+    z (3 values a fine pair) and S (9), or a residual r (3) with no S,
+    writes bc (3 a coarse pair); the prolongation reads x (3 a fine pair)
+    and e (3 a coarse pair) and writes out (3 a fine pair); each reads its
+    table (int64) and pweights (9 a fine child) once."""
+    Cc = Cf // 4
+    if which == "restrict_z":
+        vals, table = 12 * Cf * U + 3 * Cc * U, 8 * 4 * Cc
+    elif which == "restrict_r":
+        vals, table = 3 * Cf * U + 3 * Cc * U, 8 * 4 * Cc
+    else:
+        vals, table = 6 * Cf * U + 3 * Cc * U, 8 * Cf
+    return (vals + 9 * Cf) * itemsize + table
+
+
+def transfer_phase(card: str, main_launches: dict) -> list:
+    """Phase 39: the level-transfer kernels (csrc/transfer.cu) at the
+    cells' level pairs, float32 and float64: the restriction with the
+    residual fused in (``restrict_z``: P^T (S z)), the restriction of a
+    residual (``restrict_r``, the distributed solver's call) and the
+    prolongation with the add (``prolong_add``), one launch each, against
+    their plain versions; then, in float32, each timed: device us
+    (torch.profiler), ms by CUDA events beside the plain version's (in
+    turns), the least bytes over 3.35 TB/s and the device time of the
+    PyTorch ops the cycle ran before (the plain version: einsum, gather,
+    sums and add).  Returns the kernels-line entries (the sweep's top
+    pair, C = 1024 -> 256 at U = 96), whose launches are each kernel's in
+    the level sweep's 6-level W-cycle main run (``main_launches``, by
+    ``transfer.KERNEL.by_entry``)."""
+    import numpy as np
+    import torch
+
+    from p_a_multigrids_tpu_torch.models import semi
+    from p_a_multigrids_tpu_torch.ops import transfer
+    from p_a_multigrids_tpu_torch.utils.profiling import (_trace, bound_ms,
+                                                          event_ms)
+    dev = torch.device("cuda")
+    names = {"restrict_z": "restrict_kernel", "restrict_r": "restrict_kernel",
+             "prolong_add": "prolong_add_kernel"}
+    entries = []
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        for Cf, U in TRANSFER_SHAPES:
+            fine_of, parent, pw = semi._transfer_tensors(
+                Cf.bit_length() // 2 - 1, torch.empty((), dtype=dtype,
+                                                      device=dev))
+            rng = np.random.default_rng(39 + Cf + U)
+
+            def rand(*shape):
+                return torch.tensor(rng.normal(size=shape), dtype=dtype,
+                                    device=dev)
+            z, S, x = rand(3, Cf, U), rand(3, 3, Cf, U), rand(3, Cf, U)
+            e = rand(3, Cf // 4, U)
+            calls = {
+                "restrict_z": (
+                    lambda: transfer.restrict(z, fine_of, pw, S),
+                    lambda: transfer.restrict_reference(z, fine_of, pw, S)),
+                "restrict_r": (
+                    lambda: transfer.restrict(z, fine_of, pw),
+                    lambda: transfer.restrict_reference(z, fine_of, pw)),
+                "prolong_add": (
+                    lambda: transfer.prolong_add(x, e, parent, pw),
+                    lambda: transfer.prolong_add_reference(x, e, parent,
+                                                           pw))}
+            for which, (run_k, run_p) in calls.items():
+                n0 = transfer.KERNEL.launches
+                got = run_k()
+                torch.cuda.synchronize()
+                want = run_p()
+                rel = float((got - want).norm() / want.norm())
+                err = float((got - want).abs().max())
+                say("parity", phase=39, kernel=which, Cf=Cf, U=U,
+                    dtype=dname, launches=transfer.KERNEL.launches - n0,
+                    rel_err=f"{rel:.3e}", max_abs_err=f"{err:.3e}",
+                    max_abs=f"{float(want.abs().max()):.3e}")
+                check(transfer.KERNEL.launches - n0 == 1
+                      and rel <= TRANSFER_RTOL[dname],
+                      f"transfer {which} at Cf = {Cf}, U = {U}, {dname}: "
+                      f"{transfer.KERNEL.launches - n0} launches, relative "
+                      f"error {rel:.3e}")
+                if dtype is not torch.float32:
+                    continue
+                for fn in (run_k, run_p):
+                    for _ in range(3):
+                        fn()
+                ms = {"plain": [], "kernel": []}
+                for label, fn in (("plain", run_p), ("kernel", run_k),
+                                  ("kernel", run_k), ("plain", run_p)):
+                    ms[label].append(event_ms(fn, 50))
+                k_us = sum(d for n, _, d in _trace(run_k, 20)
+                           if names[which] in n) / 20
+                p_us = sum(d for _, _, d in _trace(run_p, 20)) / 20
+                nbytes = transfer_least_bytes(Cf, U, 4, which)
+                t = {"ms": sum(ms["kernel"]) / 2,
+                     "plain_ms": sum(ms["plain"]) / 2,
+                     "bound_ms": bound_ms(nbytes)}
+                say("time", phase=39, kernel=which, Cf=Cf, U=U,
+                    device_us=f"{k_us:.2f}", ms=f"{t['ms']:.5f}",
+                    plain_ms=f"{t['plain_ms']:.5f}",
+                    plain_device_us=f"{p_us:.2f}",
+                    least_MB=f"{nbytes / 1e6:.3f}",
+                    bound_us=f"{1e3 * t['bound_ms']:.2f}", card=repr(card))
+                if (Cf, U) == (1024, 96) and which != "restrict_r":
+                    entry = "restrict" if which == "restrict_z" else which
+                    entries.append({
+                        "name": f"transfer_{which}", "route": "cuda",
+                        "source": "p_a_multigrids_tpu_torch/csrc/transfer.cu",
+                        "replaces": None,
+                        "launches": main_launches[entry],
+                        "max_abs_err": err, "rel_err": rel, "device_us": k_us,
+                        "library_device_us": p_us, "bound_by": "bytes",
+                        "library_ms": t["plain_ms"], **t})
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2058,6 +2216,7 @@ def main():
     from p_a_multigrids_tpu_torch.ops import krylov
     from p_a_multigrids_tpu_torch.ops import phase as K
     from p_a_multigrids_tpu_torch.ops import spmv as K2
+    from p_a_multigrids_tpu_torch.ops import transfer as KT
     from p_a_multigrids_tpu_torch.ops.fused import to_t
     from p_a_multigrids_tpu_torch.mesh import gmsh, splitting, structured
     from p_a_multigrids_tpu_torch.mesh.topology import from_msh as gmsh_mesh
@@ -2292,6 +2451,7 @@ def main():
         K.KERNEL.reset()
         K.CHECKED.reset()
         K2.KERNEL.launches = K2.CHECKED.launches = 0
+        KT.KERNEL.reset()
 
     def read_counts():
         return {"k1_phase": K.KERNEL.launches, "k1_rounds": K.KERNEL.rounds,
@@ -2301,7 +2461,9 @@ def main():
                 "k1_checked": K.CHECKED.launches,
                 "k1_checked_rounds": K.CHECKED.rounds,
                 "k1_checked_deep": K.CHECKED.launches_deep,
-                "k2_checked": K2.CHECKED.launches}
+                "k2_checked": K2.CHECKED.launches,
+                "transfer": KT.KERNEL.launches,
+                "transfer_by": dict(KT.KERNEL.by_entry)}
 
     def drive(args):
         counts_zero()
@@ -2327,13 +2489,22 @@ def main():
                   f"{name} {key}: {a:.7g} not within {rel} of the "
                   f"{ref_name} {b:.7g}")
 
-    out, counts = drive(CLI_ARGS)
+    out, counts, _, cli_sv = drive_state(CLI_ARGS)
     main_launches = counts["k1_phase"]
     hist = out["residual_history"]
+    # the bare steps' cycles: a restriction and a prolongation a visit
+    want = (cli_sv.cfg.ntime * cli_sv.cfg.n_multigrid
+            * transfer_per_cycle(cli_sv))
     say("main", path="geometric", launches=counts, residual_history=hist,
         jax_cpu=CLI_HISTORY, L1_error=out["L1_error"],
-        wall_s=out["wall_s"])
+        wall_s=out["wall_s"], want_transfer=want)
     check(main_launches > 0, "the main path launched K1 no time")
+    check(want > 0 and counts["transfer"] == want
+          and counts["transfer_by"] == {"restrict": want // 2,
+                                        "prolong_add": want // 2},
+          f"the geometric main path launched the transfer kernels "
+          f"{counts['transfer_by']}, expected {want // 2} each")
+    del cli_sv
     check(all(np.isfinite(v) for v in hist + [out["L1_error"],
                                               out["residual"]]),
           "non-finite CLI output")
@@ -2635,6 +2806,8 @@ def main():
     # 0 just before it and read just after it ------------------------------
     f32_ref["sweep6_cycle"] = cycle_counts(6, deep[6])
     sweep_deep_launches = 0
+    # the 6-level W-cycle's transfer launches by kernel (the kernels line)
+    sweep6_transfer = None
     wants = dict(SWEEP_HISTORY, galerkin4=GALERKIN4_HISTORY,
                  amg=DEEP_AMG_HISTORY)
     for key, sv in deep.items():
@@ -2644,14 +2817,22 @@ def main():
         c = read_counts()
         if key in SWEEP_HISTORY:
             sweep_deep_launches += c["k1_deep"]
+        if key == 6:
+            sweep6_transfer = c["transfer_by"]
         ms = cycle_ms(sv)
-        say("sweep", config=key, launches=c,
+        want = 10 * transfer_per_cycle(sv)
+        say("sweep", config=key, launches=c, want_transfer=want,
             residual_history=[f"{v:.4e}" for v in hist])
         say("sweep", config=key, jax_cpu=wants[key], ms_per_cycle=f"{ms:.4f}",
             card=repr(card))
         check(c["k1_deep"] > 0, f"sweep_{key} launched K1 at C = 1024 no time")
         check((c["k2_rowop"] > 0) == (sv.agg is not None),
               f"sweep_{key}: {c['k2_rowop']} K2 launches")
+        check((want > 0) == (key not in (1, "amg")) and c["transfer"] == want
+              and c["transfer_by"] == {"restrict": want // 2,
+                                       "prolong_add": want // 2},
+              f"sweep_{key}: transfer launches {c['transfer_by']}, "
+              f"expected {want // 2} each")
         hold_history(f"sweep_{key}", hist, wants[key])
 
     deep_pcg = pcg_to_1e6(deep["amg"])
@@ -3582,6 +3763,11 @@ def main():
     tune_amg_phase(card, solver_parity)
     say("tune_amg", phase=38, wall_s=f"{time.perf_counter() - t38:.1f}")
 
+    # 39. the level-transfer kernels at the cells' level pairs ------------
+    t39 = time.perf_counter()
+    transfer_entries = transfer_phase(card, sweep6_transfer)
+    say("transfer", phase=39, wall_s=f"{time.perf_counter() - t39:.1f}")
+
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x
     # and z; a rowop's tables and vectors); a K1 phase has no library call,
@@ -3650,7 +3836,8 @@ def main():
         "launches": dist_k2_launches, "max_abs_err": kt2["err"],
         "ms": kt2["ms"], "plain_ms": kt2["plain_ms"],
         "bound_ms": kt2["bound_ms"], "bound_by": "bytes",
-        "library_ms": kt2["library_ms"]}] + f64_entries}), flush=True)
+        "library_ms": kt2["library_ms"]}] + f64_entries
+        + transfer_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

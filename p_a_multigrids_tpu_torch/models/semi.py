@@ -15,10 +15,13 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   theta-scheme step by V-cycles or by V-cycle-preconditioned PCG
   (BiCGStab under advection) on one device.  On the stencil path every
   Chebyshev or block-Jacobi smoothing phase, residual and operator apply is
-  a call of the relaxation-phase kernel K1 (``ops.phase.phase``); the point
-  smoothers (Jacobi, Richardson, colored Gauss-Seidel, direct) run
-  ``ops.smoothers`` over K1's zero-round apply.  On a CPU tensor a K1 call
-  runs the plain PyTorch version.  On the card the Krylov preconditioner
+  a call of the relaxation-phase kernel K1 (``ops.phase.phase``), and each
+  level transfer of the geometric cycle one launch of the transfer kernels
+  (``ops.transfer``: the restriction forms the residual from a phase's z,
+  the prolongation adds the correction); the point smoothers (Jacobi,
+  Richardson, colored Gauss-Seidel, direct) run ``ops.smoothers`` over
+  K1's zero-round apply.  On a CPU tensor a kernel call runs the plain
+  PyTorch version.  On the card the Krylov preconditioner
   and the bare time step's cycles of a geometric-only hierarchy with K1
   phases each replay as one CUDA graph (``_precond_t``, ``_cycles_t``,
   ``ops.cuda_graph``).
@@ -54,13 +57,14 @@ from torch import nn
 from ..config import Physics, SemiConfig, Solver
 from ..mesh import geometry, semi, splitting
 from ..mesh.topology import MacroMesh
-from ..ops import agg, cuda_graph, galerkin, krylov, smoothers
+from ..ops import agg, cuda_graph, galerkin, krylov, smoothers, transfer
 from ..ops import local_matrices as lm
 from ..ops.fused import FusedOperator, from_t, to_t
 from ..ops.phase import CHECKED as K1_CHECKED, KERNEL as K1_KERNEL, phase
 from ..ops.phase import watch as watch_k1
 from ..ops.stencil import (StencilOperator, build_stencil, lam_max_estimate,
-                           probe_stencil, to_dense)
+                           mul_blocks, probe_stencil, to_dense)
+from ..ops.transfer import prolong_t, restrict_t
 from ..utils import debugging, shape_functions, tracing
 
 
@@ -507,26 +511,11 @@ def _transfer_tables(n_coarse: int):
     return fine_of, parent, pweights
 
 
-def restrict_t(r_fine_t, fine_of, pweights):
-    """Transpose-of-prolongation restriction R = P^T in transposed layout:
-    (3, Cf, U) -> (3, Cc, U); coarse child c sums the weighted residuals of
-    its four children fine_of[c] (Cc, 4)."""
-    contrib = torch.einsum("flk,lfu->kfu", pweights, r_fine_t)
-    return contrib[:, fine_of].sum(dim=2).contiguous()
-
-
 def restrict_corner_average_t(r_fine_t, corners):
     """The Fortran reference's restrictor, transposed layout: coarse node k
     takes the mean of the residual over the corner child at that node;
     corners (Cc, 3) holds those children."""
     return r_fine_t[:, corners, :].mean(dim=0).permute(1, 0, 2).contiguous()
-
-
-def prolong_t(e_coarse_t, parent, pweights):
-    """Linear interpolation of the coarse correction, transposed layout:
-    (3, Cc, U) -> (3, Cf, U); fine child f reads its parent parent[f]."""
-    return torch.einsum("flk,kfu->lfu", pweights,
-                        e_coarse_t[:, parent]).contiguous()
 
 
 def _transfer_tensors(n_coarse: int, like: torch.Tensor):
@@ -599,14 +588,18 @@ class Stepper(typing.NamedTuple):
 
 # solvers whose smoothing phases run as whole K1 phases on the stencil path
 _PHASE_SOLVERS = (Solver.CHEBYSHEV, Solver.BLOCK_JACOBI)
+# the kernels of the geometric cycle's graphs: K1 (its bytes watched) and
+# the level transfers
+_CYCLE_KERNELS = (("k1", (K1_KERNEL, K1_CHECKED)),
+                  ("transfer", (transfer.KERNEL,)))
 # the graph of the geometric Krylov preconditioner (``_precond_t``): its
-# span holds the input copy, the replay and the output copy; K1's launches
-MG_GRAPH = cuda_graph.Kind("pamg.mg.graph", "mg_graph", "k1",
-                           (K1_KERNEL, K1_CHECKED), copy_out=True)
+# span holds the input copy, the replay and the output copy
+MG_GRAPH = cuda_graph.Kind("pamg.mg.graph", "mg_graph", _CYCLE_KERNELS,
+                           copy_out=True)
 # the graph of the bare time step's cycles (``_cycles_t``): its span holds
-# the two input copies, the replay and the output copy; K1's launches
-STEP_GRAPH = cuda_graph.Kind("pamg.step.graph", "step_graph", "k1",
-                             (K1_KERNEL, K1_CHECKED), copy_out=True)
+# the two input copies, the replay and the output copy
+STEP_GRAPH = cuda_graph.Kind("pamg.step.graph", "step_graph",
+                             _CYCLE_KERNELS, copy_out=True)
 # identity columns apply_A takes at once when the non-stencil path builds
 # its dense coarse matrix
 COARSE_COLUMNS = 256
@@ -713,7 +706,8 @@ class SemiSolver(nn.Module):
                     np.asarray(L["updown"]) > 0,
                     device=self.device)[None, :, None])
 
-        # transfer tables between level li-1 (fine) and li (coarse)
+        # transfer tables between level li-1 (fine) and li (coarse), their
+        # ranges checked once: the transfer kernels read them unchecked
         for li in range(1, nl):
             fine_of, parent, pweights = _transfer_tables(
                 problem.levels[li]["s"])
@@ -721,6 +715,10 @@ class SemiSolver(nn.Module):
             for name, idx in (("fine_of", fine_of), ("parent", parent)):
                 self.register_buffer(f"{name}_{li}", torch.as_tensor(
                     idx.astype(np.int64), device=self.device))
+            transfer.check_tables(
+                *(getattr(self, f"{name}_{li}")
+                  for name in ("fine_of", "parent", "pweights")),
+                int(problem.levels[li - 1]["C"]))
 
         # dense coarse inverse permuted into transposed flat order
         # (i, c, u), so the in-cycle coarse solve needs no transposes
@@ -968,16 +966,25 @@ class SemiSolver(nn.Module):
         """b - A x in the standard (U, C, 3) layout."""
         return from_t(to_t(b) - self._apply_t(li, to_t(x), with_bc))
 
-    def _restrict_t(self, r_t, li_coarse: int):
+    def _restrict_t(self, r_t, li_coarse: int, S_t=None):
+        """The coarse right-hand side of level li_coarse from the residual
+        S_t r_t of the level above (r_t itself without S_t): P^T by
+        ``ops.transfer.restrict`` (one kernel launch on the card), or the
+        reference's corner average."""
         if self.cfg.restrictor == "corner_average":
             return restrict_corner_average_t(
-                r_t, getattr(self, f"fine_of_{li_coarse}")[:, :3])
-        return restrict_t(r_t, getattr(self, f"fine_of_{li_coarse}"),
-                          getattr(self, f"pweights_{li_coarse}"))
+                mul_blocks(S_t, r_t),
+                getattr(self, f"fine_of_{li_coarse}")[:, :3])
+        return transfer.restrict(r_t, getattr(self, f"fine_of_{li_coarse}"),
+                                 getattr(self, f"pweights_{li_coarse}"), S_t)
 
-    def _prolong_t(self, e_t, li_coarse: int):
-        return prolong_t(e_t, getattr(self, f"parent_{li_coarse}"),
-                         getattr(self, f"pweights_{li_coarse}"))
+    def _prolong_add_t(self, x_t, e_t, li_coarse: int):
+        """x_t + P e_t, the coarse correction e_t of level li_coarse added
+        to the level above (``ops.transfer.prolong_add``: one kernel launch
+        on the card)."""
+        return transfer.prolong_add(x_t, e_t,
+                                    getattr(self, f"parent_{li_coarse}"),
+                                    getattr(self, f"pweights_{li_coarse}"))
 
     def _solve_blocks_t(self, li: int):
         """r -> B^-1 r with the exact diagonal-block inverses of level li
@@ -1043,29 +1050,32 @@ class SemiSolver(nn.Module):
     # -- V-cycle -------------------------------------------------------------
     def _smoother_t(self, li: int, b_t, with_bc: bool):
         """Level li's smoothing step for right-hand side b_t, as
-        ``smooth(x_t, sweeps, want_r) -> (x_t, r_t)``, r_t = b - A x at the
-        new x when want_r, else None.  On the phase cycle one K1 phase over
-        the premultiplied b, whose z gives r = D z; otherwise ``_smooth_t``
-        followed by b - A x."""
+        ``smooth(x_t, sweeps, want_r) -> (x_t, r_t, S_t)``: when want_r
+        the residual b - A x at the new x is ``mul_blocks(S_t, r_t)``, else
+        r_t is None.  On the phase cycle one K1 phase over the
+        premultiplied b, whose z = D^-1 (b - A x) is r_t and the self
+        blocks D (``ops[li].S_t``) S_t; otherwise ``_smooth_t`` followed
+        by b - A x as r_t, S_t None."""
         if self.phase_cycle:
             op = self.ops[li]
             bp = op._bp(b_t, with_bc)
 
             def smooth(x_t, sweeps, want_r):
-                x_t, z_t = phase(op, x_t, bp, self._phase_coefs(li, sweeps),
-                                 want_z=want_r)
-                return x_t, (op.mul_self(z_t) if want_r else None)
+                return (*phase(op, x_t, bp, self._phase_coefs(li, sweeps),
+                               want_z=want_r), op.S_t)
             return smooth
 
         def smooth(x_t, sweeps, want_r):
             x_t = self._smooth_t(li, x_t, b_t, sweeps, with_bc)
             return x_t, (b_t - self._apply_t(li, x_t, with_bc) if want_r
-                         else None)
+                         else None), None
         return smooth
 
     def _vcycle_t(self, li: int, x_t, b_t, hom: bool = False):
-        """Level-li V-cycle in the transposed layout: smooth, residual,
-        restrict, coarse cycle, prolong, smooth; at the SA level smooth,
+        """Level-li V-cycle in the transposed layout: smooth, residual and
+        restriction (``_restrict_t``, which forms the residual from the
+        phase's z on the phase cycle), coarse cycle, prolongation with the
+        add (``_prolong_add_t``), smooth; at the SA level smooth,
         residual, SA correction, smooth (the fine level in amg mode, else
         the geometric coarsest); the coarsest geometric level solves by the
         dense inverse, coarse CG or sweeps.  This is the JAX package's
@@ -1090,17 +1100,18 @@ class SemiSolver(nn.Module):
             if coarsest:
                 sweeps = cfg.coarse_sweeps if nl > 1 else cfg.n_smooth
                 return smooth(x_t, sweeps, False)[0]
-            x_t, r_t = smooth(x_t, cfg.n_smooth, True)
+            # the residual is mul_blocks(S_t, r_t) (``_smoother_t``)
+            x_t, r_t, S_t = smooth(x_t, cfg.n_smooth, True)
             if sa_level:
-                x_t = self._agg_correct_t(li, x_t, r_t)
+                x_t = self._agg_correct_t(li, x_t, mul_blocks(S_t, r_t))
             else:
-                bc_ = self._restrict_t(r_t, li + 1)
+                bc_ = self._restrict_t(r_t, li + 1, S_t)
                 e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
                 if cfg.cycle_type == "w" and li < 2:
                     # W only near the top: the coarse systems below are
                     # solved accurately enough by one visit
                     e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
-                x_t = x_t + self._prolong_t(e_t, li + 1)
+                x_t = self._prolong_add_t(x_t, e_t, li + 1)
             return smooth(x_t, cfg.n_smooth, False)[0]
 
     def _smooth_t(self, li: int, x_t, b_t, sweeps: int, with_bc: bool):

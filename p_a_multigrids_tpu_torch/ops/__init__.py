@@ -1,5 +1,5 @@
 """Element matrices, the block stencil, kernels K1 (``phase``) and K2
-(``spmv``), smoothers, smoothed aggregation, Galerkin, dense and Krylov
-solvers."""
+(``spmv``), the level-transfer kernels (``transfer``), smoothers, smoothed
+aggregation, Galerkin, dense and Krylov solvers."""
 
 from . import bsr, local_matrices, smoothers

@@ -551,8 +551,9 @@ def _vcycle_iter(h: AggHierarchy, rc, ncycles: int):
 
 
 # the SA cycle's graph: K2's launches, a replay's result the static output
-SA_GRAPH = cuda_graph.Kind(GRAPH_SPAN, "sa_graph", "k2",
-                           (spmv.KERNEL, spmv.CHECKED), copy_out=False)
+SA_GRAPH = cuda_graph.Kind(GRAPH_SPAN, "sa_graph",
+                           (("k2", (spmv.KERNEL, spmv.CHECKED)),),
+                           copy_out=False)
 
 
 def _sites(h: AggHierarchy) -> tuple:

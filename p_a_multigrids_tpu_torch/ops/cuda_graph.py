@@ -13,14 +13,15 @@ captured on that stream, reading the static inputs ``xs`` (a copy of each
 of rs) and writing the static output ``y`` in the graph's private memory
 pool.  A graph launches the kernel builds, checked or not, that its
 capture saw.  Nothing runs while fn is captured, so the launch counters of
-the kind's kernels are set back after it: the call counts one eager run's
-launches, as a replay does.  Later calls replay (``Graph.__call__``).
+the kind's kernels are set back after it: the call counts one eager
+run's launches, as a replay does.  Later calls replay
+(``Graph.__call__``).
 
 Each kind of graph (``Kind``) has its span and counters in
 ``utils.tracing``: ``<prefix>_captures``, ``<prefix>_replays``, and, added
-on each replay, ``<prefix>_<kernel>_launches`` and
-``<prefix>_<kernel>_least_bytes``, the kernel launches the capture
-recorded and the least bytes of those calls (``watch``).
+on each replay, ``<prefix>_<kernel>_launches`` for each of its kernels (the
+launches the capture recorded) and ``<prefix>_<kernel>_least_bytes`` for
+its first kernel (the least bytes of those calls, ``watch``).
 """
 
 from __future__ import annotations
@@ -36,16 +37,16 @@ from ..utils import tracing
 
 @dataclasses.dataclass(frozen=True)
 class Kind:
-    """One kind of graph: ``span`` is the span of a replay; ``prefix`` and
-    ``kernel`` name its counters; ``kernels`` are the kernel objects
-    whose launch counters (their attributes named in ``COUNTERS``) a
-    replay adds to; with ``copy_out`` a replay returns a copy of the
-    static output, else the output itself, which the next replay
-    overwrites."""
+    """One kind of graph: ``span`` is the span of a replay; ``prefix``
+    names its counters; ``kernels`` pairs the name of each kernel in its
+    counters with the kernel objects (its builds) whose launch counters
+    (their attributes named in ``COUNTERS``) a replay adds to, the first
+    kernel the one whose calls ``watch`` records; with ``copy_out`` a
+    replay returns a copy of the static output, else the output itself,
+    which the next replay overwrites."""
     span: str
     prefix: str
-    kernel: str
-    kernels: tuple
+    kernels: tuple          # ((name, (kernel object, ...)), ...)
     copy_out: bool
 
 
@@ -73,21 +74,21 @@ def _credit(kernel, delta: dict):
 class Graph:
     """A captured graph (``capture``): it reads the static inputs ``xs``
     and writes the static output ``y``; ``sites`` are the sanitizer sites
-    its capture saw; ``launched`` holds, for each of the kind's kernels,
-    what one run adds to its counters, and ``least_bytes`` the least bytes
-    of the kernel calls of one run."""
+    its capture saw; ``launched`` holds, by the name of each of the kind's
+    kernels, what one run adds to the counters of each of its objects;
+    and ``least_bytes`` the least bytes of the first kernel's calls of
+    one run."""
     kind: Kind
     graph: torch.cuda.CUDAGraph
     xs: tuple
     y: torch.Tensor
     sites: tuple
-    launched: tuple
+    launched: dict
     least_bytes: int
 
-    @property
-    def launches(self) -> int:
-        """Kernel launches of one replay."""
-        return sum(d["launches"] for d in self.launched)
+    def launches(self, kernel: str) -> int:
+        """Launches of the kernel named ``kernel`` in one replay."""
+        return sum(d["launches"] for d in self.launched[kernel])
 
     def __call__(self, *rs):
         """fn on rs: copy each into its ``xs``, replay on the current
@@ -99,11 +100,13 @@ class Graph:
                 x.copy_(r)
             self.graph.replay()
             out = self.y.clone() if kind.copy_out else self.y
-        for kernel, delta in zip(kind.kernels, self.launched):
-            _credit(kernel, delta)
+        for name, objs in kind.kernels:
+            for kernel, delta in zip(objs, self.launched[name]):
+                _credit(kernel, delta)
+            tracing.count(f"{kind.prefix}_{name}_launches",
+                          self.launches(name))
         tracing.count(f"{kind.prefix}_replays")
-        tracing.count(f"{kind.prefix}_{kind.kernel}_launches", self.launches)
-        tracing.count(f"{kind.prefix}_{kind.kernel}_least_bytes",
+        tracing.count(f"{kind.prefix}_{kind.kernels[0][0]}_least_bytes",
                       self.least_bytes)
         return out
 
@@ -112,22 +115,24 @@ def capture(kind: Kind, fn: Callable, rs: tuple, sites: tuple, watch):
     """The graph of fn on the dtypes, device and shapes of the tuple rs,
     and fn(*rs) (see the module's doc).  ``watch`` is a context manager
     around the capture that yields a list, which holds the least bytes of
-    each kernel call made inside it once it has exited."""
+    each call of the kind's first kernel made inside it once it has
+    exited."""
     dev = rs[0].device
     xs = tuple(r.clone() for r in rs)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         e = fn(*xs)
-    before = [_counts(k) for k in kind.kernels]
+    before = [(k, _counts(k)) for _, group in kind.kernels for k in group]
     graph = torch.cuda.CUDAGraph()
     try:
         with watch as calls, torch.cuda.graph(graph, stream=side):
             y = fn(*xs)
-        launched = tuple(_delta(_counts(k), b)
-                         for k, b in zip(kind.kernels, before))
+        deltas = {id(k): _delta(_counts(k), b) for k, b in before}
+        launched = {name: tuple(deltas[id(k)] for k in group)
+                    for name, group in kind.kernels}
     finally:
-        for k, b in zip(kind.kernels, before):
+        for k, b in before:
             for n, v in b.items():
                 setattr(k, n, v)
     # the caller reads e on its own stream

@@ -346,6 +346,12 @@ def to_dense(data: StencilData) -> np.ndarray:
     return A.reshape(E * 3, E * 3)
 
 
+def mul_blocks(B_t, v_t):
+    """B v for 3x3 blocks B (3, 3, C, U) and v (3, C, U) in transposed
+    layout; v itself where B is None (the identity)."""
+    return v_t if B_t is None else (B_t * v_t[None]).sum(dim=1)
+
+
 def inv3x3(A: np.ndarray) -> np.ndarray:
     """Closed-form batched 3x3 inverse (adjugate / det)."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -497,12 +503,12 @@ class StencilOperator(nn.Module):
 
     def solve_diag(self, r_t):
         """D^-1 r in transposed layout."""
-        return (self.Dinv_t * r_t[None]).sum(dim=1)
+        return mul_blocks(self.Dinv_t, r_t)
 
     def mul_self(self, z_t):
         """D z (self blocks): turns a phase's z = D^-1 (b - A x) into the
         residual b - A x."""
-        return (self.S_t * z_t[None]).sum(dim=1)
+        return mul_blocks(self.S_t, z_t)
 
     def _z(self, x_t, bp):
         """z = D^-1 (b - A x) = bp - x - D^-1 (A - D) x: one relaxation

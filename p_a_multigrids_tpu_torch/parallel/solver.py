@@ -111,7 +111,7 @@ class DistributedSemiSolver:
         r = b - self._A(li, with_bc)(x)
         bc_ = from_t(self._serial._restrict_t(to_t(r), li + 1))
         e = self._vcycle(li + 1, torch.zeros_like(bc_), bc_)
-        x = x + from_t(self._serial._prolong_t(to_t(e), li + 1))
+        x = from_t(self._serial._prolong_add_t(to_t(x), to_t(e), li + 1))
         return self._smooth(li, x, b, cfg.n_smooth, with_bc)
 
     def step(self, T):

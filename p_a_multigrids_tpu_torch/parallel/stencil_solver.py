@@ -49,7 +49,7 @@ from ..ops import krylov
 from ..ops.fused import from_t, to_t
 from ..ops.phase import KERNEL, TIERS, phase_on_tier
 from ..ops.spmv import RowOp
-from ..ops.stencil import StencilData, StencilOperator
+from ..ops.stencil import StencilData, StencilOperator, mul_blocks
 from . import partition
 
 
@@ -375,10 +375,6 @@ class DistributedStencilSolver:
         """This rank's interior columns of an extended-domain tensor."""
         return t[..., ph.He:ph.He + self.U_loc].contiguous()
 
-    @staticmethod
-    def _mul33(B, v_t):
-        return (B * v_t[None]).sum(dim=1)
-
     def _halo(self, t, H):
         """t on the extended domain of H macros a side."""
         if H == 0:
@@ -392,7 +388,7 @@ class DistributedStencilSolver:
         every phase with this b."""
         loc = self._loc[li]
         b = b_t - loc["c_aff_t"] if with_bc else b_t
-        return self._halo(self._mul33(loc["Dinv_t"], b), self._phases[li].He)
+        return self._halo(mul_blocks(loc["Dinv_t"], b), self._phases[li].He)
 
     def _phase_dist(self, li, x_t, bp_ext, coefs, want_z: bool = True):
         """One smoothing phase of level li (coefs not empty) on this
@@ -428,7 +424,7 @@ class DistributedStencilSolver:
         x_ext = self._halo(x_t, ph.He)
         _, z = phase_on_tier(ph.op, x_ext, torch.zeros_like(x_ext), [], True,
                              ph.tier)
-        ax = -self._mul33(loc["S_t"], self._cols(ph, z))
+        ax = -mul_blocks(loc["S_t"], self._cols(ph, z))
         return ax + loc["c_aff_t"] if with_bc else ax
 
     def _pdot(self, a, b):
@@ -441,7 +437,7 @@ class DistributedStencilSolver:
         Dinv = self._loc[li]["Dinv_t"]
         x_sol, _, _ = krylov.pcg(
             lambda v: self._apply_t(li, v, False), b_t, x_t,
-            precond=lambda r: self._mul33(Dinv, r), tol=0.0,
+            precond=lambda r: mul_blocks(Dinv, r), tol=0.0,
             maxiter=self.cfg.coarse_sweeps, dot=self._pdot)
         return x_sol
 
@@ -459,7 +455,7 @@ class DistributedStencilSolver:
         for _ in range(sweeps):
             r_loc = b_loc - t["op"](x_rep)
             x_rep = x_rep + t["omega"] * self._ag(
-                self._mul33(t["dinv_t"], r_loc))
+                mul_blocks(t["dinv_t"], r_loc))
         return x_rep
 
     def _agg_vcycle(self, k, b_rep):
@@ -469,7 +465,7 @@ class DistributedStencilSolver:
         sweeps = self._agg_sweeps
         # the first sweep from zero: its residual is b
         x = t["omega"] * self._ag(
-            self._mul33(t["dinv_t"], self._agg_b_loc(t, b_rep)))
+            mul_blocks(t["dinv_t"], self._agg_b_loc(t, b_rep)))
         if sweeps > 1:
             x = self._agg_smooth(k, x, b_rep, sweeps - 1)
         r_loc = self._agg_b_loc(t, b_rep) - t["op"](x)
@@ -518,23 +514,23 @@ class DistributedStencilSolver:
         bp_ext = self._bp_ext(li, b_t, with_bc)
         S_loc = self._loc[li]["S_t"]
 
-        def smooth(x, coefs, want_r=False):
-            x, z = self._phase_dist(li, x, bp_ext, coefs, want_r)
-            return (x, self._mul33(S_loc, z)) if want_r else x
+        def smooth(x, coefs, want_z=False):
+            x, z = self._phase_dist(li, x, bp_ext, coefs, want_z)
+            return (x, z) if want_z else x
 
         if coarsest:
             return smooth(x_t, self._coefs_coarse)
         coefs = self._coefs[li]
-        x_t, r_t = smooth(x_t, coefs, True)
+        x_t, z_t = smooth(x_t, coefs, True)          # the residual is S z
         if sa_level:
             # the finest level in amg mode, else the geometric coarsest
-            x_t = self._agg_correct(x_t, r_t)
+            x_t = self._agg_correct(x_t, mul_blocks(S_loc, z_t))
         else:
-            bc_ = self.serial._restrict_t(r_t, li + 1)
+            bc_ = self.serial._restrict_t(z_t, li + 1, S_loc)
             e_t = self._vcycle_t(li + 1, torch.zeros_like(bc_), bc_, hom)
             if cfg.cycle_type == "w" and li < 2:
                 e_t = self._vcycle_t(li + 1, e_t, bc_, hom)
-            x_t = x_t + self.serial._prolong_t(e_t, li + 1)
+            x_t = self.serial._prolong_add_t(x_t, e_t, li + 1)
         return smooth(x_t, coefs)
 
     # -- time stepping --------------------------------------------------------

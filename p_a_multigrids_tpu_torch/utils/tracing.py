@@ -113,7 +113,8 @@ def sync(flag) -> bool:
 
 def _kernel_counts() -> dict:
     """The launch counters of kernels K1 and K2 (and of their checked
-    builds), read from their modules where those are loaded."""
+    builds) and of the level-transfer kernels, read from their modules
+    where those are loaded."""
     out = {}
     k1 = sys.modules.get(f"{_PKG}.ops.phase")
     if k1 is not None:
@@ -123,6 +124,9 @@ def _kernel_counts() -> dict:
     if k2 is not None:
         out.update(k2_rowop=k2.KERNEL.launches,
                    k2_rowop_checked=k2.CHECKED.launches)
+    tr = sys.modules.get(f"{_PKG}.ops.transfer")
+    if tr is not None:
+        out.update(transfer=tr.KERNEL.launches)
     return out
 
 

@@ -26,7 +26,7 @@ from p_a_multigrids_tpu_torch.models import semi
 from p_a_multigrids_tpu_torch.mesh import splitting
 from p_a_multigrids_tpu_torch.ops import agg
 from p_a_multigrids_tpu_torch.ops import phase as K
-from p_a_multigrids_tpu_torch.ops import smoothers, spmv, stencil
+from p_a_multigrids_tpu_torch.ops import smoothers, spmv, stencil, transfer
 from p_a_multigrids_tpu_torch.utils import cuda_build
 
 
@@ -314,6 +314,63 @@ def test_k2_refuses_half_types(cuda, dtype):
     assert spmv.KERNEL.launches == n0
 
 
+# the level pairs of the benchmark's cells: (fine children, macros), the
+# level sweep's C = 1024 -> 256 -> 64 -> 16 -> 4 -> 1 at U = 96 and the
+# headline mesh's C = 16 -> 4 at U = 8192
+TRANSFER_SHAPES = [(1024, 96), (256, 96), (64, 96), (16, 96), (4, 96),
+                   (16, 8192)]
+# largest distance from the plain version, relative to the output's norm
+TRANSFER_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("Cf,U", TRANSFER_SHAPES)
+def test_transfer_kernels_match_plain(cuda, Cf, U, dtype):
+    """The restriction with the residual fused in (S z), the restriction
+    of a residual (no S) and the prolongation with the add, one launch
+    each, against ``restrict_reference`` / ``prolong_add_reference``."""
+    fine_of, parent, pw = semi._transfer_tensors(
+        Cf.bit_length() // 2 - 1, torch.empty((), dtype=dtype, device=cuda))
+    rng = np.random.default_rng(Cf + U)
+
+    def rand(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+
+    z, S, x, e = rand(3, Cf, U), rand(3, 3, Cf, U), rand(3, Cf, U), rand(
+        3, Cf // 4, U)
+    n0, by0 = transfer.KERNEL.launches, dict(transfer.KERNEL.by_entry)
+    got = [transfer.restrict(z, fine_of, pw, S),
+           transfer.restrict(z, fine_of, pw),
+           transfer.prolong_add(x, e, parent, pw)]
+    torch.cuda.synchronize()
+    assert transfer.KERNEL.launches - n0 == 3
+    assert {k: v - by0[k] for k, v in transfer.KERNEL.by_entry.items()} == {
+        "restrict": 2, "prolong_add": 1}
+    want = [transfer.restrict_reference(z, fine_of, pw, S),
+            transfer.restrict_reference(z, fine_of, pw),
+            transfer.prolong_add_reference(x, e, parent, pw)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype and g.is_contiguous()
+        assert float((g - w).norm()) <= TRANSFER_RTOL[dtype] * float(
+            w.norm())
+
+
+def test_transfer_kernels_refuse_what_they_do_not_take(cuda):
+    """float16, operands on two devices and a table on the host raise
+    before any launch."""
+    fine_of, parent, pw = semi._transfer_tensors(
+        1, torch.empty((), device=cuda))
+    z = torch.zeros((3, 16, 8), device=cuda)
+    n0 = transfer.KERNEL.launches
+    with pytest.raises(TypeError, match="float32 or float64"):
+        transfer.restrict(z.half(), fine_of, pw.half())
+    with pytest.raises(ValueError, match="operands"):
+        transfer.prolong_add(z, torch.zeros((3, 4, 8)), parent, pw)
+    with pytest.raises(ValueError, match="table"):
+        transfer.restrict(z, fine_of.cpu(), pw)
+    assert transfer.KERNEL.launches == n0
+
+
 def test_build_without_compiler_raises(monkeypatch, tmp_path):
     """No fallback: without nvcc the build raises instead of degrading."""
     if (os.path.isfile("/usr/local/cuda/bin/nvcc")
@@ -321,7 +378,7 @@ def test_build_without_compiler_raises(monkeypatch, tmp_path):
         pytest.skip("a CUDA compiler is installed here")
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
-    for name in ("phase", "spmv"):
+    for name in ("phase", "spmv", "transfer"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             cuda_build.load(name)
 
@@ -953,8 +1010,8 @@ def test_sa_graph_counts_what_ran(amg_cell_solver):
     graph, _ = agg._capture(h, rcs[0], 1)
     torch.cuda.synchronize()
     assert spmv.KERNEL.launches - n0 == eager
-    assert graph.launched == ({"launches": eager}, {"launches": 0})
-    assert graph.launches == eager
+    assert graph.launched == {"k2": ({"launches": eager}, {"launches": 0})}
+    assert graph.launches("k2") == eager
     assert graph.least_bytes == sum(profiling.rowop_least_bytes(op)
                                     for op in applied)
     for rc in rcs:
@@ -1127,15 +1184,20 @@ def test_mg_graph_pcg_equals_the_eager_solve(sweep_cell_solvers,
 
 def test_mg_graph_counts_what_ran(sweep_cell_solvers):
     """The capturing call counts one eager cycle's K1 launches, rounds,
-    tiers and deep launches, as each of N replays does; the counters count
-    one capture, N replays, and N times the replay's K1 launches and the
-    least bytes of the cycle's K1 calls, as ``utils.profiling.least_bytes``
-    reckons an eager call's."""
+    tiers and deep launches and its 30 transfer launches (2 a visit of
+    each of the W-cycle's 15 non-coarsest level visits), as each of N
+    replays does; the counters count one capture, N replays, and N times
+    the replay's K1 launches (30, K1's alone), the least bytes of the
+    cycle's K1 calls, as ``utils.profiling.least_bytes`` reckons an eager
+    call's, and its transfer launches."""
     from p_a_multigrids_tpu_torch.utils import tracing
 
     def counts():
         return {"launches": K.KERNEL.launches, "rounds": K.KERNEL.rounds,
                 "deep": K.KERNEL.launches_deep, "checked": K.CHECKED.launches,
+                "transfer": transfer.KERNEL.launches,
+                **{f"transfer_{e}": n
+                   for e, n in transfer.KERNEL.by_entry.items()},
                 **{f"tier_{t}": n for t, n in K.KERNEL.by_tier.items()}}
 
     def grown(a, b):
@@ -1148,6 +1210,8 @@ def test_mg_graph_counts_what_ran(sweep_cell_solvers):
         _eager_cycle(solver, rs[0])
     eager = grown(n0, counts())
     assert eager["launches"] == len(calls) == 30
+    assert eager["transfer"] == 2 * 15
+    assert eager["transfer_restrict"] == eager["transfer_prolong_add"] == 15
     assert eager["deep"] > 0 and eager["tier_small"] > 0
     assert eager["checked"] == 0
     c0 = dict(tracing.snapshot()["counters"])
@@ -1156,7 +1220,8 @@ def test_mg_graph_counts_what_ran(sweep_cell_solvers):
     torch.cuda.synchronize()
     assert grown(n0, counts()) == eager
     (graph,) = solver._graphs.values()
-    assert graph.launches == eager["launches"]
+    assert graph.launches("k1") == eager["launches"]
+    assert graph.launches("transfer") == eager["transfer"]
     assert graph.least_bytes == sum(calls)
     for r in rs:
         solver._precond_t(r)
@@ -1172,6 +1237,9 @@ def test_mg_graph_counts_what_ran(sweep_cell_solvers):
     assert added("mg_graph_replays") == len(rs)
     assert added("mg_graph_k1_launches") == len(rs) * eager["launches"]
     assert added("mg_graph_k1_least_bytes") == len(rs) * sum(calls)
+    assert added("mg_graph_transfer_launches") == len(rs) * eager["transfer"]
+    assert (tracing.snapshot()["kernels"]["transfer"]
+            == transfer.KERNEL.launches)
 
 
 def test_mg_graph_follows_the_sanitizer(sweep_cell_solvers):
@@ -1194,15 +1262,16 @@ def test_mg_graph_follows_the_sanitizer(sweep_cell_solvers):
             assert torch.equal(solver._precond_t(rs[0]), want)
         torch.cuda.synchronize()
         assert K.KERNEL.launches == n0
-        assert K.CHECKED.launches - c0 == 2 * unchecked.launches
+        assert K.CHECKED.launches - c0 == 2 * unchecked.launches("k1")
         san.raise_on_fault()
         (checked,) = solver._graphs.values()
-        assert checked.launched[1]["launches"] == unchecked.launches
+        assert (checked.launched["k1"][1]["launches"]
+                == unchecked.launches("k1"))
     finally:
         for op in solver.ops:
             op.sanitizer = None
     assert torch.equal(solver._precond_t(rs[0]), want)
-    assert K.KERNEL.launches - n0 == unchecked.launches
+    assert K.KERNEL.launches - n0 == unchecked.launches("k1")
     (graph,) = solver._graphs.values()
     assert all(site is None for site in graph.sites)
 
@@ -1235,9 +1304,10 @@ def test_mg_graph_replays_are_traced(sweep_cell_solvers):
             break
     else:
         pytest.fail(yardstick.missing_launches(ks, launched))
-    assert launched == {"k1_phase": graph.launches * len(rs), "k2_rowop": 0}
+    assert launched == {"k1_phase": graph.launches("k1") * len(rs),
+                        "k2_rowop": 0}
     k1 = [k for k in ks if k["cls"] == "k1_phase"]
-    assert len(k1) == graph.launches * len(rs)
+    assert len(k1) == graph.launches("k1") * len(rs)
     assert all(span in k["spans"] and "pamg.k1" not in k["spans"]
                for k in k1)
     share = spec.load_metric("k1_graph_hbm_roofline_share").read(
@@ -1311,15 +1381,19 @@ def test_step_graph_replay_is_bit_identical(geo_cell_solvers, dtype):
 
 def test_step_graph_counts_what_ran(geo_cell_solvers):
     """The capturing step counts one eager step's K1 launches, rounds and
-    tiers, as each of N replayed steps does; the counters count one
-    capture, N replays, and N times the replay's K1 launches and the least
-    bytes of the cycles' K1 calls, as ``utils.profiling.least_bytes``
-    reckons an eager call's."""
+    tiers and its 4 transfer launches, as each of N replayed steps does;
+    the counters count one capture, N replays, and N times the replay's
+    K1 launches (K1's alone), the least bytes of the cycles' K1 calls, as
+    ``utils.profiling.least_bytes`` reckons an eager call's, and its
+    transfer launches."""
     from p_a_multigrids_tpu_torch.utils import tracing
 
     def counts():
         return {"launches": K.KERNEL.launches, "rounds": K.KERNEL.rounds,
                 "checked": K.CHECKED.launches,
+                "transfer": transfer.KERNEL.launches,
+                **{f"transfer_{e}": n
+                   for e, n in transfer.KERNEL.by_entry.items()},
                 **{f"tier_{t}": n for t, n in K.KERNEL.by_tier.items()}}
 
     def grown(a, b):
@@ -1332,6 +1406,8 @@ def test_step_graph_counts_what_ran(geo_cell_solvers):
         _eager_step(solver, Ts[0])
     eager = grown(n0, counts())
     assert eager["launches"] == len(calls) == 6
+    assert eager["transfer"] == 2 * 2          # one level visit a cycle
+    assert eager["transfer_restrict"] == eager["transfer_prolong_add"] == 2
     assert eager["checked"] == 0
     c0 = dict(tracing.snapshot()["counters"])
     n0 = counts()
@@ -1339,7 +1415,7 @@ def test_step_graph_counts_what_ran(geo_cell_solvers):
     torch.cuda.synchronize()
     assert grown(n0, counts()) == eager
     (graph,) = solver._graphs.values()
-    assert graph.launches == eager["launches"]
+    assert graph.launches("k1") == eager["launches"]
     assert graph.least_bytes == sum(calls)
     for T in Ts:
         solver._step_t(T)
@@ -1356,6 +1432,10 @@ def test_step_graph_counts_what_ran(geo_cell_solvers):
     assert added("step_graph_replays") == len(Ts)
     assert added("step_graph_k1_launches") == len(Ts) * eager["launches"]
     assert added("step_graph_k1_least_bytes") == len(Ts) * sum(calls)
+    assert (added("step_graph_transfer_launches")
+            == len(Ts) * eager["transfer"])
+    assert (tracing.snapshot()["kernels"]["transfer"]
+            == transfer.KERNEL.launches)
     assert not [n for n in c1 if n.startswith("mg_graph_") and added(n)]
 
 
@@ -1379,15 +1459,16 @@ def test_step_graph_follows_the_sanitizer(geo_cell_solvers):
             assert torch.equal(solver._step_t(T), want)
         torch.cuda.synchronize()
         assert K.KERNEL.launches == n0
-        assert K.CHECKED.launches - c0 == 2 * unchecked.launches
+        assert K.CHECKED.launches - c0 == 2 * unchecked.launches("k1")
         san.raise_on_fault()
         (checked,) = solver._graphs.values()
-        assert checked.launched[1]["launches"] == unchecked.launches
+        assert (checked.launched["k1"][1]["launches"]
+                == unchecked.launches("k1"))
     finally:
         for op in solver.ops:
             op.sanitizer = None
     assert torch.equal(solver._step_t(T), want)
-    assert K.KERNEL.launches - n0 == unchecked.launches
+    assert K.KERNEL.launches - n0 == unchecked.launches("k1")
     (graph,) = solver._graphs.values()
     assert all(site is None for site in graph.sites)
 
@@ -1421,9 +1502,10 @@ def test_step_graph_replays_are_traced(geo_cell_solvers):
             break
     else:
         pytest.fail(yardstick.missing_launches(ks, launched))
-    assert launched == {"k1_phase": graph.launches * len(Ts), "k2_rowop": 0}
+    assert launched == {"k1_phase": graph.launches("k1") * len(Ts),
+                        "k2_rowop": 0}
     k1 = [k for k in ks if k["cls"] == "k1_phase"]
-    assert len(k1) == graph.launches * len(Ts)
+    assert len(k1) == graph.launches("k1") * len(Ts)
     assert all(span in k["spans"] and "pamg.k1" not in k["spans"]
                for k in k1)
     share = spec.load_metric("k1_step_graph_hbm_roofline_share").read(

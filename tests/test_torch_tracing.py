@@ -244,11 +244,12 @@ def test_kernel_build_and_load_counters(monkeypatch, tmp_path):
 
 
 def test_snapshot_reads_the_kernel_counters():
-    from p_a_multigrids_tpu_torch.ops import phase, spmv
+    from p_a_multigrids_tpu_torch.ops import phase, spmv, transfer
     k = tracing.snapshot()["kernels"]
     assert k["k1_phase"] == phase.KERNEL.launches
     assert k["k1_rounds"] == phase.KERNEL.rounds
     assert k["k2_rowop"] == spmv.KERNEL.launches
+    assert k["transfer"] == transfer.KERNEL.launches
     json.dumps(tracing.snapshot())
 
 
@@ -265,7 +266,7 @@ SNAP = {"counters": {"steps": 4, "host_syncs": 36, "sa_graph_replays": 20,
         "spans": {"pamg.step": {"calls": 5, "host_us": 9e4, "self_us": 1e3},
                   "pamg.sync": {"calls": 45, "host_us": 1500.0,
                                 "self_us": 1500.0}},
-        "kernels": {}}
+        "kernels": {"transfer": 1304}}
 EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
 
 
@@ -274,7 +275,8 @@ EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
     ("setup_problem_s", 2.5), ("setup_solver_s", 9.0),
     ("setup_sa_hierarchy_s", 6.0), ("sa_graph_replays_per_step", 5.0),
     ("mg_graph_replays_per_step", 10.5),
-    ("step_graph_replays_per_step", 0.75)])
+    ("step_graph_replays_per_step", 0.75),
+    ("transfer_launches_per_step", 326.0)])
 def test_metric_reader(name, want, monkeypatch):
     """Each of the benchmark's readers of the program's snapshot, on a
     hand-made one; None where its denominator is 0 or its stage absent."""
