@@ -43,7 +43,8 @@ corner-average restrictor) at 393,216 DOF, its operator applies through K1
 and the SA levels below its 98,304-DOF coarsest through K2; (b) colored
 Gauss-Seidel and Richardson on the geometric CLI path, and --solver direct
 against --solver jacobi bit for bit; (c) Chebyshev through the fused
-operator at n_split 7 (393,216 DOF), which launches neither kernel; (d)
+operator at n_split 7 (393,216 DOF) under the JAX package's stencil cap,
+which launches neither kernel; (d)
 the stencil probed from apply_A at the bench size, its blocks against the
 closed form and one V-cycle through K1 against the analytic one; (e) mode
 1 at the reference's 200 x 1 quads and at 200 x 1024 (819,200 DOF), with
@@ -129,6 +130,12 @@ fused in and the prolongation with the add (csrc/transfer.cu) at every
 level pair of the benchmark's cells, float32 and float64, against their
 plain versions, and timed beside their bounds and the PyTorch ops the
 cycle ran before.
+Then the scaling row at n_split 7 on the stencil path (phase 40): float64
+on 12 macros, K1's fine level in its streaming tier and the
+preconditioner's CUDA graph replayed, against the plain version on the
+CPU; float32 at the benchmark cell's size (1,769,472 DOF), each step's
+relative residual in the plain reference's system under the cell's limit,
+and the streaming fine phase timed beside its bound.
 Every phase prints its numbers; any failure raises and
 the script exits non-zero.  The last line is
 
@@ -2081,10 +2088,11 @@ def tune_amg_phase(card: str, parity) -> dict:
 
 
 # the level pairs of the benchmark's cells (fine children, macros): the
-# level sweep's C = 1024 -> 256 -> 64 -> 16 -> 4 -> 1 at U = 96 and the
-# headline mesh's C = 16 -> 4 at U = 8192
+# level sweep's C = 1024 -> 256 -> 64 -> 16 -> 4 -> 1 at U = 96, the
+# headline mesh's C = 16 -> 4 at U = 8192 and the scaling row's top pair
+# C = 16,384 -> 4,096 at U = 36
 TRANSFER_SHAPES = [(1024, 96), (256, 96), (64, 96), (16, 96), (4, 96),
-                   (16, 8192)]
+                   (16, 8192), (16384, 36)]
 # largest distance from the plain version, relative to the output's norm
 TRANSFER_RTOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -2205,6 +2213,196 @@ def transfer_phase(card: str, main_launches: dict) -> list:
     return entries
 
 
+# Phase 40, the scaling row at n_split 7 on the stencil path: the
+# benchmark's scale589824_ns7.v8_pcg configuration (8 levels, V-cycles of
+# degree-6 Chebyshev phases as PCG's preconditioner to 1e-6, dt 0.05) on
+# its stand-in mesh, 36 macros of C = 16,384 (1,769,472 DOF), float32; and
+# in float64 on 12 of its macros (196,608 pairs, which the float64 plan
+# streams), held to the port's plain version on the CPU
+SCALE_MESH = (6, 3, 1 / 6, 1 / 6)
+SCALE_F64_MESH = (3, 2, 1 / 6, 1 / 6)
+SCALE_FIELDS = dict(n_split=7, multi_levels=8, cycle_type="v",
+                    cheb_degree=6, krylov=True, krylov_tol=1e-6, dt=0.05)
+# the float64 step on the card against the CPU's: two summation orders of
+# K1's rounds, through a PCG solve to 1e-6, differ by rounding alone
+SCALE_F64_RTOL = 1e-9
+# seeded states of the float32 run: two episodes of two steps (the row's
+# ntime), the benchmark's traffic waves
+SCALE_SEED = 3000002440
+SCALE_MIX = {"initial_states": 2, "waves": [[1, 0], [0, 1], [1, 1], [2, 1],
+                                            [1, 2], [2, 2]]}
+
+
+def scale_phase(card: str) -> dict:
+    """Phase 40: n_split 7 on the stencil path.  (a) float64 on 12 macros:
+    one step from a seeded state on the card and on the CPU, the card's
+    through K1 (its fine level in the streaming tier) and the
+    preconditioner's CUDA graph (``MG_GRAPH``, replayed within the solve),
+    within SCALE_F64_RTOL of the CPU's state, in as many PCG iterations.
+    (b) float32 at the cell's size: the set-up's stages, two episodes of
+    two steps, each step's rel_residual in the plain reference's float64
+    system (``pamg_bench.reference``) under the cell's limit, the streaming
+    launches and graph replays a step, ms a step, and one fine 7-round
+    phase with z of the streaming tier against its plain version, timed
+    (device us by torch.profiler, ms by CUDA events beside the plain
+    version's, least bytes over 3.35 TB/s).  Returns the kernels-line
+    entry of that phase."""
+    import numpy as np
+    import torch
+
+    from p_a_multigrids_tpu_torch.config import SemiConfig
+    from p_a_multigrids_tpu_torch.mesh import structured
+    from p_a_multigrids_tpu_torch.models import semi
+    from p_a_multigrids_tpu_torch.ops import phase as K
+    from p_a_multigrids_tpu_torch.utils import tracing
+    from p_a_multigrids_tpu_torch.utils.profiling import (
+        _trace, bound_ms, event_ms, least_bytes)
+    from pamg_bench import traffic
+    from pamg_bench.reference import check as ref_check, dg
+    dev = torch.device("cuda")
+
+    def counted():
+        snap = tracing.snapshot()
+        return {"stream": K.KERNEL.by_tier["stream"],
+                "stream_bytes": K.KERNEL.least_bytes_by_tier["stream"],
+                "k1": K.KERNEL.launches,
+                "replays": snap["counters"].get("mg_graph_replays", 0)}
+
+    def grown(before):
+        return {k: v - before[k] for k, v in counted().items()}
+
+    # (a) float64, card against CPU
+    cfg = SemiConfig(**SCALE_FIELDS, dtype="float64")
+    problem = semi.build_problem(structured.tri_mesh(*SCALE_F64_MESH), cfg)
+    sv = {d: semi.SemiSolver(problem, d) for d in (dev, "cpu")}
+    card_sv = sv[dev]
+    tier = K.KERNEL.plan(card_sv.ops[0]).tier
+    check(card_sv.stencil and card_sv.fused is None and tier == "stream",
+          f"n_split 7 float64: stencil {card_sv.stencil}, fine tier {tier}")
+    T0 = np.random.default_rng(40).normal(
+        size=(problem.num_macro, 4 ** 7, 3))
+    out = {}
+    for d, s in sv.items():
+        st = s.stepper()
+        c0 = counted()
+        x = st.step(st.to_state(torch.tensor(T0, device=s.device)))
+        out[d] = (st.from_state(x).cpu(), s.krylov_iters[-1], grown(c0))
+    (xg, its_g, n_g), (xc, its_c, n_c) = out[dev], out["cpu"]
+    rel = float((xg - xc).norm() / xc.norm())
+    say("main", phase=40, path="n_split7_f64", macros=problem.num_macro,
+        dof=3 * problem.num_macro * 4 ** 7, tier=tier, its=its_g,
+        cpu_its=its_c, rel_to_cpu=f"{rel:.3e}", launches=n_g,
+        cpu_launches=n_c, card=repr(card))
+    check(rel <= SCALE_F64_RTOL and its_g == its_c,
+          f"n_split 7 float64: {rel:.3e} from the CPU's state, {its_g} "
+          f"against {its_c} PCG iterations")
+    check(n_g["stream"] > 0 and n_g["replays"] > 0
+          and n_g["stream_bytes"] > 0 and n_c["k1"] == 0,
+          f"n_split 7 float64: launches {n_g}, on the CPU {n_c}")
+    del sv, card_sv, problem
+
+    # (b) float32 at the cell's size
+    tracing.reset()
+    t0 = time.time()
+    cfg = SemiConfig(**SCALE_FIELDS)
+    solver = semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(*SCALE_MESH), cfg), dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    stages = {n.rsplit(".", 1)[1]: round(v["s"], 2)
+              for n, v in tracing.snapshot()["stages"].items()}
+    op0 = solver.ops[0]
+    tier = K.KERNEL.plan(op0).tier
+    check(solver.stencil and solver.fused is None and tier == "stream"
+          and [op.C for op in solver.ops] == [4 ** k for k in range(7, -1,
+                                                                  -1)]
+          and solver.coarse_inv_t is not None,
+          f"n_split 7: stencil {solver.stencil}, fine tier {tier}")
+    X = dg.structured_macro_X(*SCALE_MESH)
+    ics = traffic.initial_states(dg.child_coords(X, 7), SCALE_MIX,
+                                 SCALE_SEED, dev, torch.float32)
+    st = solver.stepper()
+    pairs, its = [], []
+    c0 = counted()
+    for ic in ics:
+        S = st.to_state(ic)
+        for _ in range(2):
+            S_new = st.step(S)
+            pairs.append((st.from_state(S), st.from_state(S_new)))
+            its.append(solver.krylov_iters[-1])
+            S = S_new
+    n = grown(c0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for ic in ics:
+        S = st.to_state(ic)
+        for _ in range(2):
+            S = st.step(S)
+            float(st.convergence(S))
+    step_ms = (time.perf_counter() - t1) * 1e3 / (2 * len(ics))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "pamg_bench", "limits",
+                           "scale589824_ns7.v8_pcg.json")) as f:
+        limit = json.load(f)["rel_residual"]
+    reference = ref_check.SolveCheck(X, {**SCALE_FIELDS,
+                                         "dtype": "float32"})
+    numbers = [reference.number(a.double().cpu().numpy().reshape(-1),
+                                b.double().cpu().numpy().reshape(-1))
+               for a, b in pairs]
+    say("main", phase=40, path="n_split7_f32", macros=op0.U,
+        dof=3 * op0.C * op0.U, tier=tier, setup_s=f"{setup_s:.1f}",
+        stages=stages, its=its,
+        stream_per_step=n["stream"] / len(pairs),
+        replays_per_step=n["replays"] / len(pairs),
+        k1_per_step=n["k1"] / len(pairs), ms_per_step=f"{step_ms:.2f}",
+        rel_residual=[f"{v:.3e}" for v in numbers], limit=limit,
+        peak_MiB=f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f}",
+        card=repr(card))
+    check(all(v <= limit for v in numbers),
+          f"n_split 7: rel_residual {max(numbers):.3e} above {limit}")
+    check(n["stream"] > 0 and n["replays"] > 0,
+          f"n_split 7: launches {n}")
+
+    # the fine phase in the streaming tier, timed
+    rng = np.random.default_rng(41)
+
+    def rand():
+        return torch.tensor(rng.normal(size=(3, op0.C, op0.U)),
+                            dtype=torch.float32, device=dev)
+    x, bp = rand(), op0._bp(rand(), True)
+    coefs = solver._phase_coefs(0, cfg.n_smooth)
+    got = K.phase(op0, x, bp, coefs, True)
+    want = K.phase_reference(op0, x, bp, coefs, True)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    check(err <= 1e-4 * scale, f"n_split 7 fine phase: |K1 - plain| "
+          f"{err:.3e} > 1e-4 * {scale:.3e}")
+    run_k = lambda: K.phase(op0, x, bp, coefs, True)
+    run_p = lambda: K.phase_reference(op0, x, bp, coefs, True)
+    for fn in (run_k, run_p):
+        fn()
+    ms = {"plain": [], "kernel": []}
+    for label, fn in (("plain", run_p), ("kernel", run_k), ("kernel", run_k),
+                      ("plain", run_p)):
+        ms[label].append(event_ms(fn, 10))
+    k_us = sum(d for name, _, d in _trace(run_k, 10)
+               if "phase_kernel" in name) / 10
+    nbytes = least_bytes(op0, 4, 4)
+    t = {"ms": sum(ms["kernel"]) / 2, "plain_ms": sum(ms["plain"]) / 2,
+         "bound_ms": bound_ms(nbytes)}
+    say("time", phase=40, kernel="k1_phase_stream", C=op0.C, U=op0.U,
+        rounds=len(coefs) + 1, device_us=f"{k_us:.2f}", ms=f"{t['ms']:.5f}",
+        plain_ms=f"{t['plain_ms']:.5f}", least_MB=f"{nbytes / 1e6:.2f}",
+        bound_us=f"{1e3 * t['bound_ms']:.2f}",
+        roofline=f"{100 * 1e3 * t['bound_ms'] / k_us:.2f}%",
+        max_abs_err=f"{err:.3e}", card=repr(card))
+    return {"name": "k1_phase_stream", "route": "cuda",
+            "source": "p_a_multigrids_tpu_torch/csrc/phase.cu",
+            "replaces": "p_a_multigrids_tpu/ops/pallas_stencil.py:608",
+            "launches": n["stream"], "max_abs_err": err, "device_us": k_us,
+            "bound_by": "bytes", "library_ms": None, **t}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2226,10 +2424,11 @@ def main():
                                                  transport_rect)
     from p_a_multigrids_tpu_torch.ops import stencil
     from p_a_multigrids_tpu_torch.utils.profiling import (
-        BICGSTAB_ARGS, GS_ARGS, MODE1_ARGS, MODE6_ARGS, MODE6_N, MODE7_ARGS,
-        MODE8_ARGS, MODE10_ARGS, NSPLIT7_ARGS, REFERENCE9_ARGS,
-        RICHARDSON_ARGS, SWEEP_MESH, THETA_ARGS, amg_solver, bench_solver,
-        cli_solver, deep_amg_solver, bound_ms, bsr_matrix, event_ms,
+        BICGSTAB_ARGS, GS_ARGS, JAX_STENCIL_MAX_CHILDREN, MODE1_ARGS,
+        MODE6_ARGS, MODE6_N, MODE7_ARGS, MODE8_ARGS, MODE10_ARGS, NSPLIT7_ARGS,
+        REFERENCE9_ARGS, RICHARDSON_ARGS, SWEEP_MESH, THETA_ARGS, amg_solver,
+        bench_solver, cli_solver, cli_stencil_cap, deep_amg_solver, bound_ms,
+        bsr_matrix, event_ms,
         least_bytes, painted_mesh, rect_step, rowop_least_bytes,
         stencil_bsr_matrix, sweep_solver, transport_solver, _trace,
         kernel_class)
@@ -3263,31 +3462,34 @@ def main():
 
     # 24. (c) the non-stencil path at n_split 7: 8 macros of C = 16,384
     # (393,216 DOF), Chebyshev through the fused operator, the 24,576-DOF
-    # coarsest by coarse sweeps.  On the TPU this path ran XLA alone: no K1
-    # and no K2 launch here either --------------------------------------
-    t0 = time.time()
-    ns_sv = cli_solver(dev, NSPLIT7_ARGS)
-    torch.cuda.synchronize()
-    ns_setup = time.time() - t0
-    check(not ns_sv.stencil and ns_sv.fused is not None
-          and [lv["C"] for lv in ns_sv.p.levels] == [16384, 4096, 1024]
-          and ns_sv.coarse_inv_t is None and ns_sv.agg is None,
-          "n_split 7: not the fused three-level path with coarse sweeps")
-    ns_ms, ns_step = step_ms(ns_sv)
-    del ns_sv
-    ns_out, ns_counts = drive(NSPLIT7_ARGS)
-    ns_cpu = cli.main(NSPLIT7_ARGS + ["--device", "cpu"])
-    say("main", path="mode9_n_split7", launches=ns_counts,
-        step_launches=ns_step, setup_seconds=f"{ns_setup:.2f}",
-        ms_per_step=f"{ns_ms:.4f}",
-        residual_history=ns_out["residual_history"],
-        cpu=ns_cpu["residual_history"],
-        jax_cpu=NSPLIT7_CLI["residual_history"],
-        L1_error=ns_out["L1_error"], cpu_L1_error=ns_cpu["L1_error"],
-        jax_L1_error=NSPLIT7_CLI["L1_error"], wall_s=ns_out["wall_s"],
-        cpu_wall_s=ns_cpu["wall_s"], card=repr(card))
-    check(ns_counts["k1_phase"] == 0 and ns_counts["k2_rowop"] == 0,
-          f"n_split 7 launched a kernel: {ns_counts}")
+    # coarsest by coarse sweeps, under the JAX package's stencil cap in
+    # the CLI's configuration (the port's own takes the stencil path there,
+    # phase 40).  On the TPU this path ran XLA alone: no K1 and no K2
+    # launch here either ------------------------------------------------
+    with cli_stencil_cap(JAX_STENCIL_MAX_CHILDREN):
+        t0 = time.time()
+        ns_sv = cli_solver(dev, NSPLIT7_ARGS)
+        torch.cuda.synchronize()
+        ns_setup = time.time() - t0
+        check(not ns_sv.stencil and ns_sv.fused is not None
+              and [lv["C"] for lv in ns_sv.p.levels] == [16384, 4096, 1024]
+              and ns_sv.coarse_inv_t is None and ns_sv.agg is None,
+              "n_split 7: not the fused three-level path with coarse sweeps")
+        ns_ms, ns_step = step_ms(ns_sv)
+        del ns_sv
+        ns_out, ns_counts = drive(NSPLIT7_ARGS)
+        ns_cpu = cli.main(NSPLIT7_ARGS + ["--device", "cpu"])
+        say("main", path="mode9_n_split7", launches=ns_counts,
+            step_launches=ns_step, setup_seconds=f"{ns_setup:.2f}",
+            ms_per_step=f"{ns_ms:.4f}",
+            residual_history=ns_out["residual_history"],
+            cpu=ns_cpu["residual_history"],
+            jax_cpu=NSPLIT7_CLI["residual_history"],
+            L1_error=ns_out["L1_error"], cpu_L1_error=ns_cpu["L1_error"],
+            jax_L1_error=NSPLIT7_CLI["L1_error"], wall_s=ns_out["wall_s"],
+            cpu_wall_s=ns_cpu["wall_s"], card=repr(card))
+        check(ns_counts["k1_phase"] == 0 and ns_counts["k2_rowop"] == 0,
+              f"n_split 7 launched a kernel: {ns_counts}")
     for ref_name, ref in (("plain CPU", ns_cpu), ("JAX CPU", NSPLIT7_CLI)):
         hold_to("n_split 7", ns_out, ref, ref_name, 0.02,
                 "residual_history")
@@ -3768,6 +3970,11 @@ def main():
     transfer_entries = transfer_phase(card, sweep6_transfer)
     say("transfer", phase=39, wall_s=f"{time.perf_counter() - t39:.1f}")
 
+    # 40. the scaling row at n_split 7 on the stencil path ----------------
+    t40 = time.perf_counter()
+    scale_entry = scale_phase(card)
+    say("scale", phase=40, wall_s=f"{time.perf_counter() - t40:.1f}")
+
     # bounds: the least bytes over the H100's 3.35 TB/s (a phase's coupling
     # blocks, x0, bp, x and z; the zero-round apply's coupling blocks, x
     # and z; a rowop's tables and vectors); a K1 phase has no library call,
@@ -3837,7 +4044,7 @@ def main():
         "ms": kt2["ms"], "plain_ms": kt2["plain_ms"],
         "bound_ms": kt2["bound_ms"], "bound_by": "bytes",
         "library_ms": kt2["library_ms"]}] + f64_entries
-        + transfer_entries}), flush=True)
+        + transfer_entries + [scale_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,7 +17,7 @@ Modes mirror the JAX package's CLI: 1 rectangular DG advection (the moving
 box), 2-6 the triangular-mesh transport solvers (2/4 explicit, 3/5
 implicit, 6 advection-diffusion; split depth 0), 7 semi explicit (theta =
 0), 8 semi direct (dense inverse), 9 semi multigrid (V-cycles or, with
---krylov, PCG / BiCGStab under --u; any --solver; at n_split >= 7 the
+--krylov, PCG / BiCGStab under --u; any --solver; at n_split >= 8 the
 non-stencil operator), 10 semi assembled (block-Jacobi sweeps over the BSR
 operator).  The macro mesh is a gmsh 2.x ASCII ``--mesh`` file, a gmsh
 ``.geo`` geometry (``mesh.geo.mesh_geo``), else the generated ``--rows`` x

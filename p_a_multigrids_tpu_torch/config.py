@@ -104,12 +104,15 @@ class SemiConfig:
     # non-stencil path; False applies models.semi.apply_A instead
     fast_operator: bool = True
     # exact block-stencil operator (ops/stencil.py), built when 4**n_split
-    # <= stencil_max_children; above it (n_split >= 7) the non-stencil path
+    # <= stencil_max_children; above it (n_split >= 8) the non-stencil path
     # runs.  stencil_probe builds the blocks by basis probing of apply_A
-    # instead of the closed form
+    # instead of the closed form.  The cap is the port's one departure from
+    # the JAX package's defaults (4096 there, where the TPU's stencil cost
+    # outgrew its benefit): 4**7, the deepest split of the reference's
+    # scaling study, whose fine level kernel K1 streams
     stencil_operator: bool = True
     stencil_probe: bool = False
-    stencil_max_children: int = 4096
+    stencil_max_children: int = 16384
     # macro-pack factor of coarse levels.  A pure relabeling whose only
     # purpose was fewer TPU grid steps; the port accepts it and does not
     # pack (results equal the packed run, tests/test_torch_semi.py).

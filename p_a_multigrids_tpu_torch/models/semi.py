@@ -25,7 +25,8 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
   and the bare time step's cycles of a geometric-only hierarchy with K1
   phases each replay as one CUDA graph (``_precond_t``, ``_cycles_t``,
   ``ops.cuda_graph``).
-- Above ``stencil_max_children`` children a macro (n_split >= 7), or with
+- Above ``stencil_max_children`` children a macro (n_split >= 8 by
+  default; the JAX package's cap of 4,096 stopped at n_split 7), or with
   ``stencil_operator=False``, the operator is ``ops.fused.FusedOperator``
   (or ``apply_A``) in plain PyTorch, as it was XLA on the TPU.
 - The smoothed-aggregation hierarchy (``ops.agg``) corrects the finest
@@ -35,7 +36,8 @@ Port of the stencil path of the JAX package's ``models/semi.py``:
 - The coarse levels are assembled geometrically or, with
   ``coarse_operator="galerkin"``, as P^T A P (``ops.galerkin``), at any
   split depth (the level sweep runs n_split 5: C = 1024 children per
-  macro).
+  macro; the scaling study's deepest row n_split 7, C = 16,384, whose
+  fine phases K1 runs in its streaming tier).
 
 With ``debug`` the step is a checked step (``utils.debugging``): the
 index tables are range-checked when the solver is built, the state is
@@ -499,15 +501,14 @@ def _transfer_tables(n_coarse: int):
     parent = np.zeros((Cf,), np.int32)
     for cc in range(Cc):
         parent[fine_of[cc]] = cc
-    pweights = np.zeros((Cf, 3, 3))
-    for fc in range(Cf):
-        cc = parent[fc]
-        V = cv[cc].astype(float) * 2.0                   # coarse verts, fine units
-        A = np.stack([V[0] - V[2], V[1] - V[2]], axis=1)  # (2, 2)
-        for l in range(3):
-            p = fv[fc, l].astype(float)
-            ab = np.linalg.solve(A, p - V[2])
-            pweights[fc, l] = [ab[0], ab[1], 1.0 - ab.sum()]
+    # the parent's vertices in fine units, (Cf, 3, 2)
+    V = cv[parent].astype(float) * 2.0
+    A = np.stack([V[:, 0] - V[:, 2], V[:, 1] - V[:, 2]], axis=2)  # (Cf, 2, 2)
+    rhs = fv.astype(float) - V[:, 2:3]                   # (Cf, 3, 2)
+    # one 2x2 solve a (fine child, local node), batched
+    ab = np.linalg.solve(A[:, None], rhs[..., None])[..., 0]    # (Cf, 3, 2)
+    pweights = np.concatenate(
+        [ab, 1.0 - (ab[..., :1] + ab[..., 1:])], axis=-1)
     return fine_of, parent, pweights
 
 
@@ -618,7 +619,7 @@ class SemiSolver(nn.Module):
       ``ops.smoothers`` over the operator, each apply a zero-round K1
       phase (``_smooth_t``);
     - the non-stencil path (``stencil_operator=False``, or 4**n_split above
-      ``stencil_max_children``: n_split >= 7): the same cycle over
+      ``stencil_max_children``: n_split >= 8 by default): the same cycle over
       ``ops.fused.FusedOperator`` (``fast_operator``) or ``apply_A``, with
       exact block inverses for Chebyshev and block-Jacobi.  It builds no
       SA hierarchy and launches no kernel.

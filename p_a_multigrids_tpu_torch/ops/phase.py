@@ -61,6 +61,20 @@ def resident_bytes(itemsize: int) -> int:
     return 30 * itemsize + 40
 
 
+def least_bytes(op: StencilOperator, itemsize: int = 4,
+                planes: int = 4) -> int:
+    """Bytes one K1 launch on op must move at least, whatever its rounds:
+    one premultiplied 3x3 coupling block a face, Fp across the 3C - nb
+    faces inside a macro and Xp across the nb strip faces (27 values a
+    child; Fp of a strip face is zero and not counted, so at C = 1, where
+    every face is a strip face, only Xp), and ``planes`` state planes of 3
+    values a child: a phase reads x0 and bp and writes x and z (4); the
+    zero-round apply z = -D^-1 A x needs only x in and z out (2), so the
+    bp it reads and the x it writes are its waste, not its bound.  Index
+    tables not counted."""
+    return (27 + 3 * planes) * op.C * op.U * itemsize
+
+
 def small_bytes(itemsize: int) -> int:
     """``resident_bytes`` plus the pair's state of two rounds (6 values),
     which the small tier keeps on chip too: 184 in float32, 328 in
@@ -125,16 +139,19 @@ class PhaseKernel:
 
     ``launches`` grows by one for every kernel launch and nowhere else (one
     per phase of up to MAX_ROUNDS rounds), ``rounds`` by the rounds that
-    launch ran, ``by_tier[tier]`` by one for a launch in that tier;
-    ``launches_deep`` counts the launches on a level with C > ``DEEP_C``
-    children (the TPU's ``PhaseOperatorResident`` regime).  The library is
+    launch ran, ``by_tier[tier]`` by one for a launch in that tier and
+    ``least_bytes_by_tier[tier]`` by the least bytes that launch must move
+    (``least_bytes``); ``launches_deep`` counts the
+    launches on a level with C > ``DEEP_C`` children (the TPU's
+    ``PhaseOperatorResident`` regime).  The library is
     built at the first launch (``cuda_build.load``).  A checked instance
     (``plan_from`` the unchecked one) builds the source with
     ``-DPAMG_CHECKED`` and plans its launches with the unchecked build's
     limits, so that both builds run the same plan."""
 
     # the launch counters (a CUDA graph's replay adds to them)
-    COUNTERS = ("launches", "launches_deep", "rounds", "by_tier")
+    COUNTERS = ("launches", "launches_deep", "rounds", "by_tier",
+                "least_bytes_by_tier")
 
     def __init__(self, plan_from: "PhaseKernel | None" = None):
         self.checked = plan_from is not None
@@ -143,6 +160,7 @@ class PhaseKernel:
         self.launches_deep = 0
         self.rounds = 0
         self.by_tier = dict.fromkeys(TIERS, 0)
+        self.least_bytes_by_tier = dict.fromkeys(TIERS, 0)
         self.build_info: dict | None = None
         self._lib = None
         self._limits: dict[tuple, tuple] = {}
@@ -152,6 +170,7 @@ class PhaseKernel:
         """Set every count to 0."""
         self.launches = self.launches_deep = self.rounds = 0
         self.by_tier = dict.fromkeys(TIERS, 0)
+        self.least_bytes_by_tier = dict.fromkeys(TIERS, 0)
 
     def function(self, dtype: torch.dtype = torch.float32):
         """The library's entry for state of ``dtype`` (built and bound at
@@ -210,11 +229,12 @@ class PhaseKernel:
         return self._plans[key]
 
     def launch(self, op: StencilOperator, x, bp, buf0, buf1, z_out,
-               coefs, plan: PhasePlan, stream: int):
+               coefs, plan: PhasePlan, stream: int, nbytes: int):
         """Launch one phase of len(coefs) rounds (a ctypes array of the
         state's scalar) on ``stream``: round r reads x (r = 0) or the
         buffer round r - 1 wrote, writes buf0 (r even) or buf1 (r odd), and
-        the last round writes z_out unless it is None.  A checked instance records its
+        the last round writes z_out unless it is None; ``nbytes`` is the
+        least bytes the launch must move.  A checked instance records its
         first fault in the error record of op's sanitizer site."""
         fn = self.function(x.dtype)
         record, site = None, 0
@@ -236,6 +256,7 @@ class PhaseKernel:
         self.launches += 1
         self.rounds += len(coefs)
         self.by_tier[plan.tier] += 1
+        self.least_bytes_by_tier[plan.tier] += nbytes
         if op.C > DEEP_C:
             self.launches_deep += 1
 
@@ -254,10 +275,9 @@ _WATCHES: list = []
 def watch():
     """Yields a list to which every call of ``phase_on_tier`` made inside
     the block that launches K1 appends the least bytes it must move
-    (``utils.profiling.least_bytes``: the zero-round apply 2 state planes,
-    a phase 3, and 4 with z), as a CUDA graph's capture records its K1
-    calls (``models/semi``)."""
-    from ..utils import profiling  # noqa: F401  (loaded before the block)
+    (``least_bytes``: the zero-round apply 2 state planes, a phase 3, and
+    4 with z), as a CUDA graph's capture records its K1 calls
+    (``models/semi``)."""
     calls: list = []
     _WATCHES.append(calls)
     try:
@@ -353,27 +373,42 @@ def phase_on_tier(op: StencilOperator, x_t, bp_t, coefs, want_z: bool,
         stream = torch.cuda.current_stream(x_t.device).cuda_stream
         kernel = KERNEL if site is None else CHECKED
         plan = kernel.plan(op, tier)
-        # the two ping-pong buffers (one for a single round) and z, in one
-        # allocation
-        n_bufs = min(2, sum(map(len, chunks)))
-        out = torch.empty((n_bufs + int(want_z),) + tuple(x_t.shape),
-                          dtype=x_t.dtype, device=x_t.device)
-        bufs, z = list(out[:n_bufs]), (out[n_bufs] if want_z else None)
-        src = x_t
         with tracing.span("pamg.k1"):
-            for k, chunk in enumerate(chunks):
-                # the launch writes buf0 first: never the buffer it reads
-                b0, b1 = bufs[0], bufs[-1]
-                if src is b0:
-                    b0, b1 = b1, b0
-                kernel.launch(op, src, bp_t, b0, b1,
-                              z if k == len(chunks) - 1 else None, chunk,
-                              plan, stream)
-                src = b0 if len(chunk) % 2 else b1
+            src, z = launch_chunks(kernel, op, x_t, bp_t, chunks,
+                                   bool(len(coefs)), want_z, plan, stream)
     if _WATCHES:
-        from ..utils.profiling import least_bytes
         planes = 3 + int(want_z) if len(coefs) else 2
         nbytes = least_bytes(op, x_t.element_size(), planes)
         for calls in _WATCHES:
             calls.append(nbytes)
+    return src, z
+
+
+def launch_chunks(kernel: PhaseKernel, op: StencilOperator, x_t, bp_t,
+                  chunks: tuple, rounds: bool, want_z: bool,
+                  plan: PhasePlan, stream: int):
+    """The launches of one phase on ``stream``, one for each chunk of its
+    step sizes (``_launch_rounds``), each reading the buffer the one before
+    wrote, and each given the least bytes it must move (``least_bytes``):
+    the zero-round apply (``rounds`` False) x in and z out, a phase's
+    launch x0, bp and x, and z in its last launch.  Returns (x, z), z
+    None without ``want_z``."""
+    itemsize = x_t.element_size()
+    # the two ping-pong buffers (one for a single round) and z, in one
+    # allocation
+    n_bufs = min(2, sum(map(len, chunks)))
+    out = torch.empty((n_bufs + int(want_z),) + tuple(x_t.shape),
+                      dtype=x_t.dtype, device=x_t.device)
+    bufs, z = list(out[:n_bufs]), (out[n_bufs] if want_z else None)
+    src = x_t
+    for k, chunk in enumerate(chunks):
+        # the launch writes buf0 first: never the buffer it reads
+        b0, b1 = bufs[0], bufs[-1]
+        if src is b0:
+            b0, b1 = b1, b0
+        last = k == len(chunks) - 1
+        planes = 3 + int(want_z and last) if rounds else 2
+        kernel.launch(op, src, bp_t, b0, b1, z if last else None, chunk,
+                      plan, stream, least_bytes(op, itemsize, planes))
+        src = b0 if len(chunk) % 2 else b1
     return src, z

@@ -386,7 +386,7 @@ def lam_max_estimate(data: StencilData, iters: int = 12,
     rng = np.random.default_rng(seed)
     v = rng.normal(size=(U, C, 3))
 
-    oh_all = data.cross_onehot.sum(axis=0)                  # (C, nb)
+    bnd_c = np.asarray(data.bnd_c)
     cn = splitting.child_neighbors(_split_depth(C))
     cn_safe = np.where(cn >= 0, cn, np.arange(C)[:, None])  # (C, 3)
 
@@ -400,7 +400,11 @@ def lam_max_estimate(data: StencilData, iters: int = 12,
         if nb:
             src = x.reshape(U * C, 3)[data.halo_src]        # (U, nb, 3)
             cs = np.einsum("usij,usj->usi", Xp, src)        # (U, nb, 3)
-            out += np.einsum("cs,usi->uci", oh_all, cs)
+            # each slot's term into its strip child, the slots of one
+            # child summed first and in slot order
+            cross = np.zeros_like(out)
+            np.add.at(cross, (slice(None), bnd_c), cs)
+            out += cross
         return out
 
     for _ in range(iters):

@@ -52,6 +52,12 @@ from ..ops.spmv import RowOp
 from ..ops.stencil import StencilData, StencilOperator, mul_blocks
 from . import partition
 
+# children a macro up to which the distributed solver builds its block
+# stencil: the JAX package's cap, which its distributed solver shares.  The
+# single-device cap (``SemiConfig.stencil_max_children``) goes further, to
+# n_split 7; no distributed run at that depth has been made
+DIST_MAX_CHILDREN = 4096
+
 
 def _ext_data(data: StencilData, U: int, C: int, lo: int,
               U_ext: int) -> StencilData:
@@ -200,7 +206,8 @@ class DistributedStencilSolver:
                 "distributed level tables assume unpacked levels: run "
                 "with coarse_pack=1")
         if not (cfg.stencil_operator
-                and 4 ** cfg.n_split <= cfg.stencil_max_children):
+                and 4 ** cfg.n_split <= min(cfg.stencil_max_children,
+                                            DIST_MAX_CHILDREN)):
             raise ValueError("stencil operator disabled for this config")
         if cfg.debug:
             raise ValueError("the checked step (debug) runs on one device "

@@ -78,6 +78,7 @@ from ..config import SemiConfig
 from ..mesh import structured
 from ..models import semi
 from ..ops import phase as K
+from ..ops.phase import least_bytes
 from ..ops import spmv as K2
 from ..ops.fused import to_t
 from ..ops.spmv import RowOp
@@ -245,20 +246,6 @@ def operator_roofline(U: int, C: int, nloc: int, seconds: float,
     return Roofline(flops=2.0 * nnz,
                     bytes_moved=dtype_bytes * (nnz + 3 * E * nloc),
                     seconds=seconds)
-
-
-def least_bytes(op: StencilOperator, itemsize: int = 4,
-                planes: int = 4) -> int:
-    """Bytes one K1 launch on op must move at least, whatever its rounds:
-    one premultiplied 3x3 coupling block a face, Fp across the 3C - nb
-    faces inside a macro and Xp across the nb strip faces (27 values a
-    child; Fp of a strip face is zero and not counted, so at C = 1, where
-    every face is a strip face, only Xp), and ``planes`` state planes of 3
-    values a child: a phase reads x0 and bp and writes x and z (4); the
-    zero-round apply z = -D^-1 A x needs only x in and z out (2), so the
-    bp it reads and the x it writes are its waste, not its bound.  Index
-    tables not counted."""
-    return (27 + 3 * planes) * op.C * op.U * itemsize
 
 
 def rowop_least_bytes(op: RowOp, itemsize: int = 4) -> int:
@@ -518,6 +505,27 @@ def cli_solver(device, argv=CLI_MAIN) -> semi.SemiSolver:
     return cli.setup(list(argv) + ["--device", str(device)])[2]
 
 
+# the JAX package's stencil cap (its SemiConfig default): 4**6 children a
+# macro, so its CLI ran n_split 7 on the non-stencil (fused) path
+JAX_STENCIL_MAX_CHILDREN = 4096
+
+
+@contextlib.contextmanager
+def cli_stencil_cap(cap: int = JAX_STENCIL_MAX_CHILDREN):
+    """Inside the block the CLI builds its SemiConfig with
+    ``stencil_max_children=cap`` (the CLI has no option for the field):
+    with the JAX package's cap, n_split 7 runs the fused path its CLI
+    ran."""
+    from .. import __main__ as cli
+    make = cli._semi_cfg
+    cli._semi_cfg = lambda args: dataclasses.replace(
+        make(args), stencil_max_children=cap)
+    try:
+        yield
+    finally:
+        cli._semi_cfg = make
+
+
 # The time-stepping paths of the other modes on the card, as CLI arguments
 # (no --device): mode 10's assembled operator (K2 at 131,072 x 4) and mode
 # 7's explicit step at 393,216 DOF (dt 5e-8: stable, the residual falls
@@ -544,7 +552,8 @@ MODE6_ARGS = ["--mode", "6", "--u", "1", "0", "--theta", "0.5", "--ntime",
 # corner-average restrictor) at 393,216 DOF; colored Gauss-Seidel and
 # Richardson with surface terms on the geometric CLI path, at the omegas
 # of the JAX package's tests/test_semi.py; Chebyshev through the fused
-# operator at n_split 7 (8 macros of C = 16,384, 393,216 DOF)
+# operator at n_split 7 (8 macros of C = 16,384, 393,216 DOF; with the JAX
+# package's stencil cap, ``cli_stencil_cap``)
 REFERENCE9_ARGS = ["--mode", "9", "--rows", "128", "--cols", "32",
                    "--n-split", "2", "--levels", "2", "--solver", "jacobi",
                    "--omega", "0.8", "--no-surface-terms", "--restrictor",
@@ -647,6 +656,11 @@ def step_profiles(device, steps: int = 3) -> dict:
     and mode 9 with BiCGStab and with Crank-Nicolson, one step a trace
     window, with the Krylov iterations a step where there are any."""
     from ..models import semi_assembled
+
+    def fused_n_split7():
+        with cli_stencil_cap():
+            return cli_solver(device, NSPLIT7_ARGS)
+
     out = {}
     makers = {
         "mode10": lambda: cli_solver(device, MODE10_ARGS),
@@ -658,7 +672,7 @@ def step_profiles(device, steps: int = 3) -> dict:
                                                      REFERENCE9_ARGS),
         "mode9_gauss_seidel": lambda: cli_solver(device, GS_ARGS),
         "mode9_richardson": lambda: cli_solver(device, RICHARDSON_ARGS),
-        "mode9_n_split7": lambda: cli_solver(device, NSPLIT7_ARGS)}
+        "mode9_n_split7": fused_n_split7}
     for name, make in makers.items():
         sv = make()
         T0 = sv.initial_condition()

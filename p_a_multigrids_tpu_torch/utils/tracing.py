@@ -19,7 +19,8 @@ _profiler_enabled``), true exactly while ``torch.profiler.profile``
 records.  The state is plain Python numbers, never a tensor.  This module
 imports only torch and the standard library, since ``ops`` and ``models``
 import it; ``snapshot()`` reads the kernels' launch counters
-(``ops.phase.KERNEL``, ``ops.spmv.KERNEL``) where those modules are
+(``ops.phase.KERNEL``, with its launches and least bytes by tier,
+``ops.spmv.KERNEL``, ``ops.transfer.KERNEL``) where those modules are
 loaded.
 """
 
@@ -114,12 +115,17 @@ def sync(flag) -> bool:
 def _kernel_counts() -> dict:
     """The launch counters of kernels K1 and K2 (and of their checked
     builds) and of the level-transfer kernels, read from their modules
-    where those are loaded."""
+    where those are loaded; K1's also by tier, with the least bytes of
+    those launches (``k1_by_tier``, ``k1_least_bytes_by_tier``: dicts
+    tier -> count)."""
     out = {}
     k1 = sys.modules.get(f"{_PKG}.ops.phase")
     if k1 is not None:
         out.update(k1_phase=k1.KERNEL.launches, k1_rounds=k1.KERNEL.rounds,
-                   k1_phase_checked=k1.CHECKED.launches)
+                   k1_phase_checked=k1.CHECKED.launches,
+                   k1_by_tier=dict(k1.KERNEL.by_tier),
+                   k1_least_bytes_by_tier=dict(
+                       k1.KERNEL.least_bytes_by_tier))
     k2 = sys.modules.get(f"{_PKG}.ops.spmv")
     if k2 is not None:
         out.update(k2_rowop=k2.KERNEL.launches,
@@ -132,8 +138,8 @@ def _kernel_counts() -> dict:
 
 def snapshot() -> dict:
     """The counters, the stages ({"calls", "s"}), the recorded spans
-    ({"calls", "host_us", "self_us"}) and the kernels' launch counts, as
-    plain Python data."""
+    ({"calls", "host_us", "self_us"}) and the kernels' launch counts (and
+    K1's by tier, ``_kernel_counts``), as plain Python data."""
     return {
         "counters": dict(_counters),
         "stages": {n: {"calls": c, "s": s} for n, (c, s) in _stages.items()},

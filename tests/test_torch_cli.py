@@ -104,10 +104,16 @@ def test_n_split7_cli_matches_recorded_jax():
     ``python -m p_a_multigrids_tpu --mode 9 --n-split 7 --rows 1 --cols 1
     --levels 2 --ntime 1 --cpu --f64`` (it takes about 25 s there, too long
     to rerun here; tests/test_torch_semi.py holds the same code at n_split
-    2 through stencil_operator=False against the live JAX package)."""
-    got = tcli.main(["--mode", "9", "--n-split", "7", "--rows", "1",
-                     "--cols", "1", "--levels", "2", "--ntime", "1",
-                     "--cpu", "--f64"])
+    2 through stencil_operator=False against the live JAX package).  The
+    JAX CLI ran its fused path there, below its stencil cap of 4,096
+    children; the port's CLI takes it with the same cap in its
+    configuration (``utils.profiling.cli_stencil_cap``), since its own
+    default takes the stencil path at n_split 7."""
+    from p_a_multigrids_tpu_torch.utils import profiling
+    with profiling.cli_stencil_cap(4096):
+        got = tcli.main(["--mode", "9", "--n-split", "7", "--rows", "1",
+                         "--cols", "1", "--levels", "2", "--ntime", "1",
+                         "--cpu", "--f64"])
     assert got["children"] == 16384 and got["elements"] == 2
     assert got["residual_history"] == pytest.approx([0.5774056933010983],
                                                     rel=1e-9)

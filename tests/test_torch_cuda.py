@@ -1242,6 +1242,66 @@ def test_mg_graph_counts_what_ran(sweep_cell_solvers):
             == transfer.KERNEL.launches)
 
 
+@pytest.fixture(scope="module")
+def streaming_solver():
+    """The benchmark's ``scale589824_ns7.v8_pcg`` configuration (n_split
+    7, 8 levels, float32) on 12 of its 36 macros: 196,608 (child, macro)
+    pairs at the finest level, more than K1's resident tier holds on an
+    H100, so that level streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the geometric preconditioner's "
+                    "graph runs only on the GPU")
+    import pathlib
+
+    from pamg_bench import spec
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cell = spec.load_cell(root, "scale589824_ns7.v8_pcg")
+    cfg = SemiConfig(**cell.semi_fields())
+    return semi.SemiSolver(semi.build_problem(
+        structured.tri_mesh(3, 2, 1 / 6, 1 / 6), cfg), torch.device("cuda"))
+
+
+def test_k1_bytes_by_tier_replay_equals_eager(streaming_solver):
+    """K1's least bytes by tier (``KERNEL.least_bytes_by_tier``): an eager
+    V-cycle of the n_split 7 hierarchy adds in each tier the least bytes
+    of its launches there (``utils.profiling.least_bytes`` of each call:
+    in the streaming tier the fine level's pre-smoothing phase with z and
+    its post-smoothing phase); the call that captures the preconditioner's
+    graph adds the same, and so does each replay, with the launches by
+    tier."""
+    from p_a_multigrids_tpu_torch.utils.profiling import least_bytes
+    solver = streaming_solver
+    op0 = solver.ops[0]
+    assert K.KERNEL.plan(op0).tier == "stream"
+    rs = _sweep_rhs(solver)
+
+    def counts():
+        return {**{f"launches_{t}": n for t, n in K.KERNEL.by_tier.items()},
+                **{f"bytes_{t}": n
+                   for t, n in K.KERNEL.least_bytes_by_tier.items()}}
+
+    def grown(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    n0 = counts()
+    with K.watch() as calls:
+        _eager_cycle(solver, rs[0])
+    eager = grown(n0, counts())
+    assert eager["launches_stream"] == 2
+    assert eager["bytes_stream"] == (least_bytes(op0, 4, 4)
+                                     + least_bytes(op0, 4, 3))
+    assert sum(eager[f"bytes_{t}"] for t in K.TIERS) == sum(calls)
+    n0 = counts()
+    solver._precond_t(rs[0])
+    torch.cuda.synchronize()
+    assert grown(n0, counts()) == eager
+    n0 = counts()
+    for r in rs:
+        solver._precond_t(r)
+    torch.cuda.synchronize()
+    assert grown(n0, counts()) == {k: len(rs) * v for k, v in eager.items()}
+
+
 def test_mg_graph_follows_the_sanitizer(sweep_cell_solvers):
     """Sites given to the levels' operators after a capture (a solver made
     checked after it ran) make the next call capture the checked K1 build

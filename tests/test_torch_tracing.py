@@ -250,7 +250,89 @@ def test_snapshot_reads_the_kernel_counters():
     assert k["k1_rounds"] == phase.KERNEL.rounds
     assert k["k2_rowop"] == spmv.KERNEL.launches
     assert k["transfer"] == transfer.KERNEL.launches
+    assert k["k1_by_tier"] == phase.KERNEL.by_tier
+    assert k["k1_least_bytes_by_tier"] == phase.KERNEL.least_bytes_by_tier
     json.dumps(tracing.snapshot())
+
+
+def _fake_kernel(monkeypatch):
+    """A K1 instance whose library entry launches nothing and reports
+    success, so that its counting runs on the CPU."""
+    from p_a_multigrids_tpu_torch.ops import phase
+    kernel = phase.PhaseKernel()
+    monkeypatch.setattr(kernel, "function", lambda dtype: lambda *a: 0)
+    return kernel
+
+
+# (step sizes, want_z): the zero-round apply, a phase with and without z,
+# and a phase longer than one launch takes (``ops.phase.MAX_ROUNDS``)
+K1_CALLS = [([], True), ([0.5] * 6, True), ([0.5] * 6, False),
+            ([0.5] * 70, True)]
+
+
+def test_k1_least_bytes_by_tier_count_each_launch(built, monkeypatch):
+    """K1's least bytes by tier grow on each launch by the bytes it must
+    move (``utils.profiling.least_bytes``): a one-launch call by the
+    call's own bytes, as a graph's capture reckons them (``ops.phase.
+    watch``: 2 state planes for the apply, 3 for a phase, 4 with z); the
+    launches of a longer phase each by 3 planes, its last with z by 4; in
+    the tier of the plan alone."""
+    from p_a_multigrids_tpu_torch.ops import phase
+    from p_a_multigrids_tpu_torch.utils.profiling import least_bytes
+    _, cycle, _, _ = built
+    op = cycle.ops[0]
+    kernel = _fake_kernel(monkeypatch)
+    plan = phase.phase_plan(op.C, op.U, 132, 232_448, 2, tier="stream")
+    x = torch.zeros((3, op.C, op.U))
+    for coefs, want_z in K1_CALLS:
+        before = dict(kernel.least_bytes_by_tier)
+        chunks = phase._launch_rounds(tuple(coefs), want_z, torch.float32)
+        n0 = kernel.by_tier["stream"]
+        _, z = phase.launch_chunks(kernel, op, x, x, chunks, bool(coefs),
+                                   want_z, plan, 0)
+        added = {t: n - before[t]
+                 for t, n in kernel.least_bytes_by_tier.items()}
+        planes = 3 + int(want_z) if coefs else 2
+        if len(chunks) == 1:
+            want = least_bytes(op, 4, planes)
+        else:
+            want = (len(chunks) - 1) * least_bytes(op, 4, 3) + least_bytes(
+                op, 4, planes)
+        assert added == {"small": 0, "resident": 0, "stream": want}
+        assert kernel.by_tier["stream"] - n0 == len(chunks)
+        assert (z is None) is not want_z
+
+
+def test_replay_credits_what_its_capture_counted(built, monkeypatch):
+    """A CUDA graph's replay adds to each kernel what its capture's
+    launches added (``ops.cuda_graph``: ``_counts`` before and after,
+    ``_delta``, then ``_credit`` on each replay), K1's least bytes and
+    launches by tier included."""
+    from p_a_multigrids_tpu_torch.ops import cuda_graph, phase
+    _, cycle, _, _ = built
+    op = cycle.ops[0]
+    captured = _fake_kernel(monkeypatch)
+    before = cuda_graph._counts(captured)
+    x = torch.zeros((3, op.C, op.U))
+    for tier in ("small", "stream", "stream"):
+        plan = phase.phase_plan(op.C, op.U, 132, 232_448, 2, tier=tier)
+        for coefs, want_z in K1_CALLS:
+            phase.launch_chunks(
+                captured, op, x, x,
+                phase._launch_rounds(tuple(coefs), want_z, torch.float32),
+                bool(coefs), want_z, plan, 0)
+    delta = cuda_graph._delta(cuda_graph._counts(captured), before)
+    replayed = phase.PhaseKernel()
+    for _ in range(3):
+        cuda_graph._credit(replayed, delta)
+    for name in phase.PhaseKernel.COUNTERS:
+        got, once = getattr(replayed, name), getattr(captured, name)
+        if isinstance(once, dict):
+            assert got == {t: 3 * n for t, n in once.items()}, name
+        else:
+            assert got == 3 * once, name
+    assert replayed.least_bytes_by_tier["stream"] == 2 * (
+        replayed.least_bytes_by_tier["small"])
 
 
 SNAP = {"counters": {"steps": 4, "host_syncs": 36, "sa_graph_replays": 20,
@@ -262,11 +344,17 @@ SNAP = {"counters": {"steps": 4, "host_syncs": 36, "sa_graph_replays": 20,
                      "step_graph_k1_least_bytes": 18 * 134_000},
         "stages": {"pamg.setup.problem": {"calls": 1, "s": 2.5},
                    "pamg.setup.solver": {"calls": 1, "s": 9.0},
-                   "pamg.setup.sa_hierarchy": {"calls": 1, "s": 6.0}},
+                   "pamg.setup.sa_hierarchy": {"calls": 1, "s": 6.0},
+                   "pamg.setup.stencils": {"calls": 1, "s": 5.5}},
         "spans": {"pamg.step": {"calls": 5, "host_us": 9e4, "self_us": 1e3},
                   "pamg.sync": {"calls": 45, "host_us": 1500.0,
                                 "self_us": 1500.0}},
-        "kernels": {"transfer": 1304}}
+        "kernels": {"transfer": 1304,
+                    "k1_by_tier": {"small": 900, "resident": 12,
+                                   "stream": 328},
+                    "k1_least_bytes_by_tier": {
+                        "small": 900 * 10_000, "resident": 12 * 5e6,
+                        "stream": 328 * 33_500_000}}}
 EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
 
 
@@ -276,7 +364,8 @@ EMPTY = {"counters": {}, "stages": {}, "spans": {}, "kernels": {}}
     ("setup_sa_hierarchy_s", 6.0), ("sa_graph_replays_per_step", 5.0),
     ("mg_graph_replays_per_step", 10.5),
     ("step_graph_replays_per_step", 0.75),
-    ("transfer_launches_per_step", 326.0)])
+    ("transfer_launches_per_step", 326.0),
+    ("k1_stream_launches_per_step", 82.0), ("setup_stencils_s", 5.5)])
 def test_metric_reader(name, want, monkeypatch):
     """Each of the benchmark's readers of the program's snapshot, on a
     hand-made one; None where its denominator is 0 or its stage absent."""
@@ -333,5 +422,29 @@ def test_step_graph_roofline_reader(monkeypatch):
                                     if not k.startswith("step_graph_")}}
     monkeypatch.setattr(tracing, "snapshot", lambda: mg_only)
     assert mod.read(record) is None
+    monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
+    assert mod.read(record) is None
+
+
+def test_stream_roofline_reader(monkeypatch):
+    """``k1_stream_hbm_roofline_share`` takes the traced K1 kernels of the
+    streaming tier (``phase_kernel<float, 2>``, eager or replayed alike)
+    at the program's least bytes per streaming launch: two of 100 us at
+    33,500,000 bytes each is 10% of 3.35 TB/s.  It reads None without K1's
+    bytes by tier, or without such a kernel."""
+    mod = spec.load_metric("k1_stream_hbm_roofline_share")
+    name = ("void (anonymous namespace)::phase_kernel<float, {}>((anonymous "
+            "namespace)::Args<float>)")
+    kernel = {"name": name.format(2), "cls": "k1_phase", "dur": 100.0,
+              "spans": {"step"}}
+    record = {"kernels": [
+        kernel, {**kernel, "spans": {"k1", "step"}},
+        {**kernel, "name": name.format(1), "dur": 50.0},
+        {"name": "rowop_lanes_kernel<float, 4>", "cls": "k2_rowop",
+         "dur": 50.0, "spans": {"step"}}]}
+    monkeypatch.setattr(tracing, "snapshot", lambda: SNAP)
+    assert mod.read(record) == pytest.approx(10.0)
+    assert mod.read({"kernels": record["kernels"][2:]}) is None
+    assert mod.read({}) is None
     monkeypatch.setattr(tracing, "snapshot", lambda: EMPTY)
     assert mod.read(record) is None

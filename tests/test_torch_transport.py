@@ -77,6 +77,10 @@ def test_solve_matches_jax(mode):
 
 
 def test_semi_cfg_matches_jax():
+    """Every field of the SemiConfig the transport modes build is the JAX
+    package's, but the stencil cap, each package's own default (the
+    port's one departure, ``tests/test_torch_setup.py``), which at their
+    split depth 0 takes the stencil path in both."""
     for kw in MODES.values():
         want = jtransport._semi_cfg(jcfg.TransportConfig(**kw),
                                     jcfg.ProblemFns())
@@ -84,6 +88,13 @@ def test_semi_cfg_matches_jax():
                                   tcfg.ProblemFns())
         for f in dataclasses.fields(got):
             if f.name in ("physics", "fns", "solver"):
+                continue
+            if f.name == "stencil_max_children":
+                assert (getattr(got, f.name), getattr(want, f.name)) == (
+                    tcfg.SemiConfig().stencil_max_children,
+                    jcfg.SemiConfig().stencil_max_children)
+                assert 4 ** got.n_split <= min(got.stencil_max_children,
+                                               want.stencil_max_children)
                 continue
             assert getattr(got, f.name) == getattr(want, f.name), f.name
         assert got.solver.value == want.solver.value
